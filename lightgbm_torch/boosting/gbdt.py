@@ -1,0 +1,242 @@
+"""GBDT: the boosting driver of the port.
+
+The port of the per-iteration path of lightgbm_tpu/boosting/gbdt.py
+(reference src/boosting/gbdt.{h,cpp}): BoostFromAverage (gbdt.cpp:302) ->
+objective gradients on the device -> one tree from the learner -> score
+update through the row -> leaf map -> shrinkage and the iteration-0 bias
+(gbdt.cpp:338-420). Model text IO follows gbdt_model_text.cpp
+(SaveModelToString :301, LoadModelFromString :385), so the two packages
+read each other's models; prediction is the numpy walk.
+
+Not in this slice (ROADMAP.md queue A): the K-iteration fused scan (a CUDA
+graph in the port), bagging/GOSS/DART/RF, validation sets and metrics,
+leaf renewal, multiclass.
+"""
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..config import Config
+from ..models.tree import Tree
+from ..objectives import parse_objective_string
+from ..treelearner.serial import SerialTreeLearner
+from ..utils.log import Log
+from .score_updater import ScoreUpdater
+
+K_EPSILON = 1e-15
+K_MODEL_VERSION = "v3"
+
+
+class GBDT:
+    """Gradient Boosting Decision Tree driver (gbdt.h), one tree per
+    iteration."""
+
+    def __init__(self):
+        self.config: Optional[Config] = None
+        self.train_data = None
+        self.objective = None
+        self.models: List[Tree] = []
+        self.iter = 0
+        self.num_class = 1
+        self.shrinkage_rate = 0.1
+        self.max_feature_idx = 0
+        self.label_idx = 0
+        self.feature_names: List[str] = []
+        self.feature_infos: List[str] = []
+        self.monotone_constraints: List[int] = []
+        self.train_score: Optional[ScoreUpdater] = None
+
+    # ------------------------------------------------------------------
+    def init(self, config: Config, train_data, objective, device) -> None:
+        self.config = config
+        self.train_data = train_data
+        self.objective = objective
+        self.iter = 0
+        self.num_class = int(config.num_class)
+        self.shrinkage_rate = float(config.learning_rate)
+        self.tree_learner = SerialTreeLearner(config, train_data, device)
+        self.max_feature_idx = train_data.num_total_features - 1
+        self.feature_names = list(train_data.feature_names)
+        self.feature_infos = [self._feature_info(m)
+                              for m in train_data.bin_mappers]
+        self.monotone_constraints = list(config.monotone_constraints)
+        self.train_score = ScoreUpdater(train_data.num_data, device,
+                                        train_data.metadata.init_score)
+
+    @staticmethod
+    def _feature_info(mapper) -> str:
+        """Dataset::get feature_infos: [min:max]."""
+        if mapper.is_trivial:
+            return "none"
+        return "[%s:%s]" % (repr(float(mapper.min_val)),
+                            repr(float(mapper.max_val)))
+
+    def boost_from_average(self) -> float:
+        """gbdt.cpp:302-336: the constant the first iteration starts from."""
+        if (not self.models and not self.train_score.has_init_score
+                and self.objective is not None
+                and (self.config.boost_from_average
+                     or self.train_data.num_features == 0)):
+            init_score = self.objective.boost_from_score(0)
+            if abs(init_score) > K_EPSILON:
+                self.train_score.add_const(init_score)
+                Log.info("Start training from score %f" % init_score)
+                return init_score
+        return 0.0
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration; True when training should STOP (no
+        splittable leaves), mirroring gbdt.cpp:338-420."""
+        if self.objective is None:
+            Log.fatal("No objective function provided")
+        init_score = self.boost_from_average()
+        grad, hess = self.objective.get_gradients(self.train_score.score)
+        tree = None
+        if (self.objective.class_need_train(0)
+                and self.train_data.num_features > 0):
+            arrays, row_leaf = self.tree_learner.train_arrays(grad, hess)
+            if arrays.num_leaves > 1:
+                tree = Tree.from_grower(arrays, self.train_data)
+                self.train_score.add_tree(arrays.leaf_value[:tree.num_leaves],
+                                          row_leaf, self.shrinkage_rate)
+                tree.shrink(self.shrinkage_rate)
+                if abs(init_score) > K_EPSILON:
+                    tree.add_bias(init_score)
+        if tree is not None:
+            self.models.append(tree)
+            self.iter += 1
+            return False
+        if not self.models:
+            # a constant tree, kept only at the start (gbdt.cpp:396-411)
+            tree = Tree(1)
+            tree.leaf_value[0] = (init_score
+                                  if self.objective.class_need_train(0)
+                                  else self.objective.boost_from_score(0))
+            self.models.append(tree)
+        Log.warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements")
+        return True
+
+    # ------------------------------------------------------------------
+    def _used_models(self, start_iteration=0, num_iteration=-1):
+        total = len(self.models)
+        start = max(0, min(int(start_iteration), total))
+        end = (min(start + int(num_iteration), total)
+               if num_iteration is not None and num_iteration > 0 else total)
+        return self.models[start:end]
+
+    def predict_raw(self, X: np.ndarray, start_iteration=0,
+                    num_iteration=-1) -> np.ndarray:
+        """Raw scores [N] (PredictRaw) by the numpy walk."""
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        out = np.zeros(X.shape[0])
+        for tree in self._used_models(start_iteration, num_iteration):
+            out += tree.predict(X)
+        return out
+
+    def predict(self, X: np.ndarray, raw_score=False, start_iteration=0,
+                num_iteration=-1) -> np.ndarray:
+        raw = self.predict_raw(X, start_iteration, num_iteration)
+        if not raw_score and self.objective is not None:
+            return self.objective.convert_output(raw)
+        return raw
+
+    def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
+        """Split counts per feature (GBDT::FeatureImportance, "split")."""
+        imp = np.zeros(self.max_feature_idx + 1)
+        for tree in self._used_models(0, num_iteration):
+            for k in range(tree.num_leaves - 1):
+                if tree.split_gain[k] > 0:
+                    imp[tree.split_feature[k]] += 1.0
+        return imp
+
+    # ------------------------------------------------------------------
+    def save_model_to_string(self, start_iteration=0, num_iteration=-1) -> str:
+        buf = ["tree",
+               "version=%s" % K_MODEL_VERSION,
+               "num_class=%d" % self.num_class,
+               "num_tree_per_iteration=1",
+               "label_index=%d" % self.label_idx,
+               "max_feature_idx=%d" % self.max_feature_idx]
+        if self.objective is not None:
+            buf.append("objective=%s" % self.objective.to_string())
+        buf.append("feature_names=%s" % " ".join(self.feature_names))
+        if self.monotone_constraints:
+            buf.append("monotone_constraints=%s" % " ".join(
+                str(int(m)) for m in self.monotone_constraints))
+        buf.append("feature_infos=%s" % " ".join(self.feature_infos))
+        models = self._used_models(start_iteration, num_iteration)
+        tree_strs = ["Tree=%d\n%s\n" % (i, t.to_string())
+                     for i, t in enumerate(models)]
+        buf.append("tree_sizes=%s" % " ".join(str(len(s)) for s in tree_strs))
+        buf.append("")
+        text = "\n".join(buf) + "\n" + "".join(tree_strs) + "end of trees\n"
+        imp = self.feature_importance(num_iteration)
+        pairs = sorted(((int(imp[i]), self.feature_names[i])
+                        for i in range(len(imp)) if imp[i] > 0),
+                       key=lambda p: -p[0])
+        text += "\nfeature importances:\n"
+        text += "".join("%s=%d\n" % (name, v) for v, name in pairs)
+        params = ""
+        if self.config is not None:
+            params = json.dumps({k: v for k, v in self.config.to_dict().items()
+                                 if not callable(v)}, default=str)
+        text += "\nparameters:\n%s\nend of parameters\n" % params
+        return text
+
+    def load_model_from_string(self, text: str) -> None:
+        """GBDT::LoadModelFromString (gbdt_model_text.cpp:385+)."""
+        self.models = []
+        lines = text.splitlines()
+        kv: Dict[str, str] = {}
+        i = 0
+        while i < len(lines):
+            line = lines[i].strip()
+            if line.startswith("Tree="):
+                break
+            if "=" in line:
+                k, v = line.split("=", 1)
+                kv[k] = v
+            elif line:
+                kv[line] = ""
+            i += 1
+        if "num_class" not in kv:
+            Log.fatal("Model file doesn't specify the number of classes")
+        self.num_class = int(kv["num_class"])
+        if int(kv.get("num_tree_per_iteration", self.num_class)) != 1 \
+                or "average_output" in kv:
+            Log.fatal("only one tree per iteration without averaging is "
+                      "ported yet (ROADMAP.md queue A, item 17: other "
+                      "objectives; item 7: other boosting modes)")
+        self.label_idx = int(kv.get("label_index", 0))
+        self.max_feature_idx = int(kv.get("max_feature_idx", 0))
+        self.feature_names = kv.get("feature_names", "").split()
+        self.feature_infos = kv.get("feature_infos", "").split()
+        if "monotone_constraints" in kv:
+            self.monotone_constraints = [
+                int(x) for x in kv["monotone_constraints"].split()]
+        if kv.get("objective"):
+            cfg = self.config if self.config is not None else Config({})
+            self.objective = parse_objective_string(kv["objective"], cfg)
+        blocks: List[List[str]] = []
+        cur: List[str] = []
+        for line in lines[i:]:
+            if line.startswith("Tree="):
+                if cur:
+                    blocks.append(cur)
+                cur = []
+            elif line.strip() == "end of trees":
+                if cur:
+                    blocks.append(cur)
+                break
+            else:
+                cur.append(line)
+        self.models = [Tree.from_string("\n".join(b)) for b in blocks]
+        self.iter = len(self.models)
+
+    @property
+    def current_iteration(self) -> int:
+        return len(self.models)

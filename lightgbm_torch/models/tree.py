@@ -1,0 +1,235 @@
+"""Learned decision tree: SoA arrays, numpy prediction, LightGBM model text.
+
+The port's copy of the numerical part of lightgbm_tpu/models/tree.py
+(reference include/LightGBM/tree.h:25, src/io/tree.cpp). ``from_grower``
+replays the grower's split records through Tree::Split's node numbering
+(tree.h:430-468: internal node k is created by split k, the left child
+keeps the split leaf's id, the right child is new leaf k+1, leaves encoded
+as ~leaf). Prediction is a vectorized numpy walk over all rows; the model
+text matches Tree::ToString field for field, so the two packages read each
+other's models.
+
+decision_type byte (tree.h:19-23): bit0 categorical, bit1 default_left,
+bits 2-3 missing type (0 none / 1 zero / 2 nan). Categorical splits are not
+in this slice: a model text holding one is refused.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from ..utils.log import Log
+
+kCategoricalMask = 1
+kDefaultLeftMask = 2
+kZeroThreshold = 1e-35
+
+
+def _fmt(x: float) -> str:
+    """Double -> shortest round-trip string."""
+    return repr(float(x))
+
+
+def _fmt_g(x) -> str:
+    """%g-style float formatting used for gains/weights."""
+    return "%g" % float(x)
+
+
+def _fmt_arr(a, fmt=str) -> str:
+    return " ".join(fmt(x) for x in a)
+
+
+class Tree:
+    """One boosted tree in reference-compatible SoA form."""
+
+    def __init__(self, max_leaves: int):
+        L = max(int(max_leaves), 1)
+        self.num_leaves = 1
+        self.shrinkage = 1.0
+        ni = max(L - 1, 1)
+        self.split_feature_inner = np.zeros(ni, dtype=np.int32)
+        self.split_feature = np.zeros(ni, dtype=np.int32)
+        self.split_gain = np.zeros(ni, dtype=np.float64)
+        self.threshold_in_bin = np.zeros(ni, dtype=np.int32)
+        self.threshold = np.zeros(ni, dtype=np.float64)
+        self.decision_type = np.zeros(ni, dtype=np.int8)
+        self.left_child = np.zeros(ni, dtype=np.int32)
+        self.right_child = np.zeros(ni, dtype=np.int32)
+        self.internal_value = np.zeros(ni, dtype=np.float64)
+        self.internal_weight = np.zeros(ni, dtype=np.float64)
+        self.internal_count = np.zeros(ni, dtype=np.int32)
+        self.leaf_value = np.zeros(L, dtype=np.float64)
+        self.leaf_weight = np.zeros(L, dtype=np.float64)
+        self.leaf_count = np.zeros(L, dtype=np.int32)
+        self.leaf_parent = np.full(L, -1, dtype=np.int32)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_grower(cls, arrays, dataset) -> "Tree":
+        """Build from the grower's TreeArrays + the BinnedDataset that maps
+        inner features/bins to real ones."""
+        n_leaves = int(arrays.num_leaves)
+        t = cls(max(n_leaves, 1))
+        t.num_leaves = n_leaves
+        for k in range(n_leaves - 1):
+            leaf = int(arrays.split_leaf[k])
+            parent = t.leaf_parent[leaf]
+            if parent >= 0:
+                if t.left_child[parent] == ~leaf:
+                    t.left_child[parent] = k
+                else:
+                    t.right_child[parent] = k
+            inner_f = int(arrays.split_feature[k])
+            real_f = dataset.used_features[inner_f]
+            mapper = dataset.bin_mappers[real_f]
+            t.split_feature_inner[k] = inner_f
+            t.split_feature[k] = real_f
+            t.split_gain[k] = float(arrays.gain[k])
+            t.left_child[k] = ~leaf
+            t.right_child[k] = ~(k + 1)
+            t.leaf_parent[leaf] = k
+            t.leaf_parent[k + 1] = k
+            t.internal_value[k] = float(arrays.internal_value[k])
+            t.internal_count[k] = int(arrays.internal_count[k])
+            dt = np.int8(0)
+            if bool(arrays.default_left[k]):
+                dt |= kDefaultLeftMask
+            dt |= np.int8(int(mapper.missing_type) << 2)
+            bin_thr = int(arrays.threshold[k])
+            t.threshold_in_bin[k] = bin_thr
+            t.threshold[k] = mapper.bin_to_value(bin_thr)
+            t.decision_type[k] = dt
+        lv = np.asarray(arrays.leaf_value, dtype=np.float64)[:max(n_leaves, 1)]
+        t.leaf_value[:len(lv)] = np.where(np.isnan(lv), 0.0, lv)
+        t.leaf_count[:n_leaves] = np.asarray(arrays.leaf_count)[:n_leaves]
+        t.leaf_weight[:n_leaves] = np.asarray(arrays.leaf_weight)[:n_leaves]
+        t._fill_internal_weight()
+        return t
+
+    def _fill_internal_weight(self) -> None:
+        """internal_weight = subtree sum of hessians, bottom-up: node k's
+        children have index > k or are leaves."""
+        for k in range(self.num_leaves - 2, -1, -1):
+            lw = (self.leaf_weight[~self.left_child[k]]
+                  if self.left_child[k] < 0
+                  else self.internal_weight[self.left_child[k]])
+            rw = (self.leaf_weight[~self.right_child[k]]
+                  if self.right_child[k] < 0
+                  else self.internal_weight[self.right_child[k]])
+            self.internal_weight[k] = lw + rw
+
+    # ------------------------------------------------------------------
+    def shrink(self, rate: float) -> None:
+        """Tree::Shrinkage (tree.h:158-170)."""
+        self.leaf_value[:self.num_leaves] *= rate
+        self.internal_value[:max(self.num_leaves - 1, 0)] *= rate
+        self.shrinkage *= rate
+
+    def add_bias(self, val: float) -> None:
+        """Tree::AddBias (tree.h:172-183)."""
+        self.leaf_value[:self.num_leaves] += val
+        self.internal_value[:max(self.num_leaves - 1, 0)] += val
+
+    # ------------------------------------------------------------------
+    def predict_leaf(self, X: np.ndarray) -> np.ndarray:
+        """Vectorized GetLeaf over raw feature rows [N, F] -> leaf idx [N]."""
+        n = X.shape[0]
+        if self.num_leaves <= 1:
+            return np.zeros(n, dtype=np.int32)
+        node = np.zeros(n, dtype=np.int32)
+        active = np.arange(n)
+        while len(active):
+            nd = node[active]
+            go_left = self._decision(X[active, self.split_feature[nd]], nd)
+            nxt = np.where(go_left, self.left_child[nd], self.right_child[nd])
+            node[active] = nxt
+            active = active[nxt >= 0]
+        return (~node).astype(np.int32)
+
+    def _decision(self, fval: np.ndarray, node: np.ndarray) -> np.ndarray:
+        """Vectorized numerical Tree::Decision (tree.h:244-332)."""
+        dt = self.decision_type[node]
+        mt = (dt >> 2) & 3
+        default_left = (dt & kDefaultLeftMask) != 0
+        fv = fval.astype(np.float64)
+        isnan = np.isnan(fv)
+        fv = np.where(isnan & (mt != 2), 0.0, fv)
+        is_zero = np.abs(fv) <= kZeroThreshold
+        go_default = ((mt == 1) & is_zero) | ((mt == 2) & isnan)
+        cmp = fv <= self.threshold[node]
+        return np.where(go_default, default_left, cmp)
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        if self.num_leaves <= 1:
+            return np.full(X.shape[0], self.leaf_value[0])
+        return self.leaf_value[self.predict_leaf(X)]
+
+    # ------------------------------------------------------------------
+    def to_string(self) -> str:
+        """Tree::ToString (src/io/tree.cpp) — byte-compatible field list."""
+        n = self.num_leaves
+        ni = max(n - 1, 0)
+        buf = [
+            "num_leaves=%d" % n,
+            "num_cat=0",
+            "split_feature=" + _fmt_arr(self.split_feature[:ni]),
+            "split_gain=" + _fmt_arr(self.split_gain[:ni], _fmt_g),
+            "threshold=" + _fmt_arr(self.threshold[:ni], _fmt),
+            "decision_type=" + _fmt_arr(self.decision_type[:ni]),
+            "left_child=" + _fmt_arr(self.left_child[:ni]),
+            "right_child=" + _fmt_arr(self.right_child[:ni]),
+            "leaf_value=" + _fmt_arr(self.leaf_value[:n], _fmt),
+            "leaf_weight=" + _fmt_arr(self.leaf_weight[:n], _fmt),
+            "leaf_count=" + _fmt_arr(self.leaf_count[:n]),
+            "internal_value=" + _fmt_arr(self.internal_value[:ni], _fmt_g),
+            "internal_weight=" + _fmt_arr(self.internal_weight[:ni], _fmt_g),
+            "internal_count=" + _fmt_arr(self.internal_count[:ni]),
+            "shrinkage=%s" % _fmt_g(self.shrinkage),
+            "",
+        ]
+        return "\n".join(buf) + "\n"
+
+    @classmethod
+    def from_string(cls, text: str) -> "Tree":
+        """Parse a tree block (reference Tree::Tree(const char*, size_t*))."""
+        kv: Dict[str, str] = {}
+        for line in text.splitlines():
+            line = line.strip()
+            if not line or "=" not in line:
+                continue
+            k, v = line.split("=", 1)
+            kv[k] = v
+        n = int(kv["num_leaves"])
+        if int(kv.get("num_cat", 0)) > 0:
+            Log.fatal("model text holds categorical splits; they are not "
+                      "ported yet (ROADMAP.md queue A, item 4: general "
+                      "split scan)")
+        t = cls(max(n, 1))
+        t.num_leaves = n
+        t.shrinkage = float(kv.get("shrinkage", 1.0))
+
+        def parse(key, dtype, size):
+            if size <= 0 or key not in kv or not kv[key].strip():
+                return np.zeros(max(size, 1), dtype=dtype)
+            return np.array(kv[key].split(), dtype=np.float64).astype(dtype)
+
+        ni = n - 1
+        if ni > 0:
+            t.split_feature = parse("split_feature", np.int32, ni)
+            t.split_feature_inner = t.split_feature.copy()
+            t.split_gain = parse("split_gain", np.float64, ni)
+            t.threshold = parse("threshold", np.float64, ni)
+            t.threshold_in_bin = np.zeros(ni, dtype=np.int32)
+            t.decision_type = parse("decision_type", np.int8, ni)
+            t.left_child = parse("left_child", np.int32, ni)
+            t.right_child = parse("right_child", np.int32, ni)
+            t.internal_value = parse("internal_value", np.float64, ni)
+            t.internal_weight = parse("internal_weight", np.float64, ni)
+            t.internal_count = parse("internal_count", np.int32, ni)
+        t.leaf_value = parse("leaf_value", np.float64, n)[:max(n, 1)]
+        if "leaf_weight" in kv:
+            t.leaf_weight = parse("leaf_weight", np.float64, n)[:max(n, 1)]
+        if "leaf_count" in kv:
+            t.leaf_count = parse("leaf_count", np.int32, n)[:max(n, 1)]
+        return t

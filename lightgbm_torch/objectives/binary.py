@@ -1,0 +1,106 @@
+"""Binary log-loss objective.
+
+The port's counterpart of lightgbm_tpu/objectives/binary.py (reference
+src/objective/binary_objective.hpp:21-221): label-conditional +-1 encoding
+and per-class weights (is_unbalance / scale_pos_weight, :95-105), the
+sigmoid-scaled logistic grad/hess (:109-140) as torch ops on the score's
+device, and the BoostFromScore prior log-odds (:143-165).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.log import Log
+from .base import K_EPSILON, ObjectiveFunction, register
+
+
+@register
+class BinaryLogloss(ObjectiveFunction):
+    name = "binary"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = float(config.sigmoid)
+        if self.sigmoid <= 0.0:
+            Log.fatal("Sigmoid parameter %f should be greater than zero"
+                      % self.sigmoid)
+        self.is_unbalance = bool(config.is_unbalance)
+        self.scale_pos_weight = float(config.scale_pos_weight)
+        if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
+            Log.fatal("Cannot set is_unbalance and scale_pos_weight "
+                      "at the same time")
+        self.need_train = True
+        self._dev = {}
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        pos_mask = self.label > 0
+        cnt_positive = int(np.count_nonzero(pos_mask))
+        cnt_negative = num_data - cnt_positive
+        self.need_train = not (cnt_positive == 0 or cnt_negative == 0)
+        if not self.need_train:
+            Log.warning("Contains only one class")
+        Log.info("Number of positive: %d, number of negative: %d"
+                 % (cnt_positive, cnt_negative))
+        label_weights = [1.0, 1.0]   # [negative, positive]
+        if self.is_unbalance and cnt_positive > 0 and cnt_negative > 0:
+            if cnt_positive > cnt_negative:
+                label_weights[0] = cnt_positive / cnt_negative
+            else:
+                label_weights[1] = cnt_negative / cnt_positive
+        label_weights[1] *= self.scale_pos_weight
+        self.label_weights = label_weights
+        self._pos_mask = pos_mask
+        self._dev = {}
+
+    def _device_inputs(self, device):
+        """(pos_mask, weight) on `device`, uploaded once."""
+        key = str(device)
+        if key not in self._dev:
+            w = (torch.as_tensor(self.weight, device=device)
+                 if self.weight is not None else None)
+            self._dev[key] = (torch.as_tensor(self._pos_mask, device=device),
+                              w)
+        return self._dev[key]
+
+    def get_gradients(self, score):
+        """grad/hess in the score's dtype (f64 scores: f64 math, as the
+        JAX package computes them before the grower's f32 cast)."""
+        if not self.need_train:
+            z = torch.zeros_like(score)
+            return z, z
+        pos, weight = self._device_inputs(score.device)
+        sig = self.sigmoid
+        w_neg, w_pos = self.label_weights
+        y = torch.where(pos, 1.0, -1.0).to(score.dtype)
+        lw = torch.where(pos, w_pos, w_neg).to(score.dtype)
+        response = -y * sig / (1.0 + torch.exp(y * sig * score))
+        abs_resp = torch.abs(response)
+        g = response * lw
+        h = abs_resp * (sig - abs_resp) * lw
+        if weight is None:
+            return g, h
+        return g * weight, h * weight
+
+    def boost_from_score(self, class_id):
+        pos = self._pos_mask.astype(np.float64)
+        if self.weight is not None:
+            pavg = float(np.sum(pos * self.weight) / np.sum(self.weight))
+        else:
+            pavg = float(np.mean(pos))
+        pavg = min(pavg, 1.0 - K_EPSILON)
+        pavg = max(pavg, K_EPSILON)
+        initscore = float(np.log(pavg / (1.0 - pavg)) / self.sigmoid)
+        Log.info("[%s:BoostFromScore]: pavg=%f -> initscore=%f"
+                 % (self.name, pavg, initscore))
+        return initscore
+
+    def class_need_train(self, class_id):
+        return self.need_train
+
+    def convert_output(self, raw):
+        return 1.0 / (1.0 + np.exp(-self.sigmoid * raw))
+
+    def to_string(self):
+        return "%s sigmoid:%g" % (self.name, self.sigmoid)

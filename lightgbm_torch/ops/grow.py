@@ -1,0 +1,299 @@
+"""Leaf-wise (best-first) tree growth on a leaf-sorted row payload.
+
+The port of the JAX package's partitioned grower
+(lightgbm_tpu/ops/grow.py:_grow_tree_partitioned_jit:1352-1740), the
+reference's SerialTreeLearner::Train (src/treelearner/
+serial_tree_learner.cpp:149-196): repeat {pick the leaf with the best
+cached split -> partition its rows -> histogram the smaller child -> larger
+child = parent - smaller -> scan both children} until num_leaves - 1
+splits or no positive gain.
+
+The JAX grower is one jitted ``lax.while_loop``; here the loop is Python on
+the host, driving the device:
+
+  * the row payload (bins ``[N, G]`` uint8, grad, hess, original row id)
+    is kept leaf-sorted, so every leaf is a contiguous segment (the
+    OrderedBin/DataPartition analog). A split stably partitions its
+    segment (left rows first, each side in its old order) with
+    ``torch.nonzero`` + gathers;
+  * the smaller child's histogram comes from the ``hist_window`` kernel
+    over its segment, and the larger child is the parent minus it
+    (``smaller_is_left = left_count <= right_count`` from the candidate's
+    hessian-recovered counts, as grow.py:1518 decides before the
+    partition);
+  * both children are scanned by one ``scan_pair`` launch (B = 2); the
+    root by one launch at B = 1 (the JAX grower scans the root with the
+    general XLA scan, which gives the same split on the fast path);
+  * the cross-feature argmax and the candidate assembly
+    (grow.py:541-702) run on the host in numpy float32 on the kernel's
+    small ``[B, 8, Fp]`` output, so leaf selection needs no device work.
+
+The JAX package routes data below 65536 rows to its masked grower; the port
+routes every size here. Both give the same trees up to f32 summation order
+(grow.py:1363). Fast path only: f32 sums, no bagging, no forced splits, no
+categorical features, no monotone constraints (the tree learner refuses the
+rest).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..data.dataset import DeviceData
+from .histogram import hist_window
+from .scan import ScanLayout, pair_scalars, scan_pair
+from .split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, FeatureMeta,
+                    SplitCandidate, SplitParams, fix_histogram,
+                    leaf_output_unconstrained)
+
+F32 = np.float32
+
+
+class GrowConfig(NamedTuple):
+    """Static shape of a grower run."""
+    num_leaves: int
+    total_bins: int
+    num_features: int
+    scan_width: int     # widest feature: the scan's W
+    hist_width: int     # widest group: the histogram kernel's W
+    max_depth: int      # <= 0: unlimited
+
+
+class TreeArrays(NamedTuple):
+    """Split records + leaf state of one tree (numpy), as the JAX grower's
+    TreeArrays: everything the host needs to build a Tree."""
+    num_leaves: int
+    split_leaf: np.ndarray      # [L-1] i32 leaf index that was split
+    split_feature: np.ndarray   # [L-1] i32 inner feature index
+    threshold: np.ndarray       # [L-1] i32 local bin threshold
+    default_left: np.ndarray    # [L-1] bool
+    gain: np.ndarray            # [L-1] f32
+    internal_value: np.ndarray  # [L-1] f32 parent leaf output at split time
+    internal_count: np.ndarray  # [L-1] i32
+    leaf_value: np.ndarray      # [L] f32
+    leaf_count: np.ndarray      # [L] i32
+    leaf_weight: np.ndarray     # [L] f32 (sum of hessians)
+
+
+def tb_source_index(group_offset, total_bins: int, hist_width: int, device):
+    """[TB] index into a flattened [G * W] histogram: global bin -> (group,
+    group-local bin), the inverse of the JAX grower's gw_global map."""
+    offs = np.asarray(group_offset, np.int64)
+    widths = np.diff(np.append(offs, total_bins))
+    src = np.concatenate([g * hist_width + np.arange(widths[g])
+                          for g in range(len(offs))]) if len(offs) else \
+        np.zeros(0, np.int64)
+    return torch.as_tensor(src, device=device)
+
+
+def _empty_arrays(L: int) -> dict:
+    return dict(
+        split_leaf=np.zeros(L - 1, np.int32),
+        split_feature=np.full(L - 1, -1, np.int32),
+        threshold=np.zeros(L - 1, np.int32),
+        default_left=np.zeros(L - 1, bool),
+        gain=np.zeros(L - 1, F32),
+        internal_value=np.zeros(L - 1, F32),
+        internal_count=np.zeros(L - 1, np.int32),
+        leaf_value=np.zeros(L, F32),
+        leaf_count=np.zeros(L, np.int32),
+        leaf_weight=np.zeros(L, F32))
+
+
+def _assemble(out: np.ndarray, scal: np.ndarray, layout: ScanLayout,
+              lambda_l2, depth_child: int, max_depth: int):
+    """SplitCandidates from the kernel's [B, 8, Fp] output: the
+    cross-feature argmax (first maximum = smallest feature id) and the
+    scalar assembly of grow.py:650-683, in numpy float32."""
+    l2 = F32(lambda_l2)
+    cands = []
+    for b in range(out.shape[0]):
+        gains = out[b, 0]
+        bf = int(np.argmax(gains))
+        gain_b = gains[bf]
+        use_f = bool(out[b, 2, bf] > 0.5)
+        lg, lh, lc = out[b, 3, bf], out[b, 4, bf], out[b, 5, bf]
+        valid = bool(np.isfinite(gain_b))
+        if max_depth > 0:
+            valid &= depth_child < max_depth
+        sg, sh, cnt = scal[b, 0], scal[b, 1], scal[b, 2]
+        rg, rh, rc = sg - lg, sh - lh, cnt - lc
+        # an unsplittable child's outputs may divide by zero; they are
+        # never used (its gain is -inf)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            lo = leaf_output_unconstrained(lg, lh, l2)
+            ro = leaf_output_unconstrained(rg, rh, l2)
+        cands.append(SplitCandidate(
+            gain=gain_b if valid else F32(K_MIN_SCORE),
+            feature=bf if valid else -1,
+            threshold=int(out[b, 1, bf]) if valid else 0,
+            default_left=(not use_f and not bool(layout.forced_right[bf]))
+            if valid else True,
+            left_output=lo, right_output=ro,
+            left_sum_grad=lg, left_sum_hess=lh,
+            right_sum_grad=rg, right_sum_hess=rh,
+            left_count=int(np.floor(lc + F32(0.5))),
+            right_count=int(np.floor(rc + F32(0.5)))))
+    return cands
+
+
+def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
+                          hess: torch.Tensor, meta: FeatureMeta,
+                          params: SplitParams, feature_mask: np.ndarray,
+                          gc: GrowConfig, tb_src: torch.Tensor):
+    """Grow one tree. grad/hess: [N] tensors on the data's device (every
+    row is in the bag). Returns (TreeArrays, row_leaf [N] int32 tensor in
+    original row order)."""
+    device = data.bins.device
+    n, G = data.bins.shape
+    L, TB, F, W = gc.num_leaves, gc.total_bins, gc.num_features, gc.hist_width
+    l2 = F32(params.lambda_l2)
+    arr = _empty_arrays(L)
+    grad = grad.to(torch.float32).contiguous()
+    hess = hess.to(torch.float32).contiguous()
+    # f64 sums rounded to f32: the same value on every device
+    sum_grad = F32(grad.double().sum().item())
+    sum_hess = F32(hess.double().sum().item())
+    root_out = leaf_output_unconstrained(sum_grad, sum_hess, l2)
+    if F == 0 or TB == 0:
+        arr["leaf_value"][0] = root_out
+        arr["leaf_count"][0] = n
+        arr["leaf_weight"][0] = sum_hess
+        return (TreeArrays(num_leaves=1, **arr),
+                torch.zeros(n, dtype=torch.int32, device=device))
+
+    # ---- leaf-sorted payload (a fresh copy per tree) ----------------------
+    binsP = data.bins.clone()
+    gradP = grad.clone()
+    hessP = hess.clone()
+    ridP = torch.arange(n, device=device)
+
+    def hist_tb(start: int, length: int) -> torch.Tensor:
+        h = hist_window(binsP, gradP, hessP, start, length, W)   # [G, W, 2]
+        return h.reshape(G * W, 2)[tb_src]                        # [TB, 2]
+
+    def partition(s0: int, n_l: int, cand: SplitCandidate) -> int:
+        """Stable in-place partition of segment [s0, s0 + n_l) by the
+        DenseBin::Split decision (dense_bin.hpp:112, _go_left_decision):
+        the missing NaN bin / zero bin go the default direction, every
+        other bin compares local_bin <= threshold. Returns n_left."""
+        f = cand.feature
+        g = int(meta.group_of[f])
+        start, end = int(meta.bin_start[f]), int(meta.bin_end[f])
+        seg = slice(s0, s0 + n_l)
+        col = binsP[seg, g].to(torch.int32) + int(meta.group_offset[g])
+        in_range = (col >= start) & (col < end)
+        b = torch.where(in_range, col - start, int(meta.most_freq_bin[f]))
+        go_left = b <= cand.threshold
+        mt = int(meta.missing_type[f])
+        if mt == MISSING_NAN:
+            go_left = torch.where(b == end - start - 1, cand.default_left,
+                                  go_left)
+        elif mt == MISSING_ZERO:
+            go_left = torch.where(b == int(meta.default_bin[f]),
+                                  cand.default_left, go_left)
+        left = torch.nonzero(go_left).squeeze(1)
+        order = torch.cat([left, torch.nonzero(~go_left).squeeze(1)])
+        binsP[seg] = binsP[seg][order]
+        gradP[seg] = gradP[seg][order]
+        hessP[seg] = hessP[seg][order]
+        ridP[seg] = ridP[seg][order]
+        return int(left.numel())
+
+    # ---- root ---------------------------------------------------------------
+    root_hist = fix_histogram(hist_tb(0, n), sum_grad, sum_hess, *meta.fix)
+    layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
+                        meta.default_bin, meta.penalty, feature_mask,
+                        gc.scan_width, TB, device)
+    leaf_hist = torch.zeros((L, TB, 2), dtype=torch.float32, device=device)
+    leaf_hist[0] = root_hist
+
+    def evaluate(leaves, sgs, shs, cnts, depth_child):
+        rows = torch.as_tensor(leaves, device=device)
+        gb = leaf_hist[rows, :, 0][:, layout.gidx]              # [B, Fp, Wp]
+        hb = leaf_hist[rows, :, 1][:, layout.gidx]
+        scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
+                            params.min_gain_to_split,
+                            params.min_data_in_leaf,
+                            params.min_sum_hessian_in_leaf)
+        out = scan_pair(torch.as_tensor(scal, device=device), gb, hb,
+                        layout.keep_r, layout.keep_f, layout.valid_r,
+                        layout.valid_f, layout.aux)
+        return _assemble(out.cpu().numpy(), scal, layout, params.lambda_l2,
+                         depth_child, gc.max_depth)
+
+    best = [SplitCandidate.none() for _ in range(L)]
+    best_gain = np.full(L, K_MIN_SCORE, F32)
+    best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0)[0]
+    best_gain[0] = best[0].gain
+    leaf_start = np.zeros(L, np.int64)
+    leaf_nrows = np.zeros(L, np.int64)
+    leaf_nrows[0] = n
+    leaf_depth = np.zeros(L, np.int32)
+    arr["leaf_count"][0] = n
+    arr["leaf_value"][0] = root_out
+    arr["leaf_weight"][0] = sum_hess
+
+    s = 1
+    while s < L:
+        l = int(np.argmax(best_gain))
+        cand = best[l]
+        if not cand.gain > 0.0:
+            break
+        s0, n_l = int(leaf_start[l]), int(leaf_nrows[l])
+        smaller_is_left = cand.left_count <= cand.right_count
+        n_left = partition(s0, n_l, cand)
+        n_right = n_l - n_left
+        left_cnt = n_left                       # every row is in the bag
+        right_cnt = int(arr["leaf_count"][l]) - left_cnt
+
+        if smaller_is_left:
+            small = hist_tb(s0, n_left)
+            sm_g, sm_h = cand.left_sum_grad, cand.left_sum_hess
+        else:
+            small = hist_tb(s0 + n_left, n_right)
+            sm_g, sm_h = cand.right_sum_grad, cand.right_sum_hess
+        small = fix_histogram(small, sm_g, sm_h, *meta.fix)
+        larger = leaf_hist[l] - small
+        leaf_hist[l] = small if smaller_is_left else larger
+        leaf_hist[s] = larger if smaller_is_left else small
+
+        k = s - 1
+        arr["split_leaf"][k] = l
+        arr["split_feature"][k] = cand.feature
+        arr["threshold"][k] = cand.threshold
+        arr["default_left"][k] = cand.default_left
+        arr["gain"][k] = cand.gain
+        arr["internal_value"][k] = arr["leaf_value"][l]
+        arr["internal_count"][k] = arr["leaf_count"][l]
+
+        depth_child = int(leaf_depth[l]) + 1
+        for leaf, sh_, cnt_, val_, st_, nr_ in (
+                (l, cand.left_sum_hess, left_cnt, cand.left_output, s0,
+                 n_left),
+                (s, cand.right_sum_hess, right_cnt, cand.right_output,
+                 s0 + n_left, n_right)):
+            arr["leaf_weight"][leaf] = sh_
+            arr["leaf_count"][leaf] = cnt_
+            arr["leaf_value"][leaf] = val_
+            leaf_depth[leaf] = depth_child
+            leaf_start[leaf], leaf_nrows[leaf] = st_, nr_
+
+        cand_l, cand_r = evaluate(
+            [l, s], [cand.left_sum_grad, cand.right_sum_grad],
+            [cand.left_sum_hess, cand.right_sum_hess],
+            [left_cnt, right_cnt], depth_child)
+        best[l], best[s] = cand_l, cand_r
+        best_gain[l], best_gain[s] = cand_l.gain, cand_r.gain
+        s += 1
+
+    # per-row leaf ids in original row order, through the carried row ids
+    order = np.argsort(leaf_start[:s], kind="stable")
+    pos_leaf = torch.repeat_interleave(
+        torch.as_tensor(order.astype(np.int32), device=device),
+        torch.as_tensor(leaf_nrows[:s][order], device=device))
+    row_leaf = torch.empty(n, dtype=torch.int32, device=device)
+    row_leaf[ridP] = pos_leaf
+    return TreeArrays(num_leaves=s, **arr), row_leaf

@@ -1,0 +1,264 @@
+"""Fused best-split scan for a batch of children.
+
+The port of lightgbm_tpu/ops/pallas_scan.py: :class:`ScanLayout` (the
+per-tree masks, pallas_scan.py:623-690) and ``scan_pair``
+(pallas_scan.py:262, kernel ``_scan_kernel:128``). Fast-path semantics
+only: f32, L2 regularization, no monotone constraints, no L1, no
+max_delta_step; the tree learner refuses every other configuration.
+
+:func:`scan_pair` launches the CUDA kernel (``csrc/scan_pair.cu``) for
+tensors on the card and takes :func:`scan_pair_plain`, the same function in
+plain PyTorch, for tensors on the CPU.
+
+Outputs per (child, feature), ``[B, 8, Fp]``: penalized gain (-inf when the
+feature cannot split), local threshold, direction (1 = forward), the left
+side's (grad, hess, count) at that threshold, and a has-split flag.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..utils.log import LightGBMError
+from .split import K_EPSILON, leaf_gain
+
+NEG_INF = float("-inf")
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class ScanLayout:
+    """Per-tree dense layout + masks for the fused scan, built on the host
+    from the feature metadata and the tree's feature mask, then held on
+    the device. Mirrors the mask derivations of ops/split.py's
+    find_best_split_numerical in the JAX package."""
+
+    def __init__(self, bin_start, bin_end, missing_type, default_bin,
+                 penalty, feature_mask, W: int, tb: int, device):
+        F = len(bin_start)
+        self.F = F
+        self.W = W
+        self.Fp = Fp = _round_up(max(F, 8), 8)
+        self.Wp = Wp = _round_up(max(W, 128), 128)
+        pad = Fp - F
+
+        def col(a, dt=np.int64):
+            return np.pad(np.asarray(a, dt), (0, pad))[:, None]
+        start = col(bin_start)
+        nb = col(np.asarray(bin_end) - np.asarray(bin_start))
+        mt = col(missing_type)
+        d_local = col(default_bin)
+        fmask = np.pad(np.asarray(feature_mask, bool), (0, pad))
+        w = np.arange(Wp, dtype=np.int64)[None, :]
+        in_feat = (w >= 0) & (w < nb)
+
+        two_scan = (nb > 2) & (mt != 0)
+        skip_default = two_scan & (mt == 1)
+        na_as_missing = two_scan & (mt == 2)
+        is_na_bin = w == (nb - 1)
+        is_default_bin = w == d_local
+
+        excl_r = (na_as_missing & is_na_bin) | (skip_default & is_default_bin)
+        excl_f = skip_default & is_default_bin
+        keep_r = in_feat & ~excl_r
+        keep_f = in_feat & ~excl_f
+        valid_r = in_feat & (w <= nb - 2 - na_as_missing.astype(np.int64))
+        valid_r &= ~(skip_default & (w == d_local - 1))
+        valid_r &= fmask[:, None]
+        valid_f = two_scan & in_feat & (w <= nb - 2)
+        valid_f &= ~(skip_default & is_default_bin)
+        valid_f &= fmask[:, None]
+
+        def f32(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                   device=device)
+        self.gidx = torch.as_tensor(np.clip(start + w, 0, tb - 1),
+                                    device=device)              # [Fp, Wp]
+        self.keep_r = f32(keep_r)
+        self.keep_f = f32(keep_f)
+        self.valid_r = f32(valid_r)
+        self.valid_f = f32(valid_f)
+        aux = np.zeros((8, Fp), np.float32)
+        aux[0, :F] = np.asarray(penalty, np.float32)
+        self.aux = f32(aux)
+        # NaN-missing features of <= 2 bins never default left
+        # (feature_histogram.hpp:205)
+        nb1 = np.asarray(bin_end) - np.asarray(bin_start)
+        self.forced_right = np.pad(
+            (np.asarray(missing_type) == 2) & (nb1 <= 2), (0, pad))
+
+
+def pair_scalars(sum_grad, sum_hess, count, lambda_l2: float,
+                 min_gain_to_split: float, min_data_in_leaf: int,
+                 min_sum_hessian_in_leaf: float) -> np.ndarray:
+    """The [B, 8] f32 scalar block of a batch of children, in f32 exactly
+    as the JAX grower builds it (ops/grow.py:590-608). This is where the
+    general scan's sum_hess + 2*kEpsilon goes: not a no-op when a child's
+    hessians are all zero (it keeps cnt_factor finite)."""
+    f32 = np.float32
+    sg = np.asarray(sum_grad, f32)
+    sh = np.asarray(sum_hess, f32) + f32(2 * K_EPSILON)
+    cnt = np.asarray(count, f32)
+    l2 = f32(lambda_l2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cf = cnt / sh
+        mgs = leaf_gain(sg, sh, l2) + f32(min_gain_to_split)
+    B = sg.shape[0]
+    return np.stack([sg, sh, cnt, cf,
+                     np.full(B, f32(min_data_in_leaf)),
+                     np.full(B, f32(min_sum_hessian_in_leaf)),
+                     mgs, np.full(B, l2)], axis=1).astype(f32)
+
+
+def _prefix(x):
+    """Inclusive prefix sums along the lanes, accumulated in f64 and
+    rounded to f32 at every lane: on the CPU a sequential f64 sum, the
+    CUDA kernel's arithmetic bit for bit."""
+    return torch.cumsum(x.double(), dim=2).float()
+
+
+def scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
+    """[B, 8, Fp] f32: the kernel's function in plain PyTorch (the math of
+    the JAX package's _scan_kernel)."""
+    B, Fp, Wp = gb.shape
+    s = scal[:, :, None, None]                               # [B, 8, 1, 1]
+    sg, sh, nd, cf = s[:, 0], s[:, 1], s[:, 2], s[:, 3]
+    min_data, min_hess, mgs, l2 = s[:, 4], s[:, 5], s[:, 6], s[:, 7]
+    cnt_b = torch.floor(hb * cf + 0.5)
+    gr_c = _prefix(gb * keep_r)
+    hr_c = _prefix(hb * keep_r)
+    cr_c = _prefix(cnt_b * keep_r)
+    gl_c = _prefix(gb * keep_f)
+    hl_c = _prefix(hb * keep_f)
+    cl_c = _prefix(cnt_b * keep_f)
+    neg = torch.tensor(NEG_INF, dtype=gb.dtype, device=gb.device)
+
+    gr_tot, hr_tot, cr_tot = gr_c[..., -1:], hr_c[..., -1:], cr_c[..., -1:]
+    r_grad = gr_tot - gr_c
+    r_hess = hr_tot - hr_c
+    r_cnt = cr_tot - cr_c
+    l_cnt = nd - r_cnt
+    l_grad = sg - r_grad
+    l_hess = sh - r_hess
+    ok_r = ((valid_r > 0) & (r_cnt >= min_data) & (r_hess >= min_hess)
+            & (l_cnt >= min_data) & (l_hess >= min_hess))
+    gains_r = (l_grad * l_grad) / (l_hess + l2) \
+        + (r_grad * r_grad) / (r_hess + l2)
+    ok_r &= gains_r > mgs
+    gains_r = torch.where(ok_r, gains_r, neg)
+
+    wrow = torch.arange(Wp, device=gb.device, dtype=gb.dtype)
+    best_gain_r = gains_r.amax(dim=2)                        # [B, Fp]
+    at_max_r = ok_r & (gains_r == best_gain_r[..., None])
+    best_t_r = torch.where(at_max_r, wrow, -1.0).amax(dim=2)
+
+    f_r_cnt = nd - cl_c
+    f_r_grad = sg - gl_c
+    f_r_hess = sh - hl_c
+    ok_f = ((valid_f > 0) & (cl_c >= min_data) & (hl_c >= min_hess)
+            & (f_r_cnt >= min_data) & (f_r_hess >= min_hess))
+    gains_f = (gl_c * gl_c) / (hl_c + l2) \
+        + (f_r_grad * f_r_grad) / (f_r_hess + l2)
+    ok_f &= gains_f > mgs
+    gains_f = torch.where(ok_f, gains_f, neg)
+
+    big = 2.0 ** 30
+    best_gain_f = gains_f.amax(dim=2)
+    at_max_f = ok_f & (gains_f == best_gain_f[..., None])
+    best_t_f = torch.where(at_max_f, wrow, big).amin(dim=2)
+
+    has_r = best_t_r >= 0
+    has_f = best_t_f < big
+    best_gain_r = torch.where(has_r, best_gain_r, neg)
+    best_gain_f = torch.where(has_f, best_gain_f, neg)
+    use_f = best_gain_f > best_gain_r
+    feat_gain = torch.where(use_f, best_gain_f, best_gain_r)
+    feat_t = torch.where(use_f, best_t_f, best_t_r)
+    has_any = has_r | has_f
+
+    sel = (wrow == feat_t[..., None]).to(gb.dtype)
+    sg2, sh2, nd2, mgs2 = sg[..., 0], sh[..., 0], nd[..., 0], mgs[..., 0]
+    lg = torch.where(use_f, (gl_c * sel).sum(2),
+                     sg2 - (gr_tot[..., 0] - (gr_c * sel).sum(2)))
+    lh = torch.where(use_f, (hl_c * sel).sum(2),
+                     sh2 - (hr_tot[..., 0] - (hr_c * sel).sum(2)))
+    lc = torch.where(use_f, (cl_c * sel).sum(2),
+                     nd2 - (cr_tot[..., 0] - (cr_c * sel).sum(2)))
+    gain_out = torch.where(has_any, (feat_gain - mgs2) * aux[0][None, :], neg)
+    return torch.stack([gain_out, feat_t, use_f.to(gb.dtype), lg, lh, lc,
+                        has_any.to(gb.dtype), torch.zeros_like(lg)], dim=1)
+
+
+def _check(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
+    if gb.dim() != 3:
+        raise LightGBMError("scan_pair: gb must be [B, Fp, Wp]")
+    B, Fp, Wp = gb.shape
+    want = {"scal": (B, 8), "gb": (B, Fp, Wp), "hb": (B, Fp, Wp),
+            "keep_r": (Fp, Wp), "keep_f": (Fp, Wp), "aux": (8, Fp)}
+    got = {"scal": scal, "gb": gb, "hb": hb, "keep_r": keep_r,
+           "keep_f": keep_f, "aux": aux, "valid_r": valid_r,
+           "valid_f": valid_f}
+    for name, v in got.items():
+        shape = want.get(name)
+        if shape is None:
+            ok = tuple(v.shape) in ((Fp, Wp), (B, Fp, Wp))
+        else:
+            ok = tuple(v.shape) == shape
+        if not ok or v.dtype != torch.float32 or not v.is_contiguous() \
+                or v.device != gb.device:
+            raise LightGBMError(
+                "scan_pair: %s is %s %s on %s; expected contiguous float32 "
+                "%s on %s" % (name, tuple(v.shape), v.dtype, v.device,
+                              shape or "(Fp, Wp) or (B, Fp, Wp)", gb.device))
+    if tuple(valid_r.shape) != tuple(valid_f.shape):
+        raise LightGBMError("scan_pair: valid_r and valid_f differ in shape")
+    if Wp % 32 or not 32 <= Wp <= 1024:
+        raise LightGBMError("scan_pair: Wp=%d must be a multiple of 32 in "
+                            "[32, 1024]" % Wp)
+    if B < 1 or Fp < 1:
+        raise LightGBMError("scan_pair: empty batch (B=%d, Fp=%d)" % (B, Fp))
+
+
+def _launch(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
+    from .build import load
+    fn = load("scan_pair").scan_pair_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, P, P, I, P, I, I, I, P, P]
+    fn.restype = I
+    B, Fp, Wp = gb.shape
+    out = torch.empty((B, 8, Fp), dtype=torch.float32, device=gb.device)
+    stream = torch.cuda.current_stream(gb.device).cuda_stream
+    err = fn(scal.data_ptr(), gb.data_ptr(), hb.data_ptr(),
+             keep_r.data_ptr(), keep_f.data_ptr(), valid_r.data_ptr(),
+             valid_f.data_ptr(), int(valid_r.dim() == 3), aux.data_ptr(),
+             B, Fp, Wp, out.data_ptr(), stream)
+    if err != 0:
+        raise LightGBMError("scan_pair kernel launch failed: CUDA error %d"
+                            % err)
+    return out
+
+
+def scan_pair(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
+    """Best split per feature for B children: the CUDA kernel for tensors
+    on the card, the plain version for tensors on the CPU.
+
+    scal [B, 8] (see :func:`pair_scalars`); gb/hb [B, Fp, Wp]; keep masks
+    [Fp, Wp]; valid masks [Fp, Wp] shared or [B, Fp, Wp]; aux [8, Fp] with
+    the penalty in row 0. Returns [B, 8, Fp] f32.
+    """
+    _check(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux)
+    if gb.device.type == "cpu":
+        return scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r,
+                               valid_f, aux)
+    if gb.device.type != "cuda":
+        raise LightGBMError("scan_pair: no kernel for device %s" % gb.device)
+    out = _launch(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux)
+    scan_pair.launches += 1
+    return out
+
+
+scan_pair.launches = 0

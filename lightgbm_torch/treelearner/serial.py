@@ -1,0 +1,143 @@
+"""Serial (single-device) tree learner of the port.
+
+The port of lightgbm_tpu/treelearner/serial.py on its fast path: it owns the
+dataset's device layout, samples features per tree (ColSampler,
+src/treelearner/col_sampler.hpp), and grows every tree with the partitioned
+grower (ops/grow.py), whose split scan is the ``scan_pair`` kernel.
+
+The JAX package picks among several growers and scans
+(``resolve_scan_impl``, serial.py:138-167; ``can_persist_scan``,
+serial.py:479). The port has one route, so :func:`check_fast_path` refuses
+every configuration that route does not implement, naming the ROADMAP.md
+item that will bring it, instead of running something else in silence.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..config import Config
+from ..ops.grow import GrowConfig, grow_tree_partitioned, tb_source_index
+from ..ops.split import FeatureMeta, SplitParams
+from ..utils.log import Log
+
+_SCAN = "queue A, item 4: general split scan"
+
+
+def _refuse(what: str, item: str) -> None:
+    Log.fatal("%s is not ported yet (ROADMAP.md %s)" % (what, item))
+
+
+def check_fast_path(config: Config, dataset) -> None:
+    """Raise LightGBMError for any configuration outside this slice: the
+    JAX package's fast-path gate (resolve_scan_impl) plus the slice's own
+    limits."""
+    c = config
+    if c.objective != "binary":
+        _refuse("objective=%s" % c.objective,
+                "queue A, item 17: other objectives")
+    if c.boosting == "goss":
+        _refuse("boosting=goss", "queue A, item 16: bagging and GOSS")
+    if c.boosting != "gbdt":
+        _refuse("boosting=%s" % c.boosting,
+                "queue A, item 7: other boosting modes")
+    if (c.bagging_freq > 0 and c.bagging_fraction < 1.0) \
+            or c.pos_bagging_fraction < 1.0 or c.neg_bagging_fraction < 1.0:
+        _refuse("bagging", "queue A, item 16: bagging and GOSS")
+    if c.tree_learner != "serial" or c.num_machines > 1:
+        _refuse("tree_learner=%s" % c.tree_learner,
+                "queue A, item 11: distributed training")
+    if float(c.lambda_l1) > 0.0:
+        _refuse("lambda_l1 > 0", _SCAN)
+    if float(c.max_delta_step) > 0.0:
+        _refuse("max_delta_step > 0", _SCAN)
+    if any(int(m) != 0 for m in c.monotone_constraints):
+        _refuse("monotone_constraints", _SCAN)
+    if bool(c.extra_trees):
+        _refuse("extra_trees", _SCAN)
+    if float(c.feature_fraction_bynode) < 1.0:
+        _refuse("feature_fraction_bynode < 1", _SCAN)
+    if (float(c.cegb_penalty_split) > 0.0 or c.cegb_penalty_feature_coupled
+            or c.cegb_penalty_feature_lazy):
+        _refuse("cost-effective gradient boosting (cegb_*)", _SCAN)
+    if bool(c.tpu_use_dp) or str(c.tpu_hist_dtype).lower() == "f64":
+        _refuse("f64 accumulation (tpu_use_dp / tpu_hist_dtype=f64)", _SCAN)
+    if str(c.tpu_scan_impl).lower() == "xla":
+        _refuse("tpu_scan_impl=xla", _SCAN)
+    if str(c.forcedsplits_filename):
+        _refuse("forced splits (forcedsplits_filename)",
+                "queue A, item 21: forced splits")
+    if str(c.tpu_multival).lower() == "force":
+        _refuse("tpu_multival=force",
+                "queue A, item 2: binned dataset layouts")
+    if str(c.tpu_persist_scan).lower() == "force":
+        _refuse("tpu_persist_scan=force",
+                "queue A, item 6: persistent payload grower")
+    if dataset.has_bundles:
+        _refuse("EFB bundles (features sharing a group need FixHistogram; "
+                "enable_bundle=false avoids them)",
+                "queue A, item 2: binned dataset layouts")
+
+
+class ColSampler:
+    """feature_fraction by-tree sampling (col_sampler.hpp:17-160), drawing
+    from the same numpy stream as the JAX package's ColSampler."""
+
+    def __init__(self, config: Config, num_features: int):
+        self.fraction = float(config.feature_fraction)
+        self.num_features = num_features
+        self.rng = np.random.default_rng(config.feature_fraction_seed)
+
+    def sample(self) -> np.ndarray:
+        if self.fraction >= 1.0:
+            return np.ones(self.num_features, dtype=bool)
+        k = max(1, int(self.num_features * self.fraction))
+        mask = np.zeros(self.num_features, dtype=bool)
+        mask[self.rng.choice(self.num_features, size=k, replace=False)] = True
+        return mask
+
+
+def feature_meta(dataset) -> FeatureMeta:
+    return FeatureMeta(
+        group_of=dataset.group_of, group_offset=dataset.group_offset,
+        bin_start=dataset.bin_start, bin_end=dataset.bin_end,
+        missing_type=dataset.missing_type_arr,
+        default_bin=dataset.default_bin,
+        most_freq_bin=dataset.most_freq_bin, penalty=dataset.penalty,
+        fix=dataset.fix_info())
+
+
+def grow_config(config: Config, dataset) -> GrowConfig:
+    widths = dataset.bin_end - dataset.bin_start
+    gw = dataset.group_widths()
+    return GrowConfig(
+        num_leaves=int(config.num_leaves),
+        total_bins=int(dataset.total_bins),
+        num_features=int(dataset.num_features),
+        scan_width=max(1, int(widths.max())) if len(widths) else 1,
+        hist_width=max(1, int(gw.max())) if len(gw) else 1,
+        max_depth=int(config.max_depth))
+
+
+class SerialTreeLearner:
+    """Owns the device arrays of one BinnedDataset and grows trees on it."""
+
+    def __init__(self, config: Config, dataset, device):
+        check_fast_path(config, dataset)
+        self.config = config
+        self.dataset = dataset
+        self.device = device
+        self.data = dataset.to_device(device)
+        self.meta = feature_meta(dataset)
+        self.params = SplitParams.from_config(config)
+        self.grow_config = grow_config(config, dataset)
+        self.tb_src = tb_source_index(dataset.group_offset,
+                                      dataset.total_bins,
+                                      self.grow_config.hist_width, device)
+        self.col_sampler = ColSampler(config, dataset.num_features)
+
+    def train_arrays(self, grad, hess):
+        """Grow one tree from [N] grad/hess tensors on the learner's device;
+        returns (TreeArrays, row_leaf tensor)."""
+        return grow_tree_partitioned(self.data, grad, hess, self.meta,
+                                     self.params, self.col_sampler.sample(),
+                                     self.grow_config, self.tb_src)
