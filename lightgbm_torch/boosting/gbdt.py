@@ -8,9 +8,16 @@ update through the row -> leaf map -> shrinkage and the iteration-0 bias
 (SaveModelToString :301, LoadModelFromString :385), so the two packages
 read each other's models; prediction is the numpy walk.
 
-Not in this slice (ROADMAP.md queue A): the K-iteration fused scan (a CUDA
-graph in the port), bagging/GOSS/DART/RF, validation sets and metrics,
-leaf renewal, multiclass.
+When the learner takes the persistent-payload grower (its
+``can_persist_scan``, decided once at init), every iteration goes through
+the learner's payload one at a time (``train_persist``: gradient fill, grow,
+score update on the payload) and the row-ordered score buffer is synced
+from the payload only when something reads it.
+
+Not in this slice (ROADMAP.md queue A): the K-iteration fused scan, which
+the JAX package runs in batches of 16 iterations on its persistent path (a
+CUDA graph in the port, item 15), bagging/GOSS/DART/RF, validation sets and
+metrics, leaf renewal, multiclass.
 """
 from __future__ import annotations
 
@@ -65,6 +72,8 @@ class GBDT:
         self.monotone_constraints = list(config.monotone_constraints)
         self.train_score = ScoreUpdater(train_data.num_data, device,
                                         train_data.metadata.init_score)
+        self.use_persist = (objective is not None
+                            and self.tree_learner.can_persist_scan(objective))
 
     @staticmethod
     def _feature_info(mapper) -> str:
@@ -93,19 +102,27 @@ class GBDT:
         if self.objective is None:
             Log.fatal("No objective function provided")
         init_score = self.boost_from_average()
-        grad, hess = self.objective.get_gradients(self.train_score.score)
         tree = None
-        if (self.objective.class_need_train(0)
+        if self.use_persist:
+            learner = self.tree_learner
+            arrays = learner.train_persist(
+                self.objective, lambda: self.train_score.score,
+                self.shrinkage_rate)
+            self.train_score.defer_to(learner.persist_finalize_scores)
+            if arrays.num_leaves > 1:
+                tree = Tree.from_grower(arrays, self.train_data)
+        elif (self.objective.class_need_train(0)
                 and self.train_data.num_features > 0):
+            grad, hess = self.objective.get_gradients(self.train_score.score)
             arrays, row_leaf = self.tree_learner.train_arrays(grad, hess)
             if arrays.num_leaves > 1:
                 tree = Tree.from_grower(arrays, self.train_data)
                 self.train_score.add_tree(arrays.leaf_value[:tree.num_leaves],
                                           row_leaf, self.shrinkage_rate)
-                tree.shrink(self.shrinkage_rate)
-                if abs(init_score) > K_EPSILON:
-                    tree.add_bias(init_score)
         if tree is not None:
+            tree.shrink(self.shrinkage_rate)
+            if abs(init_score) > K_EPSILON:
+                tree.add_bias(init_score)
             self.models.append(tree)
             self.iter += 1
             return False

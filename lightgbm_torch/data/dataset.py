@@ -122,6 +122,20 @@ def _greedy_bundle(nonzero_masks: List[np.ndarray], order: List[int],
     return groups
 
 
+def nibble_slot_partition(widths):
+    """(wide, pairs, leftover): the 4-bit slot assignment of the JAX
+    package's payload plan (lightgbm_tpu/data/dataset.py:157). Groups of at
+    most 16 bins pair up two per byte slot, in group order; an odd one out
+    takes a byte slot alone; the rest keep full byte slots."""
+    G = len(widths)
+    narrow = [g for g in range(G) if widths[g] <= 16]
+    wide = [g for g in range(G) if widths[g] > 16]
+    pairs = [(narrow[i], narrow[i + 1])
+             for i in range(0, len(narrow) - 1, 2)]
+    leftover = narrow[-1] if len(narrow) % 2 else None
+    return wide, pairs, leftover
+
+
 def _load_forced_bins(filename: str) -> Dict[int, List[float]]:
     """forcedbins_filename JSON: [{"feature": i, "bin_upper_bound": [...]}]."""
     if not filename:

@@ -71,17 +71,43 @@ class BinaryLogloss(ObjectiveFunction):
             z = torch.zeros_like(score)
             return z, z
         pos, weight = self._device_inputs(score.device)
+        w_neg, w_pos = self.label_weights
+        g, h = self._logloss_grad(score, pos, self.sigmoid, w_neg, w_pos)
+        if weight is None:
+            return g, h
+        return g * weight, h * weight
+
+    def payload_grad_fn(self):
+        """The persistent grower's gradient (lightgbm_tpu/objectives/
+        binary.py:63-98): fn(score, label) -> f32 (grad, hess) from the
+        payload's f32 score and label rows, positive where label > 0.
+        Sample weights ride the payload and multiply after it (the grower
+        applies them). None when there is nothing to train, so the learner
+        keeps the v1 grower.
+
+        The JAX package does this math in f32. torch's f32 ``exp`` is not
+        the same function on the card and on the CPU (they differ in the
+        last bit), and the card must grow the CPU's trees, so the port does
+        it in f64 and rounds once to f32, as its v1 path does; the two
+        differ from the JAX package's f32 gradients by about an f32 ulp."""
+        if not self.need_train:
+            return None
         sig = self.sigmoid
         w_neg, w_pos = self.label_weights
+
+        def fn(score, label):
+            pos = label > 0
+            g, h = self._logloss_grad(score.double(), pos, sig, w_neg, w_pos)
+            return g.float(), h.float()
+        return fn
+
+    @staticmethod
+    def _logloss_grad(score, pos, sig, w_neg, w_pos):
         y = torch.where(pos, 1.0, -1.0).to(score.dtype)
         lw = torch.where(pos, w_pos, w_neg).to(score.dtype)
         response = -y * sig / (1.0 + torch.exp(y * sig * score))
         abs_resp = torch.abs(response)
-        g = response * lw
-        h = abs_resp * (sig - abs_resp) * lw
-        if weight is None:
-            return g, h
-        return g * weight, h * weight
+        return response * lw, abs_resp * (sig - abs_resp) * lw
 
     def boost_from_score(self, class_id):
         pos = self._pos_mask.astype(np.float64)

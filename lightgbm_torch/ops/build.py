@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``. A
 library is built on first use, from the sources in the checkout only, into
-a build directory keyed by a hash of the source and the flags; a later
-process reuses it. Several kernels are built in parallel, one ``nvcc`` per
-source, by :func:`build`.
+a build directory keyed by a hash of the source, every shared header
+(``csrc/*.cuh``) and the flags; a later process reuses it. Several kernels
+are built in parallel, one ``nvcc`` per source, by :func:`build`.
 
 The build directory is ``.cache/lightgbm_torch`` at the root of the
 checkout, or ``$LIGHTGBM_TORCH_BUILD_DIR``. ``nvcc`` is found on ``PATH``
@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 from ..utils.log import LightGBMError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("hist_window", "scan_pair")
+KERNELS = ("hist_window", "scan_pair", "root_hist", "split_pass", "seg_hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -51,9 +51,14 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / (name + ".cu")).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / ("%s-%s.so" % (name, key[:16]))
+    """The library path of `name`: keyed by its source, every header in
+    csrc/ (a kernel may include any of them) and the flags, so a change
+    to a shared header rebuilds every kernel."""
+    h = hashlib.sha256((CSRC / (name + ".cu")).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / ("%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

@@ -139,6 +139,21 @@ def _assemble(out: np.ndarray, scal: np.ndarray, layout: ScanLayout,
     return cands
 
 
+def scan_children(gb: torch.Tensor, hb: torch.Tensor, layout: ScanLayout,
+                  params: SplitParams, sgs, shs, cnts, depth_child: int,
+                  max_depth: int):
+    """SplitCandidates of B children from their gathered [B, Fp, Wp]
+    grad/hess histograms: one scan_pair launch, then the host assembly."""
+    scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
+                        params.min_gain_to_split, params.min_data_in_leaf,
+                        params.min_sum_hessian_in_leaf)
+    out = scan_pair(torch.as_tensor(scal, device=gb.device), gb, hb,
+                    layout.keep_r, layout.keep_f, layout.valid_r,
+                    layout.valid_f, layout.aux)
+    return _assemble(out.cpu().numpy(), scal, layout, params.lambda_l2,
+                     depth_child, max_depth)
+
+
 def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
                           hess: torch.Tensor, meta: FeatureMeta,
                           params: SplitParams, feature_mask: np.ndarray,
@@ -214,15 +229,8 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         rows = torch.as_tensor(leaves, device=device)
         gb = leaf_hist[rows, :, 0][:, layout.gidx]              # [B, Fp, Wp]
         hb = leaf_hist[rows, :, 1][:, layout.gidx]
-        scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
-                            params.min_gain_to_split,
-                            params.min_data_in_leaf,
-                            params.min_sum_hessian_in_leaf)
-        out = scan_pair(torch.as_tensor(scal, device=device), gb, hb,
-                        layout.keep_r, layout.keep_f, layout.valid_r,
-                        layout.valid_f, layout.aux)
-        return _assemble(out.cpu().numpy(), scal, layout, params.lambda_l2,
-                         depth_child, gc.max_depth)
+        return scan_children(gb, hb, layout, params, sgs, shs, cnts,
+                             depth_child, gc.max_depth)
 
     best = [SplitCandidate.none() for _ in range(L)]
     best_gain = np.full(L, K_MIN_SCORE, F32)

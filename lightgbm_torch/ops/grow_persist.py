@@ -1,0 +1,269 @@
+"""The persistent-payload tree grower: the port's fast path for boosting.
+
+The port of the per-split part of lightgbm_tpu/ops/grow_persist.py:
+make_persist_grower (:647-2060): the binned rows, label, row id, gradient,
+hessian and score of every training row live in ONE int32 payload matrix
+(ops/payload.py) that stays leaf-partitioned from tree to tree, so no
+per-row gather or scatter runs between iterations:
+
+  * the root: one ``root_hist`` launch (histogram + grad/hess totals) and
+    one ``scan_pair`` launch (the root's best split);
+  * per split: one ``split_pass`` launch partitions the leaf's segment in
+    place and returns the exact n_left; the smaller child's histogram comes
+    from ``seg_hist`` over its segment (G > SEG_HIST_MIN_GROUPS) or from
+    ``split_pass`` itself (G <= SEG_HIST_MIN_GROUPS); the larger child is
+    the parent minus it; one ``scan_pair`` launch scans both children;
+  * histograms stay in the padded [G * 256] group-plane layout end to end;
+    feature f's window sits at group_of[f] * 256 + ls[f] (``pad_meta`` at
+    grow_persist.py:873-882), and the scan gathers each feature's window
+    from there;
+  * scores are a payload row: gradients are computed in payload order from
+    the label and score rows (:func:`PersistGrower.fill_grad`), a tree's
+    outputs are added to its leaves' segments (:meth:`apply_scores`), and
+    scores return to row order only when read (:meth:`finalize_scores`).
+
+The host loop is Python over numpy leaf state, as in ops/grow.py; leaf
+counts are the kernel's exact n_left (``stat_from_scan=False``) and stay
+integers on the host. Not ported here: the level phase (``level_pass`` and
+``level_seg_hist``, ROADMAP.md queue A, item 6) — with ``max_depth > 0``
+this grower runs the per-split path, which grows the same trees by
+make_persist_grower's own contract (:661-673) — the bundle-native
+``scan_blocks`` (EFB data is refused by the tree learner), sharding,
+voting, quantization, bagging and the health vector.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .grow import TreeArrays, _empty_arrays, scan_children
+from .payload import PersistAssets, payload_weight_row
+from .payload_kernels import (HIST_W, N_SCALARS, S_DB, S_DL, S_LE, S_LS,
+                              S_MASK, S_MF, S_MT, S_NB, S_NCH, S_NL, S_S0,
+                              S_SH, S_SMALL_L, S_THR, S_WG, plan_tensor,
+                              root_hist, seg_hist, split_pass)
+from .scan import ScanLayout
+from .split import K_MIN_SCORE, SplitCandidate, leaf_output_unconstrained
+
+F32 = np.float32
+
+# group count at or below which the smaller child's histogram comes out of
+# split_pass instead of a separate seg_hist launch (grow_persist.py:123)
+SEG_HIST_MIN_GROUPS = 20
+
+
+class LeafState(NamedTuple):
+    """Per-leaf state of one grown tree (numpy): the leaves' statistics and
+    their payload segments [start, start + nrows)."""
+    sum_hess: np.ndarray    # [L] f32 (the leaf weight)
+    count: np.ndarray       # [L] i64 exact row counts
+    value: np.ndarray       # [L] f32 leaf output
+    depth: np.ndarray       # [L] i32
+    start: np.ndarray       # [L] i64 payload lane of the segment
+    nrows: np.ndarray       # [L] i64
+
+
+class PersistGrower:
+    """grow / apply_scores / fill_grad / init_carry / finalize_scores over
+    one dataset's payload, for one grow configuration, on one device."""
+
+    def __init__(self, assets: PersistAssets, meta, gc, params, device):
+        G, plan, nbw, n, C = assets.geometry[2:7]
+        K, has_w = assets.geometry[8], bool(assets.geometry[9])
+        self.assets = assets
+        self.meta = meta
+        self.gc = gc
+        self.params = params
+        self.device = torch.device(device)
+        self.n, self.nbw, self.G, self.C = n, nbw, G, C
+        self.wp_live = payload_weight_row(nbw, K) + (1 if has_w else 0)
+        self.weight_row = payload_weight_row(nbw, K) if has_w else None
+        self.score_row = nbw + 4
+        self.inpass_hist = G <= SEG_HIST_MIN_GROUPS
+        self.plan = plan_tensor(plan, self.device)
+        group_of, ls, nb = assets.efb[0], assets.efb[1], assets.efb[2]
+        self.win_start = (group_of.astype(np.int64) * HIST_W + ls)
+        self.win_end = self.win_start + nb
+
+    # ---- payload <-> row order ---------------------------------------------
+    def _f32_row(self, pay, r):
+        return pay[r].view(torch.float32)
+
+    def init_carry(self, score0_row) -> torch.Tensor:
+        """A fresh payload on the device from the pristine ``pay0`` and a
+        row-ordered score vector ([n], any float dtype; stored as f32)."""
+        pay = torch.as_tensor(self.assets.pay0.view(np.int32),
+                              device=self.device).clone()
+        sc = torch.as_tensor(score0_row, device=self.device) \
+            .to(torch.float32).reshape(-1)
+        self._f32_row(pay, self.score_row)[:self.n] = sc
+        return pay
+
+    def finalize_scores(self, pay) -> torch.Tensor:
+        """[n] f64 scores in row order, scattered through the row-id row
+        (the f32 payload scores, widened)."""
+        rid = pay[self.nbw + 1, :self.n].to(torch.int64)
+        out = torch.empty(self.n, dtype=torch.float64, device=pay.device)
+        out[rid] = self._f32_row(pay, self.score_row)[:self.n].double()
+        return out
+
+    def fill_grad(self, pay, payload_grad_fn) -> None:
+        """Write the objective's gradients, computed in payload order from
+        the f32 label and score rows, into the grad/hess rows (in place;
+        grow_persist.py:1917-1925). Sample weights multiply after the
+        objective, as in the reference's weighted objectives; padding
+        lanes get zeros."""
+        n = self.n
+        label = self._f32_row(pay, self.nbw)[:n]
+        score = self._f32_row(pay, self.score_row)[:n]
+        g, h = payload_grad_fn(score, label)
+        if self.weight_row is not None:
+            w = self._f32_row(pay, self.weight_row)[:n]
+            g, h = g * w, h * w
+        gh = pay[self.nbw + 2:self.nbw + 4].view(torch.float32)
+        gh.zero_()
+        gh[0, :n] = g
+        gh[1, :n] = h
+
+    def apply_scores(self, pay, lstate: LeafState, num_leaves: int,
+                     shrink: float) -> None:
+        """score += f32(leaf_value * shrink) on every leaf's segment, one
+        direct f32 add per row (in place). The JAX f32 path adds segment
+        deltas through a cumsum (grow_persist.py:1761-1773), which rounds
+        differently; the direct add is what the update means, and what
+        the JAX widened mode does (:1743-1760)."""
+        if num_leaves <= 1:
+            return
+        order = np.argsort(lstate.start[:num_leaves], kind="stable")
+        vals = (lstate.value[:num_leaves] * F32(shrink)).astype(F32)[order]
+        lane_val = torch.repeat_interleave(
+            torch.as_tensor(vals, device=pay.device),
+            torch.as_tensor(lstate.nrows[:num_leaves][order],
+                            device=pay.device))
+        score = self._f32_row(pay, self.score_row)[:self.n]
+        score += lane_val
+
+    # ---- one tree ------------------------------------------------------------
+    def _scalars(self, cand: SplitCandidate, s0: int, n_l: int,
+                 smaller_is_left: bool):
+        """The N_SCALARS slots of one split (grow_persist.py:1546-1562)."""
+        a, f = self.assets, cand.feature
+        scal = [0] * N_SCALARS
+        scal[S_NCH] = (n_l + self.C - 1) // self.C
+        scal[S_S0], scal[S_NL] = s0, n_l
+        scal[S_WG] = int(a.dec_word[f])
+        scal[S_SH] = int(a.dec_shift[f])
+        scal[S_MASK] = int(a.dec_mask[f])
+        scal[S_NB], scal[S_MT], scal[S_DB] = (int(a.nb[f]), int(a.mt[f]),
+                                              int(a.db[f]))
+        scal[S_THR] = cand.threshold
+        scal[S_DL] = int(cand.default_left)
+        scal[S_SMALL_L] = int(smaller_is_left)
+        scal[S_LS], scal[S_LE], scal[S_MF] = (int(a.ls[f]), int(a.le[f]),
+                                              int(a.mf[f]))
+        return scal
+
+    def grow(self, pay, feature_mask):
+        """Grow one tree on the payload (partitioned in place). Returns
+        (LeafState, split records as a dict of [L-1] arrays, num_leaves)."""
+        gc, params, meta = self.gc, self.params, self.meta
+        L, n, G, nbw = gc.num_leaves, self.n, self.G, self.nbw
+        dev = pay.device
+        l2 = F32(params.lambda_l2)
+        tree = {k: v for k, v in _empty_arrays(L).items()
+                if not k.startswith("leaf_")}             # split records
+        gh0, hh0, sums = root_hist(pay, self.plan, nbw, n)
+        sum_grad, sum_hess = (F32(v) for v in sums.cpu().numpy())
+        root_out = leaf_output_unconstrained(sum_grad, sum_hess, l2)
+        TBp = G * HIST_W
+        gh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
+        hh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
+        gh[0], hh[0] = gh0, hh0
+        layout = ScanLayout(self.win_start, self.win_end, meta.missing_type,
+                            meta.default_bin, meta.penalty, feature_mask,
+                            gc.scan_width, TBp, dev)
+
+        def evaluate(leaves, sgs, shs, cnts, depth_child):
+            rows = torch.as_tensor(leaves, device=dev)
+            return scan_children(gh[rows][:, layout.gidx],     # [B, Fp, Wp]
+                                 hh[rows][:, layout.gidx], layout, params,
+                                 sgs, shs, cnts, depth_child, gc.max_depth)
+
+        st = LeafState(sum_hess=np.zeros(L, F32),
+                       count=np.zeros(L, np.int64), value=np.zeros(L, F32),
+                       depth=np.zeros(L, np.int32),
+                       start=np.zeros(L, np.int64),
+                       nrows=np.zeros(L, np.int64))
+        st.sum_hess[0] = sum_hess
+        st.count[0], st.value[0], st.nrows[0] = n, root_out, n
+        best = [SplitCandidate.none() for _ in range(L)]
+        best_gain = np.full(L, K_MIN_SCORE, F32)
+        best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0)[0]
+        best_gain[0] = best[0].gain
+
+        s = 1
+        while s < L:
+            l = int(np.argmax(best_gain))
+            cand = best[l]
+            if not cand.gain > 0.0:
+                break
+            s0, n_l = int(st.start[l]), int(st.nrows[l])
+            smaller_is_left = cand.left_count <= cand.right_count
+            scal = self._scalars(cand, s0, n_l, smaller_is_left)
+            n_left, small = split_pass(pay, scal, self.plan, nbw,
+                                       self.wp_live, self.inpass_hist)
+            n_right = n_l - n_left
+            if small is None:
+                small = seg_hist(pay, self.plan, nbw,
+                                 s0 if smaller_is_left else s0 + n_left,
+                                 n_left if smaller_is_left else n_right)
+            left_cnt = n_left
+            right_cnt = int(st.count[l]) - left_cnt
+            big_g, big_h = gh[l] - small[0], hh[l] - small[1]
+            if smaller_is_left:
+                gh[s], hh[s] = big_g, big_h
+                gh[l], hh[l] = small
+            else:
+                gh[s], hh[s] = small
+                gh[l], hh[l] = big_g, big_h
+
+            k = s - 1
+            tree["split_leaf"][k] = l
+            tree["split_feature"][k] = cand.feature
+            tree["threshold"][k] = cand.threshold
+            tree["default_left"][k] = cand.default_left
+            tree["gain"][k] = cand.gain
+            tree["internal_value"][k] = st.value[l]
+            tree["internal_count"][k] = st.count[l]
+
+            depth_child = int(st.depth[l]) + 1
+            for leaf, sh_, cnt_, val_, st_, nr_ in (
+                    (l, cand.left_sum_hess, left_cnt, cand.left_output, s0,
+                     n_left),
+                    (s, cand.right_sum_hess, right_cnt, cand.right_output,
+                     s0 + n_left, n_right)):
+                st.sum_hess[leaf] = sh_
+                st.count[leaf], st.value[leaf] = cnt_, val_
+                st.depth[leaf] = depth_child
+                st.start[leaf], st.nrows[leaf] = st_, nr_
+
+            cand_l, cand_r = evaluate(
+                [l, s], [cand.left_sum_grad, cand.right_sum_grad],
+                [cand.left_sum_hess, cand.right_sum_hess],
+                [left_cnt, right_cnt], depth_child)
+            best[l], best[s] = cand_l, cand_r
+            best_gain[l], best_gain[s] = cand_l.gain, cand_r.gain
+            s += 1
+        return st, tree, s
+
+    @staticmethod
+    def to_tree_arrays(lstate: LeafState, tree: dict,
+                       num_leaves: int) -> TreeArrays:
+        """The host TreeArrays (models.tree.Tree input) of one grown tree
+        (grow_persist.py:1709-1731)."""
+        return TreeArrays(
+            num_leaves=num_leaves, leaf_value=lstate.value.copy(),
+            leaf_count=lstate.count.astype(np.int32),
+            leaf_weight=lstate.sum_hess.copy(), **tree)

@@ -1,0 +1,317 @@
+"""The persistent grower's payload kernels: root_hist, split_pass, seg_hist.
+
+The port of lightgbm_tpu/ops/pallas_grow.py: the scalar slots of a split
+(``S_*``, pallas_grow.py:83-98), the group-bin decode
+(``_unpack_group_bins``:209) and the wrappers of three kernels, each beside
+its plain PyTorch version:
+
+  * :func:`root_hist` (``make_root_hist``:944 -> ``csrc/root_hist.cu``):
+    the histogram of lanes [0, n) and the grad/hess totals;
+  * :func:`split_pass` (``make_split_pass``:292 -> ``csrc/split_pass.cu``):
+    the stable partition of one leaf's segment, its n_left and, where the
+    grower asks for it, the smaller child's histogram;
+  * :func:`seg_hist` (``make_seg_hist``:866 -> ``csrc/seg_hist.cu``): the
+    histogram of one contiguous segment.
+
+The payload is the [WPA, NP] int32 matrix of ops/payload.py. Histograms are
+two f32 planes of [G * 256]: group g's bin b at g * 256 + b, the layout of
+the TPU kernels' ``_unpack_hist`` output, without the bf16 hi/lo
+accumulator that exists only for the MXU. They are summed in the order of
+``ops/histogram.py:hist_window``: the segment is cut into ``row_blocks``,
+each bin is one f32 chain in lane order inside a block, and the blocks are
+added in order. On the CPU a payload histogram therefore equals the v1
+grower's ``hist_window`` histogram of the same rows.
+
+Each wrapper launches its CUDA kernel for a payload on the card and takes
+the plain version for a payload on the CPU; nothing else. A tensor
+elsewhere raises, and a failed build or launch raises. ``split_pass``
+updates the payload in place on both devices (the TPU kernel aliases its
+payload input to its output the same way).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..utils.log import LightGBMError
+from .histogram import _chain, row_blocks
+
+# scalar slots of one split (pallas_grow.py:83-98)
+S_NCH = 0         # number of payload chunks of the segment (TPU only)
+S_S0 = 1          # segment start lane
+S_NL = 2          # segment length
+S_WG = 3          # payload word row of the split feature's slot
+S_SH = 4          # shift of the feature's bits inside the word
+S_MASK = 5        # value mask after the shift (15 nibble / 255 byte)
+S_NB = 6          # feature bin count
+S_MT = 7          # missing type (0 none / 1 zero / 2 nan)
+S_DB = 8          # default (zero) bin
+S_THR = 9         # threshold (local bin)
+S_DL = 10         # default_left flag
+S_SMALL_L = 11    # the smaller child is the left one
+S_LS = 12         # feature's group-local bin range start (EFB bundles)
+S_LE = 13         # range end; bins outside [LS, LE) read as most_freq
+S_MF = 14         # most_freq (feature-local) bin
+N_SCALARS = 15
+
+HIST_W = 256      # bins per group plane
+
+
+def unpack_group_bins(pay: torch.Tensor, plan, start: int,
+                      length: int) -> torch.Tensor:
+    """[length, G] int64 group-local bins of lanes [start, start + length),
+    decoded through plan[g] = (word_row, shift, mask). The mask after the
+    shift also clears what an arithmetic shift of int32 brings in."""
+    cols = [(pay[w, start:start + length] >> sh) & mk for w, sh, mk in plan]
+    return torch.stack(cols, dim=1).to(torch.int64)
+
+
+def _plan_list(plan: torch.Tensor):
+    return [tuple(int(v) for v in row) for row in plan.tolist()]
+
+
+def seg_hist_plain(pay: torch.Tensor, plan: torch.Tensor, nbw: int,
+                   start: int, length: int):
+    """(grad plane, hess plane), [G * 256] f32 each: the histogram of lanes
+    [start, start + length) in plain PyTorch, in the kernel's order."""
+    G = plan.shape[0]
+    bins = unpack_group_bins(pay, _plan_list(plan), start, length)
+    grad = pay[nbw + 2, start:start + length].view(torch.float32)
+    hess = pay[nbw + 3, start:start + length].view(torch.float32)
+    nblocks, rows = row_blocks(length, G)
+    out = None
+    for b in range(nblocks):
+        part = _chain(bins, grad, hess, b * rows,
+                      min(rows, length - b * rows), HIST_W)
+        out = part if out is None else out + part
+    return out[:, 0].contiguous(), out[:, 1].contiguous()
+
+
+def root_hist_plain(pay: torch.Tensor, plan: torch.Tensor, nbw: int, n: int):
+    """(grad plane, hess plane, sums [2] f32): seg_hist over lanes [0, n),
+    and the f64 sums of the grad and hess rows rounded to f32."""
+    gh, hh = seg_hist_plain(pay, plan, nbw, 0, n)
+    gh_h = pay[nbw + 2:nbw + 4, :n].view(torch.float32)
+    sums = gh_h.double().sum(dim=1).float()
+    return gh, hh, sums
+
+
+def go_left_plain(word: torch.Tensor, scal) -> torch.Tensor:
+    """DenseBin::Split (dense_bin.hpp:112) at the bin level, per lane of the
+    split feature's payload word (make_xla_split_pass:417-426)."""
+    b_raw = (word >> scal[S_SH]) & scal[S_MASK]
+    in_r = (b_raw >= scal[S_LS]) & (b_raw < scal[S_LE])
+    b = torch.where(in_r, b_raw - scal[S_LS], scal[S_MF])
+    go_left = b <= scal[S_THR]
+    if scal[S_MT] == 2:
+        go_left = torch.where(b == scal[S_NB] - 1, scal[S_DL] > 0, go_left)
+    elif scal[S_MT] == 1:
+        go_left = torch.where(b == scal[S_DB], scal[S_DL] > 0, go_left)
+    return go_left
+
+
+def _child(scal, n_left: int):
+    """(start, length) of the smaller child after the partition."""
+    s0, n_l = scal[S_S0], scal[S_NL]
+    if scal[S_SMALL_L] > 0:
+        return s0, n_left
+    return s0 + n_left, n_l - n_left
+
+
+def split_pass_plain(pay: torch.Tensor, scal, plan: torch.Tensor, nbw: int,
+                     wp_live: int, with_hist: bool):
+    """Partition the segment of `scal` in place (rows < wp_live, left lanes
+    first, each side in its old order) in plain PyTorch. Returns (n_left,
+    the smaller child's (grad, hess) planes or None)."""
+    s0, n_l = scal[S_S0], scal[S_NL]
+    n_left = 0
+    if n_l > 0:
+        go_left = go_left_plain(pay[scal[S_WG], s0:s0 + n_l], scal)
+        left = torch.nonzero(go_left).squeeze(1)
+        order = torch.cat([left, torch.nonzero(~go_left).squeeze(1)])
+        seg = pay[:wp_live, s0:s0 + n_l]
+        pay[:wp_live, s0:s0 + n_l] = seg[:, order]
+        n_left = int(left.numel())
+    hist = None
+    if with_hist:
+        hist = seg_hist_plain(pay, plan, nbw, *_child(scal, n_left))
+    return n_left, hist
+
+
+# ---- wrappers -------------------------------------------------------------
+
+def _check(name, pay, plan, nbw, lanes):
+    if pay.dtype != torch.int32 or pay.dim() != 2 or not pay.is_contiguous():
+        raise LightGBMError("%s: the payload must be a contiguous [WPA, NP] "
+                            "int32 tensor, got %s %s"
+                            % (name, tuple(pay.shape), pay.dtype))
+    if plan.dtype != torch.int32 or plan.dim() != 2 or plan.shape[1] != 3 \
+            or plan.shape[0] < 1 or not plan.is_contiguous():
+        raise LightGBMError("%s: the plan must be a contiguous [G, 3] int32 "
+                            "tensor" % name)
+    if plan.device != pay.device:
+        raise LightGBMError("%s: the plan is on %s, the payload on %s"
+                            % (name, plan.device, pay.device))
+    if not 0 <= nbw or nbw + 4 > pay.shape[0]:
+        raise LightGBMError("%s: nbw=%d leaves no grad/hess rows in %d"
+                            % (name, nbw, pay.shape[0]))
+    start, length = lanes
+    if not (0 <= start and 0 <= length and start + length <= pay.shape[1]):
+        raise LightGBMError("%s: lanes [%d, %d) outside %d"
+                            % (name, start, start + length, pay.shape[1]))
+    if pay.device.type not in ("cpu", "cuda"):
+        raise LightGBMError("%s: no kernel for device %s" % (name, pay.device))
+
+
+def _void(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _hist_buffers(pay, G, length, sums):
+    """(nblocks, rows, partial, out) of a payload histogram launch."""
+    nblocks, rows = row_blocks(length, G)
+    out = torch.empty((2, G * HIST_W), dtype=torch.float32, device=pay.device)
+    partial = out if nblocks == 1 and not sums else torch.empty(
+        (nblocks, 2, G * HIST_W), dtype=torch.float32, device=pay.device)
+    return nblocks, rows, partial, out
+
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_HIST_ARGS = [_P, _LL, _P, _I, _I, _LL, _LL, _I, _LL, _P, _P, _P]
+
+
+def _launch_hist(lib_name, fn_name, pay, plan, nbw, start, length):
+    from .build import load
+    fn = getattr(load(lib_name), fn_name)
+    fn.argtypes = _HIST_ARGS
+    fn.restype = _I
+    G = plan.shape[0]
+    nblocks, rows, partial, out = _hist_buffers(pay, G, length, False)
+    err = fn(_void(pay), pay.shape[1], _void(plan), G, nbw + 2, start,
+             length, nblocks, rows, _void(partial), _void(out), _stream(pay))
+    if err != 0:
+        raise LightGBMError("%s kernel launch failed: CUDA error %d"
+                            % (lib_name, err))
+    return out[0], out[1]
+
+
+def seg_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, start: int,
+             length: int):
+    """(grad plane, hess plane) of lanes [start, start + length): the CUDA
+    kernel for a payload on the card, the plain version on the CPU."""
+    start, length, nbw = int(start), int(length), int(nbw)
+    _check("seg_hist", pay, plan, nbw, (start, length))
+    if pay.device.type == "cpu":
+        return seg_hist_plain(pay, plan, nbw, start, length)
+    out = _launch_hist("seg_hist", "seg_hist_launch", pay, plan, nbw, start,
+                       length)
+    seg_hist.launches += 1
+    return out
+
+
+seg_hist.launches = 0
+
+
+def root_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, n: int):
+    """(grad plane, hess plane, sums [2] f32) over lanes [0, n): the CUDA
+    kernel for a payload on the card, the plain version on the CPU.
+
+    The totals are f64 sums rounded to f32, the same value on any device
+    (ops/grow.py's convention). The TPU kernel sums them in f32 chunk
+    partials instead; the two differ by f32 rounding (the tests hold
+    it)."""
+    n, nbw = int(n), int(nbw)
+    _check("root_hist", pay, plan, nbw, (0, n))
+    if pay.device.type == "cpu":
+        return root_hist_plain(pay, plan, nbw, n)
+    from .build import load
+    fn = load("root_hist").root_hist_launch
+    fn.argtypes = [_P, _LL, _P, _I, _I, _LL, _I, _LL, _P, _P, _P, _P, _P]
+    fn.restype = _I
+    G = plan.shape[0]
+    nblocks, rows, partial, out = _hist_buffers(pay, G, n, True)
+    sums_partial = torch.empty((nblocks, 2), dtype=torch.float64,
+                               device=pay.device)
+    sums = torch.empty(2, dtype=torch.float32, device=pay.device)
+    err = fn(_void(pay), pay.shape[1], _void(plan), G, nbw + 2, n, nblocks,
+             rows, _void(partial), _void(out), _void(sums_partial),
+             _void(sums), _stream(pay))
+    if err != 0:
+        raise LightGBMError("root_hist kernel launch failed: CUDA error %d"
+                            % err)
+    root_hist.launches += 1
+    return out[0], out[1], sums
+
+
+root_hist.launches = 0
+
+
+def _launch_split(pay, scal, wp_live):
+    """Queue the partition kernels of a non-empty segment on the card;
+    returns n_left as a [1] int32 tensor on the card, without waiting."""
+    from .build import load
+    fn = load("split_pass").split_pass_launch
+    fn.argtypes = [_P, _LL, _I, _P, _P, _P, _P, _P, _P]
+    fn.restype = _I
+    n_l = scal[S_NL]
+    ntiles = -(-n_l // 1024)
+    tiles = torch.empty((2, ntiles), dtype=torch.int32, device=pay.device)
+    cnt = torch.empty(1, dtype=torch.int32, device=pay.device)
+    scratch = torch.empty((wp_live, n_l), dtype=torch.int32,
+                          device=pay.device)
+    host = (ctypes.c_int * N_SCALARS)(*scal)
+    err = fn(_void(pay), pay.shape[1], wp_live,
+             ctypes.cast(host, ctypes.c_void_p), _void(tiles[0]),
+             _void(tiles[1]), _void(cnt), _void(scratch), _stream(pay))
+    if err != 0:
+        raise LightGBMError("split_pass kernel launch failed: CUDA error %d"
+                            % err)
+    return cnt
+
+
+def split_pass(pay: torch.Tensor, scal, plan: torch.Tensor, nbw: int,
+               wp_live: int, with_hist: bool):
+    """Partition one leaf's segment in place: the CUDA kernel for a payload
+    on the card, the plain version on the CPU. `scal` is the host sequence
+    of the N_SCALARS slots. Returns (n_left, the smaller child's (grad,
+    hess) planes when `with_hist`, else None). Reading n_left back waits
+    for the card: one host sync per split."""
+    scal = [int(v) for v in scal]
+    if len(scal) != N_SCALARS:
+        raise LightGBMError("split_pass: %d scalars, expected %d"
+                            % (len(scal), N_SCALARS))
+    nbw, wp_live = int(nbw), int(wp_live)
+    _check("split_pass", pay, plan, nbw, (scal[S_S0], scal[S_NL]))
+    if not nbw + 4 <= wp_live <= pay.shape[0]:
+        raise LightGBMError("split_pass: wp_live=%d outside [%d, %d]"
+                            % (wp_live, nbw + 4, pay.shape[0]))
+    if not 0 <= scal[S_WG] < nbw:
+        raise LightGBMError("split_pass: word row %d is not a bin word"
+                            % scal[S_WG])
+    if pay.device.type == "cpu":
+        return split_pass_plain(pay, scal, plan, nbw, wp_live, with_hist)
+    n_left = 0
+    if scal[S_NL] > 0:
+        n_left = int(_launch_split(pay, scal, wp_live).item())
+    hist = None
+    if with_hist:
+        hist = _launch_hist("split_pass", "split_pass_hist_launch", pay, plan,
+                            nbw, *_child(scal, n_left))
+    if scal[S_NL] > 0 or with_hist:
+        split_pass.launches += 1
+    return n_left, hist
+
+
+split_pass.launches = 0
+
+
+def plan_tensor(plan, device) -> torch.Tensor:
+    """The [G, 3] int32 plan (word_row, shift, mask) on `device`."""
+    return torch.as_tensor(np.asarray(plan, np.int32).reshape(-1, 3),
+                           device=device).contiguous()

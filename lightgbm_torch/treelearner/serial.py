@@ -2,14 +2,22 @@
 
 The port of lightgbm_tpu/treelearner/serial.py on its fast path: it owns the
 dataset's device layout, samples features per tree (ColSampler,
-src/treelearner/col_sampler.hpp), and grows every tree with the partitioned
-grower (ops/grow.py), whose split scan is the ``scan_pair`` kernel.
+src/treelearner/col_sampler.hpp), and grows trees with one of two growers,
+both scanning splits with the ``scan_pair`` kernel:
 
-The JAX package picks among several growers and scans
-(``resolve_scan_impl``, serial.py:138-167; ``can_persist_scan``,
-serial.py:479). The port has one route, so :func:`check_fast_path` refuses
-every configuration that route does not implement, naming the ROADMAP.md
-item that will bring it, instead of running something else in silence.
+  * the persistent-payload grower (ops/grow_persist.py), which
+    :meth:`SerialTreeLearner.can_persist_scan` picks as the JAX package's
+    gate does (serial.py:479-539): ``tpu_persist_scan=auto`` takes it on
+    the card for 65536 rows or more, ``force`` on any device (on the CPU
+    with the kernels' plain versions), ``off``/``false``/``0`` never. The
+    payload, with the scores in it, stays on the learner between
+    iterations (:meth:`train_persist`);
+  * the v1 partitioned grower (ops/grow.py) otherwise.
+
+The JAX package picks among more growers and scans (``resolve_scan_impl``,
+serial.py:138-167). :func:`check_fast_path` refuses every configuration the
+port's routes do not implement, naming the ROADMAP.md item that will bring
+it, instead of running something else in silence.
 """
 from __future__ import annotations
 
@@ -17,10 +25,15 @@ import numpy as np
 
 from ..config import Config
 from ..ops.grow import GrowConfig, grow_tree_partitioned, tb_source_index
+from ..ops.grow_persist import PersistGrower
+from ..ops.payload import build_assets, persist_pack_ok
 from ..ops.split import FeatureMeta, SplitParams
 from ..utils.log import Log
 
 _SCAN = "queue A, item 4: general split scan"
+# rows from which the JAX package takes the persistent grower on an
+# accelerator (treelearner/serial.py:33)
+PARTITION_MIN_ROWS = 65536
 
 
 def _refuse(what: str, item: str) -> None:
@@ -69,9 +82,6 @@ def check_fast_path(config: Config, dataset) -> None:
     if str(c.tpu_multival).lower() == "force":
         _refuse("tpu_multival=force",
                 "queue A, item 2: binned dataset layouts")
-    if str(c.tpu_persist_scan).lower() == "force":
-        _refuse("tpu_persist_scan=force",
-                "queue A, item 6: persistent payload grower")
     if dataset.has_bundles:
         _refuse("EFB bundles (features sharing a group need FixHistogram; "
                 "enable_bundle=false avoids them)",
@@ -134,6 +144,69 @@ class SerialTreeLearner:
                                       dataset.total_bins,
                                       self.grow_config.hist_width, device)
         self.col_sampler = ColSampler(config, dataset.num_features)
+        self._persist_gr = None
+        self._persist_carry = None
+
+    def can_persist_scan(self, objective) -> bool:
+        """Does this learner grow with the persistent-payload grower? The
+        JAX package's gate (serial.py:479-539) for the port's routes:
+        ``force`` asks for it on any device and raises when the objective
+        has no payload gradient; ``auto`` takes it on the card for 65536
+        rows or more; both need a payload pack plan and an objective with
+        something to train (EFB bundles never get here: check_fast_path
+        refuses them)."""
+        opt = str(self.config.tpu_persist_scan).lower()
+        if opt in ("false", "0", "off"):
+            return False
+        grad_fn = getattr(objective, "payload_grad_fn", None)
+        if opt == "force" and grad_fn is None:
+            Log.fatal("tpu_persist_scan=force: objective '%s' has no payload "
+                      "gradient (ROADMAP.md queue A, item 17: other "
+                      "objectives)" % getattr(objective, "name",
+                                              type(objective).__name__))
+        if opt != "force" and (self.device.type != "cuda" or
+                               self.dataset.num_data < PARTITION_MIN_ROWS):
+            return False
+        return (persist_pack_ok(self.dataset)[0]
+                and self.dataset.num_features > 0
+                and grad_fn is not None and grad_fn() is not None)
+
+    def _persist_grower(self) -> PersistGrower:
+        if self._persist_gr is None:
+            if (self.grow_config.max_depth > 0 and
+                    str(self.config.tpu_level_grow).lower()
+                    not in ("off", "false", "0")):
+                Log.info("the persistent grower's level phase is not ported "
+                         "yet (ROADMAP.md queue A, item 6); max_depth=%d "
+                         "trees grow split by split, which gives the same "
+                         "trees" % self.grow_config.max_depth)
+            assets = build_assets(self.dataset, self.dataset.metadata.label)
+            self._persist_gr = PersistGrower(assets, self.meta,
+                                             self.grow_config, self.params,
+                                             self.device)
+        return self._persist_gr
+
+    def train_persist(self, objective, score0, shrink: float):
+        """One boosting iteration on the payload: the objective's
+        gradients, one tree, and the tree's score update, all on the
+        payload, which stays on the learner (the carry). `score0()` returns
+        the row-ordered [n] scores that seed the carry; it is called on the
+        first call only. Returns the tree's TreeArrays."""
+        gr = self._persist_grower()
+        if self._persist_carry is None:
+            self._persist_carry = gr.init_carry(score0())
+        pay = self._persist_carry
+        gr.fill_grad(pay, objective.payload_grad_fn())
+        lstate, tree, num_leaves = gr.grow(pay, self.col_sampler.sample())
+        gr.apply_scores(pay, lstate, num_leaves, shrink)
+        return gr.to_tree_arrays(lstate, tree, num_leaves)
+
+    def persist_finalize_scores(self):
+        """Row-ordered [n] f64 scores from the carry (None without one);
+        the carry stays live."""
+        if self._persist_carry is None:
+            return None
+        return self._persist_gr.finalize_scores(self._persist_carry)
 
     def train_arrays(self, grad, hess):
         """Grow one tree from [N] grad/hess tensors on the learner's device;

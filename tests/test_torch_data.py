@@ -127,7 +127,7 @@ def test_config_matches_jax(params):
     ({"feature_fraction_bynode": 0.5}, "item 4"),
     ({"cegb_penalty_split": 0.1}, "item 4"),
     ({"tpu_use_dp": True}, "item 4"),
-    ({"tpu_persist_scan": "force"}, "item 6"),
+    ({"tpu_scan_impl": "xla"}, "item 4"),
     ({"tpu_multival": "force"}, "item 2"),
     ({"tree_learner": "voting"}, "item 11"),
 ])

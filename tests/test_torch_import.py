@@ -18,7 +18,9 @@ PKG = os.path.join(REPO, "lightgbm_torch")
 
 def test_import_leaves_jax_out():
     code = ("import sys, lightgbm_torch, lightgbm_torch.engine, "
-            "lightgbm_torch.convert, lightgbm_torch.ops.grow; "
+            "lightgbm_torch.convert, lightgbm_torch.ops.grow, "
+            "lightgbm_torch.ops.grow_persist, lightgbm_torch.ops.payload, "
+            "lightgbm_torch.ops.payload_kernels, lightgbm_torch.ops.build; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('lightgbm_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
