@@ -8,38 +8,55 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the five CUDA kernels from csrc/, in parallel;
+  2. build    nvcc builds the eight CUDA kernels from csrc/, in parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
               scan_pair (the v1 grower), root_hist over all 10.5M payload
               lanes, seg_hist and split_pass on a 1M-lane payload segment
-              (the persistent grower). Each is held bit for bit against its
-              plain version on the CPU, and two launches must agree; times
-              for the kernel, the plain version, one PyTorch library call
-              where one computes the same function, and the bound;
+              (the persistent grower), level_pass and level_seg_hist on the
+              10.5M lanes cut into 128 slots as at depth 8 (the level
+              phase), scan_pair at B = 256 on the level's children. Each is
+              held bit for bit against its plain version on the CPU, and
+              two launches must agree; times for the kernel, the plain
+              version, one PyTorch library call where one computes the same
+              function, the bound, and, for the level kernels, the 128
+              per-split launches they replace;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
-              features, max_bin=255, num_leaves=255, binary) on cuda with the
-              default routing, which takes the persistent-payload grower,
-              for 10 iterations: launch counts checked against the trees
-              grown (root_hist = trees, split_pass = seg_hist = splits,
-              scan_pair = trees + splits, hist_window = 0), training logloss
-              falling every iteration, the device scores against the numpy
-              walk (f32 payload scores: within 2 * (iterations + 1) f32 ulps
+              features, max_bin=255, binary) on cuda with the default
+              routing, along three paths, each wrapper's launch count set
+              to 0 just before and read just after:
+              persist  num_leaves=255 (the per-split persistent grower),
+                       10 iterations;
+              v1       tpu_persist_scan=false, 3 iterations;
+              level    num_leaves=256, max_depth=8 (the level phase), 10
+                       iterations, then 3 with tpu_level_grow=off whose raw
+                       predictions must equal the first 3 trees' bit for
+                       bit;
+              launch counts checked against the trees, splits, level
+              programs and per-split splits grown (level programs at most
+              max_depth per tree), training logloss falling every
+              iteration, the device scores against the numpy walk (v1:
+              1e-9; f32 payload scores: within 2 * (iterations + 1) f32 ulps
               of the largest score), and a model-text round trip;
-  5. train v1 the same Dataset with tpu_persist_scan=false for 3
-              iterations: hist_window = scan_pair = trees + splits, the
-              device scores within 1e-9 of the numpy walk, the round trip;
-  6. parity   200k rows x 5 iterations on cuda and on the CPU (the plain
-              versions), for the persistent grower (tpu_persist_scan=force)
-              and the v1 grower (false): equal tree structure, leaf values
-              within rtol 2e-4.
+  5. bundled  the Expo shape (make_expo_like: 8 dense + 640 one-hot
+              columns, EFB-bundled into 18 groups; 2M rows), scan_blocks
+              against its plain version at B = 256 children, then the
+              bundled train path (num_leaves=256, max_depth=8, 10
+              iterations; scan_blocks, no scan_pair) with the same checks
+              and 3 iterations with tpu_level_grow=off (split_pass's
+              in-pass histogram) bit-equal to the first 3 trees;
+  6. parity   cuda against the CPU (the plain versions), 5 iterations, for
+              the persistent (force) and v1 (false) growers and the level
+              path on 200k HIGGS rows, and the bundled path on 100k Expo
+              rows: equal tree structure and equal leaf values.
 
 The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Options scale the run down for a quick check
-(--rows, --iters, --v1-iters, --parity-rows, --parity-iters, --skip-train,
---skip-parity); the defaults are the full run. --profile adds a
-torch.profiler breakdown of one more iteration of each train phase
+(--rows, --iters, --v1-iters, --level-iters, --off-iters, --expo-rows,
+--expo-iters, --parity-rows, --expo-parity-rows, --parity-iters,
+--skip-train, --skip-parity); the defaults are the full run. --profile
+adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes").
 """
 from __future__ import annotations
@@ -298,9 +315,75 @@ def _same(name, a, b):
     return worst
 
 
-def phase_payload_kernels(inner):
-    """root_hist, seg_hist and split_pass against their plain versions at
-    the persistent grower's HIGGS shapes; returns their kernel records."""
+def split_scalars(assets, inner, f, s0, n_l, default_left, small_l):
+    """The S_* scalars of a split of lanes [s0, s0 + n_l) of a pristine
+    payload (lane i is row i) on feature f at the median of its bins."""
+    from lightgbm_torch.ops import payload_kernels as pk
+    col = inner.binned[s0:s0 + n_l, int(inner.group_of[f])]
+    scal = [0] * pk.N_SCALARS
+    scal[pk.S_NCH] = -(-n_l // assets.geometry[6])
+    scal[pk.S_S0], scal[pk.S_NL] = s0, n_l
+    scal[pk.S_WG], scal[pk.S_SH] = (int(assets.dec_word[f]),
+                                    int(assets.dec_shift[f]))
+    scal[pk.S_MASK], scal[pk.S_NB] = (int(assets.dec_mask[f]),
+                                      int(assets.nb[f]))
+    scal[pk.S_MT], scal[pk.S_DB] = int(assets.mt[f]), int(assets.db[f])
+    scal[pk.S_THR] = int(np.median(col)) if n_l else 0
+    scal[pk.S_DL], scal[pk.S_SMALL_L] = int(default_left), int(small_l)
+    scal[pk.S_LS], scal[pk.S_LE], scal[pk.S_MF] = (
+        int(assets.ls[f]), int(assets.le[f]), int(assets.mf[f]))
+    return scal
+
+
+def random_segments(rng, n, S):
+    """S disjoint (start, length) segments covering lanes [0, n), cut at
+    S - 1 random lanes: the leaves of one tree level, of uneven sizes."""
+    cuts = np.sort(rng.choice(np.arange(1, n), S - 1, replace=False))
+    bounds = np.concatenate([[0], cuts, [n]])
+    return [(int(a), int(b - a)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def segment_sums(pay, nbw, segs):
+    """[S] f32 grad sums, [S] f32 hess sums (f64 sums rounded) and [S]
+    lengths of payload segments."""
+    import torch
+    gh = pay[nbw + 2:nbw + 4].view(torch.float32)
+    sums = np.array([gh[:, st:st + ln].double().sum(dim=1).cpu().numpy()
+                     for st, ln in segs], np.float64).astype(np.float32)
+    return sums[:, 0], sums[:, 1], np.array([ln for _, ln in segs])
+
+
+def library_hist_segments(pay, plan, nbw, segs):
+    """The time of one index_add_ computing the planes of every segment of
+    `segs` at once ([S * G * 256] bins, index and values built outside the
+    timed call): the yardstick of the payload histogram kernels."""
+    import torch
+    dev = pay.device
+    G = len(plan)
+    lanes = torch.cat([torch.arange(st, st + ln, device=dev)
+                       for st, ln in segs])
+    slot = torch.repeat_interleave(
+        torch.arange(len(segs), device=dev),
+        torch.as_tensor([ln for _, ln in segs], device=dev))
+    bins = torch.stack([(pay[w, lanes] >> sh) & mk for w, sh, mk in plan],
+                       dim=1).long()
+    idx = (slot[:, None] * (G * 256) + torch.arange(G, device=dev)[None, :]
+           * 256 + bins).reshape(-1)
+    del bins, slot
+    gh = pay[nbw + 2:nbw + 4][:, lanes].view(torch.float32)
+    vals = gh.t()[:, None, :].expand(-1, G, -1).reshape(-1, 2).contiguous()
+    del gh, lanes
+    out = torch.zeros((len(segs) * G * 256, 2), device=dev)
+    ms = device_ms(lambda: out.index_add_(0, idx, vals), reps=5, warmup=1)
+    del idx, vals, out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_payload_kernels(inner, meta, gc, params):
+    """root_hist, seg_hist, split_pass, level_pass and level_seg_hist
+    against their plain versions at the persistent grower's HIGGS shapes;
+    returns their kernel records."""
     import torch
     from lightgbm_torch.ops import payload_kernels as pk
     from lightgbm_torch.ops.payload import build_assets
@@ -324,22 +407,6 @@ def phase_payload_kernels(inner):
     plane_bytes = 2 * G * 256 * 4
     records = []
 
-    def library_hist(start, length):
-        """index_add_ over the decoded bins of a segment, built outside the
-        timed call (the yardstick of the two histogram kernels)."""
-        bins = pk.unpack_group_bins(pay, plan, start, length)
-        idx = (bins + torch.arange(G, device=dev)[None, :] * 256).reshape(-1)
-        del bins
-        gh = pay[nbw + 2:nbw + 4, start:start + length].view(torch.float32)
-        vals = gh.t()[:, None, :].expand(-1, G, -1).reshape(-1, 2) \
-            .contiguous()
-        out = torch.zeros((G * 256, 2), device=dev)
-        ms = device_ms(lambda: out.index_add_(0, idx, vals), reps=5,
-                       warmup=1)
-        del idx, vals, out
-        torch.cuda.empty_cache()
-        return ms
-
     # ---- root_hist over all n lanes ---------------------------------------
     k1 = pk.root_hist(pay, plan_d, nbw, n)
     k2 = pk.root_hist(pay, plan_d, nbw, n)
@@ -351,7 +418,7 @@ def phase_payload_kernels(inner):
                    warmup=1)
     plain_ms = device_ms(lambda: pk.root_hist_plain(pay, plan_d, nbw, n),
                          reps=3, warmup=1)
-    lib_ms = library_hist(0, n)
+    lib_ms = library_hist_segments(pay, plan, nbw, [(0, n)])
     b_ms, b_by = bound_ms(n * lane_bytes + plane_bytes + 8, 2.0 * n * G)
     log("root_hist, %d lanes: two launches bit-identical, bit-identical to "
         "the plain version on the CPU (planes and totals); median time per "
@@ -379,7 +446,7 @@ def phase_payload_kernels(inner):
     ms = device_ms(lambda: pk.seg_hist(pay, plan_d, *args))
     plain_ms = device_ms(lambda: pk.seg_hist_plain(pay, plan_d, *args),
                          reps=5)
-    lib_ms = library_hist(777, R)
+    lib_ms = library_hist_segments(pay, plan, nbw, [(777, R)])
     b_ms, b_by = bound_ms(R * lane_bytes + plane_bytes, 2.0 * R * G)
     log("seg_hist, %d lanes from lane 777: two launches bit-identical, "
         "bit-identical to the plain version on the CPU (and a ragged 8191-"
@@ -394,20 +461,7 @@ def phase_payload_kernels(inner):
                "library_ms": lib_ms}
 
     # ---- split_pass on a 1M-lane segment -----------------------------------
-    f = 0
-    col = inner.binned[777:777 + R, int(inner.group_of[f])]
-    scal = [0] * pk.N_SCALARS
-    scal[pk.S_NCH] = -(-R // assets.geometry[6])
-    scal[pk.S_S0], scal[pk.S_NL] = 777, R
-    scal[pk.S_WG], scal[pk.S_SH] = (int(assets.dec_word[f]),
-                                    int(assets.dec_shift[f]))
-    scal[pk.S_MASK], scal[pk.S_NB] = (int(assets.dec_mask[f]),
-                                      int(assets.nb[f]))
-    scal[pk.S_MT], scal[pk.S_DB] = int(assets.mt[f]), int(assets.db[f])
-    scal[pk.S_THR] = int(np.median(col))
-    scal[pk.S_DL], scal[pk.S_SMALL_L] = 1, 1
-    scal[pk.S_LS], scal[pk.S_LE], scal[pk.S_MF] = (
-        int(assets.ls[f]), int(assets.le[f]), int(assets.mf[f]))
+    scal = split_scalars(assets, inner, 0, 777, R, 1, 1)
     end = 777 + R + 1024                 # the CPU copy covers the segment
     runs = []
     for with_hist in (False, False, True):
@@ -454,54 +508,340 @@ def phase_payload_kernels(inner):
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None})
     records.append(seg_rec)
+    records += phase_level_kernels(pay, cpu, assets, inner, meta, gc, params)
     del pay, cpu, host, assets
     torch.cuda.empty_cache()
     return records
 
 
+def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
+    """level_pass and level_seg_hist against their plain versions on the
+    pristine HIGGS payload `pay` (and its CPU copy) cut into 128 slots, as
+    at depth 8 of a 256-leaf tree, and scan_pair at B = 256 on the level's
+    children; returns the two kernel records."""
+    import torch
+    from lightgbm_torch.ops import payload_kernels as pk
+    from lightgbm_torch.ops.scan import (ScanLayout, pair_scalars, scan_pair,
+                                         scan_pair_plain)
+    dev = pay.device
+    WPA, NP, G, plan, nbw, n = assets.geometry[:6]
+    plan_c, plan_d = pk.plan_tensor(plan, "cpu"), pk.plan_tensor(plan, dev)
+    wp_live = nbw + 5
+    S = 128
+    rng = np.random.default_rng(2)
+    slots = random_segments(rng, n, S)
+    F = inner.num_features
+    scal = np.array([split_scalars(assets, inner, j % F, s0, n_l, j % 2,
+                                   (j // 2) % 2) + [0]
+                     for j, (s0, n_l) in enumerate(slots)], np.int64)
+
+    # ---- level_pass: the partition of all 128 slots ------------------------
+    runs = []
+    for with_hist in (False, False, True):
+        d = pay.clone()
+        n_left, hist = pk.level_pass(d, scal, plan_d, nbw, wp_live,
+                                     with_hist)
+        runs.append((d, n_left, hist))
+    torch.cuda.synchronize()
+    if not np.array_equal(runs[0][1], runs[1][1]):
+        raise AssertionError("level_pass: two launches give different "
+                             "n_left")
+    _same("level_pass: two launches", runs[0][0], runs[1][0])
+    t = time.time()
+    sub = cpu.clone()
+    p_left, p_hist = pk.level_pass(sub, scal, plan_c, nbw, wp_live, True)
+    log("level_pass: the plain version on the CPU took %.1f s" % (
+        time.time() - t))
+    if not np.array_equal(p_left, runs[0][1]):
+        raise AssertionError("level_pass: n_left differs from the plain "
+                             "version on the CPU")
+    _same("level_pass vs the plain version on the CPU", runs[0][0], sub)
+    _same("level_pass: in-pass histograms vs the plain version on the CPU",
+          runs[2][2], p_hist)
+    _same("level_pass: payload with the in-pass histograms", runs[2][0],
+          runs[0][0])
+    part = runs[0][0]
+    del runs, sub
+    kids = pk.level_children(scal, p_left)
+    small = sum(ln for _, ln in kids)
+
+    # ---- level_seg_hist: the smaller children after the partition -----------
+    k1 = pk.level_seg_hist(part, plan_d, nbw, kids)
+    k2 = pk.level_seg_hist(part, plan_d, nbw, kids)
+    torch.cuda.synchronize()
+    _same("level_seg_hist: two launches", k1, k2)
+    err_seg = _same("level_seg_hist vs the plain version on the CPU", k1,
+                    p_hist)
+    del k1, k2, p_hist
+
+    # ---- times ---------------------------------------------------------------
+    tables = pk._level_tables(scal, dev)
+    d = pay.clone()
+    lp_ms = device_ms(lambda: pk._launch_level(d, wp_live, tables))
+    lp_plain = device_ms(lambda: pk.level_pass_plain(d, scal, plan_d, nbw,
+                                                     wp_live, False),
+                         reps=3, warmup=1)
+    rows = [r[:pk.N_SCALARS].tolist() for r in scal if r[pk.S_NL] > 0]
+    lp_split = device_ms(lambda: [pk._launch_split(d, r, wp_live)
+                                  for r in rows], reps=5, warmup=1)
+    del d
+    torch.cuda.empty_cache()
+    lp_bound, lp_by = bound_ms(2.0 * wp_live * n * 4 + scal.size * 4,
+                               float(n))
+    log("level_pass, %d slots over %d lanes (smaller children %d lanes): "
+        "two launches bit-identical, bit-identical to the plain version on "
+        "the CPU (payload, n_left, the in-pass histograms); median time per "
+        "call: kernel %.4f ms (the partition launches, without the "
+        "wrapper's host sync for n_left), plain %.4f ms, %d split_pass "
+        "partitions %.4f ms, no single PyTorch call computes it; bound "
+        "%.4f ms (%s)" % (S, n, small, lp_ms, lp_plain, len(rows), lp_split,
+                          lp_bound, lp_by))
+    htab = pk._multi_hist_tables(kids, G, dev)
+    ls_ms = device_ms(lambda: pk._launch_multi_hist(
+        "level_seg_hist", "level_seg_hist_launch", part, plan_d, nbw, htab))
+    ls_plain = device_ms(lambda: pk.level_seg_hist_plain(part, plan_d, nbw,
+                                                         kids),
+                         reps=3, warmup=1)
+    live = [(st, ln) for st, ln in kids if ln > 0]
+    ls_split = device_ms(lambda: [pk._launch_hist(
+        "seg_hist", "seg_hist_launch", part, plan_d, nbw, st, ln)
+        for st, ln in live], reps=5, warmup=1)
+    ls_lib = library_hist_segments(part, plan, nbw, kids)
+    ls_bound, ls_by = bound_ms(small * (4 * nbw + 8) + S * 2 * G * 256 * 4,
+                               2.0 * small * G)
+    log("level_seg_hist, %d smaller children, %d lanes: two launches "
+        "bit-identical, bit-identical to the plain version on the CPU; "
+        "median time per call: kernel %.4f ms, plain %.4f ms, %d seg_hist "
+        "launches %.4f ms, index_add_ %.4f ms; bound %.4f ms (%s)"
+        % (S, small, ls_ms, ls_plain, len(live), ls_split, ls_lib, ls_bound,
+           ls_by))
+
+    # ---- scan_pair at B = 256: both children of every slot -------------------
+    both = [c for (s0, n_l), nl in zip(slots, p_left)
+            for c in ((s0, int(nl)), (s0 + int(nl), n_l - int(nl)))]
+    gh, hh = pk.level_seg_hist(part, plan_d, nbw, both)
+    sg, sh, cnt = segment_sums(part, nbw, both)
+    group_of, ls, nb = assets.efb[0], assets.efb[1], assets.efb[2]
+    start = group_of.astype(np.int64) * 256 + ls
+    layout = ScanLayout(start, start + nb, meta.missing_type,
+                        meta.default_bin, meta.penalty, np.ones(F, bool),
+                        gc.scan_width, G * 256, dev)
+    sc = torch.as_tensor(pair_scalars(
+        sg, sh, cnt, params.lambda_l2, params.min_gain_to_split,
+        params.min_data_in_leaf, params.min_sum_hessian_in_leaf), device=dev)
+    args = (sc, gh[:, layout.gidx].contiguous(),
+            hh[:, layout.gidx].contiguous(), layout.keep_r, layout.keep_f,
+            layout.valid_r, layout.valid_f, layout.aux)
+    k = scan_pair(*args)
+    _same("scan_pair B=%d: two launches" % len(both), k, scan_pair(*args))
+    _same("scan_pair B=%d vs the plain version on the CPU" % len(both), k,
+          scan_pair_plain(*[a.cpu() for a in args]))
+    sp_ms = device_ms(lambda: scan_pair(*args))
+    sp_bound, _ = bound_ms(sum(a.numel() * 4 for a in args) + k.numel() * 4,
+                           40.0 * args[1].numel())
+    log("scan_pair B=%d F=%d Wp=%d (the level's children): bit-identical to "
+        "the plain version on the CPU; median time per call %.4f ms, bound "
+        "%.6f ms" % (len(both), F, layout.Wp, sp_ms, sp_bound))
+    del part, gh, hh, args, k
+    torch.cuda.empty_cache()
+    return [
+        {"name": "level_pass", "route": "cuda",
+         "source": "lightgbm_torch/csrc/level_pass.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_grow.py:543",
+         "launches": 0, "max_abs_err": 0.0, "ms": lp_ms,
+         "plain_ms": lp_plain, "bound_ms": lp_bound, "bound_by": lp_by,
+         "library_ms": None},
+        {"name": "level_seg_hist", "route": "cuda",
+         "source": "lightgbm_torch/csrc/level_seg_hist.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_grow.py:785",
+         "launches": 0, "max_abs_err": err_seg, "ms": ls_ms,
+         "plain_ms": ls_plain, "bound_ms": ls_bound, "bound_by": ls_by,
+         "library_ms": ls_lib},
+    ]
+
+
 def logloss(y, raw):
-    p = np.clip(1.0 / (1.0 + np.exp(-raw)), 1e-15, 1 - 1e-15)
-    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+    """Binary logloss of raw scores (tensors on one device), in f64."""
+    import torch
+    p = torch.sigmoid(raw.double()).clamp(1e-15, 1 - 1e-15)
+    y = y.double()
+    return float(-(y * torch.log(p) + (1 - y) * torch.log(1 - p)).mean())
 
 
+def phase_block_kernels(inner, meta, gc, params):
+    """scan_blocks against its plain version at the bundled path's shape:
+    B = 256 children (the 256 segments of the Expo payload cut as a tree
+    level's children), their [G, 256] group planes padded to [Gp, Wp], the
+    dataset's mask stack; and the time of scan_pair over the same planes
+    gathered into per-feature windows. Returns the kernel record."""
+    import torch
+    import torch.nn.functional as F_
+    from lightgbm_torch.ops import payload_kernels as pk
+    from lightgbm_torch.ops.block_scan import (BlockScanLayout, scan_blocks,
+                                               scan_blocks_plain)
+    from lightgbm_torch.ops.payload import build_assets
+    from lightgbm_torch.ops.scan import ScanLayout, pair_scalars, scan_pair
+    dev = torch.device("cuda")
+    assets = build_assets(inner, inner.metadata.label)
+    WPA, NP, G, plan, nbw, n = assets.geometry[:6]
+    rng = np.random.default_rng(3)
+    host = assets.pay0.view(np.int32)
+    host[nbw + 2, :n] = rng.normal(size=n).astype(np.float32).view(np.int32)
+    host[nbw + 3, :n] = rng.uniform(0.05, 0.25, n).astype(np.float32) \
+        .view(np.int32)
+    pay = torch.from_numpy(host).to(dev)
+    plan_d = pk.plan_tensor(plan, dev)
+    B = 256
+    segs = random_segments(rng, n, B)
+    gh, hh = pk.level_seg_hist(pay, plan_d, nbw, segs)
+    sg, sh, cnt = segment_sums(pay, nbw, segs)
+    scal8 = pair_scalars(sg, sh, cnt, params.lambda_l2,
+                         params.min_gain_to_split, params.min_data_in_leaf,
+                         params.min_sum_hessian_in_leaf)
+    scal = torch.as_tensor(np.concatenate([scal8, sh[:, None]], axis=1),
+                           device=dev)
+    blk = BlockScanLayout(assets.efb, meta.penalty, G, dev)
+    masks = blk.tree_masks(np.ones(inner.num_features, bool))
+    pad = (0, blk.Wp - 256, 0, blk.Gp - G)
+    gb = F_.pad(gh.reshape(B, G, 256), pad)
+    hb = F_.pad(hh.reshape(B, G, 256), pad)
+    args = (scal, gb, hb, masks, blk.do_fix)
+    k1 = scan_blocks(*args)
+    k2 = scan_blocks(*args)
+    torch.cuda.synchronize()
+    _same("scan_blocks: two launches", k1, k2)
+    err = _same("scan_blocks vs the plain version on the CPU", k1,
+                scan_blocks(*[a.cpu() for a in args[:4]], blk.do_fix))
+    fin = torch.isfinite(k1[:, 0]).sum().item()
+    ms = device_ms(lambda: scan_blocks(*args))
+    plain_ms = device_ms(lambda: scan_blocks_plain(*args), reps=3, warmup=1)
+    nbytes = sum(a.numel() * 4 for a in args[:4]) + k1.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 40.0 * gb.numel())
+    # scan_pair over the same planes gathered into per-feature windows
+    start = assets.efb[0].astype(np.int64) * 256 + assets.efb[1]
+    layout = ScanLayout(start, start + assets.efb[2], meta.missing_type,
+                        meta.default_bin, meta.penalty,
+                        np.ones(inner.num_features, bool), gc.scan_width,
+                        G * 256, dev)
+    pargs = (torch.as_tensor(scal8, device=dev),
+             gh[:, layout.gidx].contiguous(), hh[:, layout.gidx].contiguous(),
+             layout.keep_r, layout.keep_f, layout.valid_r, layout.valid_f,
+             layout.aux)
+    pair_ms = device_ms(lambda: scan_pair(*pargs))
+    log("scan_blocks B=%d G=%d (Gp=%d) Wp=%d, %d features, do_fix=%s: two "
+        "launches bit-identical, bit-identical to the plain version on the "
+        "CPU (%d groups with a split); median time per call: kernel %.4f "
+        "ms, plain %.4f ms, no single PyTorch call computes it; bound "
+        "%.6f ms (%s); scan_pair over the %d gathered per-feature windows "
+        "(Fp=%d, Wp=%d) %.4f ms" % (B, G, blk.Gp, blk.Wp,
+                                    inner.num_features, blk.do_fix, fin, ms,
+                                    plain_ms, b_ms, b_by, inner.num_features,
+                                    layout.Fp, layout.Wp, pair_ms))
+    del pay, host, assets, gh, hh, gb, hb, args, pargs
+    torch.cuda.empty_cache()
+    return {"name": "scan_blocks", "route": "cuda",
+            "source": "lightgbm_torch/csrc/scan_blocks.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_scan.py:525",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+# name: (parameters beyond COMMON, kernels the path launches, kernels it
+# must not launch)
+COMMON = {"objective": "binary", "max_bin": 255, "verbosity": -1}
 PATHS = {
-    # name: (tpu_persist_scan, kernels the path launches, kernels it must
-    # not launch)
-    "persist": ("auto", ("root_hist", "split_pass", "seg_hist", "scan_pair"),
-                ("hist_window",)),
-    "v1": ("false", ("hist_window", "scan_pair"),
-           ("root_hist", "split_pass", "seg_hist")),
+    "persist": ({"num_leaves": 255, "tpu_persist_scan": "auto"},
+                ("root_hist", "split_pass", "seg_hist", "scan_pair"),
+                ("hist_window", "level_pass", "level_seg_hist",
+                 "scan_blocks")),
+    "v1": ({"num_leaves": 255, "tpu_persist_scan": "false"},
+           ("hist_window", "scan_pair"),
+           ("root_hist", "split_pass", "seg_hist", "level_pass",
+            "level_seg_hist", "scan_blocks")),
+    "level": ({"num_leaves": 256, "max_depth": 8},
+              ("root_hist", "level_pass", "level_seg_hist", "scan_pair"),
+              ("hist_window", "scan_blocks")),
+    "bundled": ({"num_leaves": 256, "max_depth": 8},
+                ("root_hist", "level_pass", "scan_blocks"),
+                ("hist_window", "scan_pair", "seg_hist", "level_seg_hist")),
 }
 
 
 def _wrappers():
+    from lightgbm_torch.ops.block_scan import scan_blocks
     from lightgbm_torch.ops.histogram import hist_window
-    from lightgbm_torch.ops.payload_kernels import (root_hist, seg_hist,
+    from lightgbm_torch.ops.payload_kernels import (level_pass,
+                                                    level_seg_hist,
+                                                    root_hist, seg_hist,
                                                     split_pass)
     from lightgbm_torch.ops.scan import scan_pair
     return {"hist_window": hist_window, "scan_pair": scan_pair,
             "root_hist": root_hist, "split_pass": split_pass,
-            "seg_hist": seg_hist}
+            "seg_hist": seg_hist, "level_pass": level_pass,
+            "level_seg_hist": level_seg_hist, "scan_blocks": scan_blocks}
 
 
-def phase_train(lgb, X, y, ds, iters, card, profile, path):
-    """Train on the card along one path; returns the launch counts of the
-    run, each wrapper's count set to 0 just before it and read just
-    after."""
+def expected_launches(bst, trees):
+    """Each wrapper's launches for the trees of `bst`: v1 scans and
+    histograms once per node; the persistent grower runs root_hist per
+    tree, one level_pass (level_seg_hist when G > 20) and one scan per
+    level program, and one split_pass (seg_hist when G > 20) and one scan
+    per split of its per-split loop. Returns (counts, per-tree (level
+    programs, per-split splits))."""
+    nodes = sum(t.num_leaves for t in trees)
+    if not bst._booster.use_persist:
+        return {"hist_window": nodes, "scan_pair": nodes}, []
+    gr = bst._booster.tree_learner._persist_gr
+    stats = gr.grow_stats
+    if len(stats) != len(trees):
+        raise AssertionError("grow_stats has %d trees, the model %d"
+                             % (len(stats), len(trees)))
+    lv = sum(a for a, _ in stats)
+    fb = sum(b for _, b in stats)
+    sep = not gr.inpass_hist
+    scan = "scan_blocks" if gr.blocks is not None else "scan_pair"
+    return {"root_hist": len(trees), "level_pass": lv, "split_pass": fb,
+            "level_seg_hist": lv if sep else 0, "seg_hist": fb if sep else 0,
+            scan: len(trees) + lv + fb}, stats
+
+
+WALK_ROWS = 1_000_000     # rows the numpy walk checks (it walks ~1M rows/s)
+
+
+def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
+    """Train on the card along one path, one iteration at a time (train,
+    then Booster.update); returns the launch counts of the run, each
+    wrapper's count set to 0 just before it and read just after. The
+    training logloss is taken on the device scores after every iteration;
+    the numpy walk over the first WALK_ROWS rows checks the final scores.
+    With off_iters, then train that many iterations with
+    tpu_level_grow=off and hold their scores and raw predictions to the
+    first trees' bit for bit."""
     import torch
-    opt, used, unused = PATHS[path]
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "verbosity": -1, "tpu_persist_scan": opt}
+    extra, used, unused = PATHS[path]
+    params = dict(COMMON, **extra)
+    y_d = torch.as_tensor(y, device="cuda")
     wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
-    t = time.time()
-    bst = lgb.train(params, ds, iters)
-    torch.cuda.synchronize()
-    wall = time.time() - t
+    wall, losses, kept = 0.0, [], None
+    bst = None
+    for i in range(iters):
+        t = time.time()
+        if bst is None:
+            bst = lgb.train(params, ds, 1)
+        else:
+            bst.update()
+        torch.cuda.synchronize()
+        wall += time.time() - t
+        score = bst._booster.train_score.score
+        losses.append(logloss(y_d, score))
+        if i + 1 == off_iters:
+            kept = score.cpu().numpy()
     counts = {name: w.launches for name, w in wrappers.items()}
-    if bst._booster.use_persist != (path == "persist"):
+    if bst._booster.use_persist != (path != "v1"):
         raise AssertionError("train %s: the learner took the wrong grower "
                              "(use_persist=%s)"
                              % (path, bst._booster.use_persist))
@@ -511,48 +851,86 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path):
         % (path, X.shape[0], X.shape[1], len(trees), [s + 1 for s in splits]))
     log("train %s: %.3f s per iteration (%.1f s for %d iterations, learner "
         "set-up included) on %s" % (path, wall / iters, wall, iters, card))
-    want = {"root_hist": len(trees), "split_pass": sum(splits),
-            "seg_hist": sum(splits), "hist_window": sum(1 + s for s in splits),
-            "scan_pair": sum(1 + s for s in splits)}
-    for name in unused:
-        want[name] = 0
-    bad = {k: (counts[k], want[k]) for k in want if counts[k] != want[k]}
-    if bad or any(counts[k] == 0 for k in used):
-        raise AssertionError("train %s: launch counts (got, expected) %s"
-                             % (path, bad))
+    want, stats = expected_launches(bst, trees)
+    bad = {k: (counts[k], want.get(k, 0)) for k in counts
+           if counts[k] != want.get(k, 0)}
+    if bad or any(counts[k] == 0 for k in used) \
+            or any(counts[k] for k in unused):
+        raise AssertionError("train %s: launch counts (got, expected) %s, "
+                             "all %s" % (path, bad, counts))
     log("train %s: launches %s (trees %d, splits %d)"
         % (path, counts, len(trees), sum(splits)))
-    raw = np.zeros(X.shape[0])
-    losses = []
-    for i in range(len(trees)):
-        raw += bst.predict(X, raw_score=True, start_iteration=i,
-                           num_iteration=1)
-        losses.append(logloss(y, raw))
-    log("train %s: logloss per iteration %s"
+    if path in ("level", "bundled"):
+        md = PATHS[path][0]["max_depth"]
+        if any(not 0 < a <= md for a, _ in stats):
+            raise AssertionError("train %s: level programs per tree %s, "
+                                 "expected 1..%d" % (path, stats, md))
+        log("train %s: (level programs, per-split splits) per tree %s"
+            % (path, stats))
+    log("train %s: logloss per iteration (device scores) %s"
         % (path, ["%.6f" % v for v in losses]))
     if not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError("training logloss does not fall monotonically")
-    dev_score = bst._booster.train_score.score.cpu().numpy()
+    sub = X[:WALK_ROWS]
+    raw = bst.predict(sub, raw_score=True)
+    dev_score = bst._booster.train_score.score[:len(sub)].cpu().numpy()
     gap = float(np.abs(dev_score - raw).max())
     # v1 keeps f64 scores; the payload keeps f32 scores, each iteration
     # adding one rounded f32 product to a rounded f32 sum
     tol = (1e-9 if path == "v1" else
            2 * (len(trees) + 1) * 1.1920929e-07 * max(1.0, np.abs(raw).max()))
-    log("train %s: device scores vs numpy walk, max abs diff %.3g (limit "
-        "%.3g)" % (path, gap, tol))
+    log("train %s: device scores vs numpy walk on the first %d rows, max abs "
+        "diff %.3g (limit %.3g)" % (path, len(sub), gap, tol))
     if not gap <= tol:
         raise AssertionError("device training scores disagree with predict")
-    sub = X[:200_000]
     again = lgb.Booster(model_str=bst.model_to_string())
-    if not np.array_equal(again.predict(sub, raw_score=True), raw[:200_000]):
+    if not np.array_equal(again.predict(X[:200_000], raw_score=True),
+                          raw[:200_000]):
         raise AssertionError("model text round trip changes predictions")
     log("train %s: model_to_string -> Booster(model_str) predicts identical "
         "raw scores" % path)
     if profile:
         phase_profile(bst, card, path)
+    if off_iters:
+        t = time.time()
+        off = lgb.train(dict(params, tpu_level_grow="off"), ds, off_iters)
+        gr = off._booster.tree_learner._persist_gr
+        if gr.use_level or any(a for a, _ in gr.grow_stats):
+            raise AssertionError("train %s: tpu_level_grow=off ran the level "
+                                 "phase" % path)
+        same_scores = np.array_equal(
+            off._booster.train_score.score.cpu().numpy(), kept)
+        a = off.predict(sub, raw_score=True)
+        b = bst.predict(sub, raw_score=True, num_iteration=off_iters)
+        if not (same_scores and np.array_equal(a, b)):
+            raise AssertionError(
+                "train %s: tpu_level_grow=off differs from the level phase's "
+                "first %d trees (device scores equal: %s; predictions max abs "
+                "diff %.3g)" % (path, off_iters, same_scores,
+                                float(np.abs(a - b).max())))
+        log("train %s: %d iterations with tpu_level_grow=off (%d per-split "
+            "splits, %.1f s): device scores on all %d rows and raw "
+            "predictions on the first %d equal the level run's after %d "
+            "trees, bit for bit" % (path, off_iters,
+                                    sum(b_ for _, b_ in gr.grow_stats),
+                                    time.time() - t, X.shape[0], len(sub),
+                                    off_iters))
+        del off
     del bst
     torch.cuda.empty_cache()
     return counts
+
+
+# per path: the wrappers whose every launch runs one histogram partial
+# kernel, and that kernel's name prefixes
+PROFILED = {
+    "persist": (("root_hist", "seg_hist"), ("payload_hist_partial",)),
+    "level": (("root_hist", "level_seg_hist", "seg_hist"),
+              ("payload_hist_partial", "payload_hist_multi_partial")),
+    "bundled": (("root_hist", "level_pass", "split_pass"),
+                ("payload_hist_partial", "payload_hist_multi_partial")),
+    "v1": (("hist_window",), ("hist_window_partial",)),
+}
 
 
 def phase_profile(bst, card, path):
@@ -570,41 +948,57 @@ def phase_profile(bst, card, path):
     torch.cuda.synchronize()
     wall_ms = (time.time() - t) * 1e3
     wrappers = _wrappers()
-    names, kernel = ((("root_hist", "seg_hist"), "payload_hist_partial")
-                     if path == "persist"
-                     else (("hist_window",), "hist_window_partial"))
+    names, kernels = PROFILED[path]
     before = sum(wrappers[k].launches for k in names)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         bst.update()
         torch.cuda.synchronize()
     rows = _device_events(prof)
-    seen = sum(n for _, n, key in rows if key.startswith(kernel))
+    seen = sum(n for _, n, key in rows if key.startswith(kernels))
     busy = sum(r[0] for r in rows)
     log("profile %s: one iteration %.1f ms wall (unprofiled), device busy "
         "%.1f ms (profiled iteration; profiler saw %d %s kernels for %d %s "
         "launches), idle share %.3f (%s)"
-        % (path, wall_ms, busy, seen, kernel,
+        % (path, wall_ms, busy, seen, "/".join(kernels),
            sum(wrappers[k].launches for k in names) - before,
            " + ".join(names), 1 - busy / wall_ms, card))
     for ms, n, key in rows[:12]:
         log("profile %s:   %9.2f ms  %6d calls  %s" % (path, ms, n, key[:90]))
 
 
-def phase_parity(lgb, make_higgs_like, rows, iters):
-    """Each grower on cuda and on the CPU grows the same trees."""
-    X, y = make_higgs_like(rows, seed=11)
-    for path, opt in (("persist", "force"), ("v1", "false")):
-        params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-                  "verbosity": -1, "tpu_persist_scan": opt}
+PARITY = (
+    # path, data, parameters beyond COMMON
+    ("persist", "higgs", {"num_leaves": 255, "tpu_persist_scan": "force"}),
+    ("v1", "higgs", {"num_leaves": 255, "tpu_persist_scan": "false"}),
+    ("level", "higgs", {"num_leaves": 256, "max_depth": 8,
+                        "tpu_persist_scan": "force"}),
+    ("bundled", "expo", {"num_leaves": 256, "max_depth": 8,
+                         "tpu_persist_scan": "force"}),
+)
+
+
+def phase_parity(lgb, data, iters):
+    """Each path on cuda and on the CPU grows the same trees, with the same
+    leaf values. `data` maps a PARITY data name to (X, y)."""
+    for path, name, extra in PARITY:
+        X, y = data[name]
+        params = dict(COMMON, **extra)
         out = {}
         for dev in ("cuda", "cpu"):
             p = dict(params, device_type=dev)
             t = time.time()
             bst = lgb.train(p, lgb.Dataset(X, y, params=p), iters)
-            if bst._booster.use_persist != (path == "persist"):
+            if bst._booster.use_persist != (path != "v1"):
                 raise AssertionError("parity %s: wrong grower on %s"
                                      % (path, dev))
+            if path in ("level", "bundled"):
+                gr = bst._booster.tree_learner._persist_gr
+                if not sum(a for a, _ in gr.grow_stats) or \
+                        (gr.blocks is not None) != (path == "bundled"):
+                    raise AssertionError("parity %s: the level phase or the "
+                                         "block scan did not run on %s"
+                                         % (path, dev))
             out[dev] = bst._booster.models
             log("parity %s: %s trained %d trees in %.1f s"
                 % (path, dev, len(out[dev]), time.time() - t))
@@ -612,46 +1006,58 @@ def phase_parity(lgb, make_higgs_like, rows, iters):
         if len(a) != len(b):
             raise AssertionError("parity %s: %d trees on cuda, %d on cpu"
                                  % (path, len(a), len(b)))
-        worst = 0.0
         for i, (ta, tb) in enumerate(zip(a, b)):
             k = ta.num_leaves - 1
-            if ta.num_leaves != tb.num_leaves or not (
-                    np.array_equal(ta.split_feature[:k], tb.split_feature[:k])
-                    and np.array_equal(ta.threshold_in_bin[:k],
-                                       tb.threshold_in_bin[:k])
-                    and np.array_equal(ta.decision_type[:k],
-                                       tb.decision_type[:k])
-                    and np.array_equal(ta.left_child[:k], tb.left_child[:k])
-                    and np.array_equal(ta.right_child[:k],
-                                       tb.right_child[:k])
-                    and np.array_equal(ta.leaf_count[:k + 1],
-                                       tb.leaf_count[:k + 1])):
+            if ta.num_leaves != tb.num_leaves or not all(
+                    np.array_equal(getattr(ta, f)[:k], getattr(tb, f)[:k])
+                    for f in ("split_feature", "threshold_in_bin",
+                              "decision_type", "left_child", "right_child")
+            ) or not np.array_equal(ta.leaf_count[:k + 1],
+                                    tb.leaf_count[:k + 1]):
                 raise AssertionError("parity %s: tree %d differs in "
                                      "structure" % (path, i))
-            np.testing.assert_allclose(ta.leaf_value[:k + 1],
-                                       tb.leaf_value[:k + 1], rtol=2e-4,
-                                       atol=1e-12)
-            worst = max(worst, float(np.max(
-                np.abs(ta.leaf_value[:k + 1] - tb.leaf_value[:k + 1])
-                / np.maximum(np.abs(tb.leaf_value[:k + 1]), 1e-300))))
-        log("parity %s: %d rows x %d iterations: tree structure equal on cuda "
-            "and cpu, leaf values max rel diff %.3g"
-            % (path, rows, iters, worst))
+            if not np.array_equal(ta.leaf_value[:k + 1],
+                                  tb.leaf_value[:k + 1]):
+                raise AssertionError(
+                    "parity %s: tree %d leaf values differ, max abs diff "
+                    "%.3g" % (path, i, float(np.abs(
+                        ta.leaf_value[:k + 1] - tb.leaf_value[:k + 1]).max())))
+        log("parity %s: %d rows x %d iterations: tree structure and leaf "
+            "values equal on cuda and cpu" % (path, X.shape[0], iters))
+
+
+def make_dataset(lgb, X, y, params, what):
+    t = time.time()
+    ds = lgb.Dataset(X, y, params=params, free_raw_data=False).construct()
+    inner = ds._inner
+    log("data: %s binned and uploaded in %.1f s: %d features in %d groups "
+        "(bundled: %s), %d total bins, widest group %d"
+        % (what, time.time() - t, inner.num_features, len(inner.groups),
+           inner.has_bundles, inner.total_bins,
+           int(inner.group_widths().max())))
+    return ds, inner
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=10,
-                    help="iterations of the persistent-grower train phase")
+                    help="iterations of the per-split persistent train path")
     ap.add_argument("--v1-iters", type=int, default=3,
-                    help="iterations of the v1-grower train phase")
+                    help="iterations of the v1-grower train path")
+    ap.add_argument("--level-iters", type=int, default=10,
+                    help="iterations of the level and bundled train paths")
+    ap.add_argument("--off-iters", type=int, default=3,
+                    help="tpu_level_grow=off iterations held to the level "
+                    "paths' first trees")
+    ap.add_argument("--expo-rows", type=int, default=2_000_000)
     ap.add_argument("--parity-rows", type=int, default=200_000)
+    ap.add_argument("--expo-parity-rows", type=int, default=100_000)
     ap.add_argument("--parity-iters", type=int, default=5)
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
-                    help="after each train phase, profile one more iteration")
+                    help="after each train path, profile one more iteration")
     args = ap.parse_args()
 
     import torch
@@ -661,7 +1067,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_torch as lgb
-    from lightgbm_torch.data.synth import make_higgs_like
+    from lightgbm_torch.data.synth import make_expo_like, make_higgs_like
     from lightgbm_torch.treelearner.serial import feature_meta, grow_config
     from lightgbm_torch.ops.split import SplitParams
 
@@ -670,34 +1076,52 @@ def main() -> int:
 
     X, y = make_higgs_like(args.rows)
     log("data: make_higgs_like(%d) -> %s" % (args.rows, X.shape))
-    t = time.time()
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "verbosity": -1}
-    ds = lgb.Dataset(X, y, params=params, free_raw_data=False).construct()
-    inner = ds._inner
-    log("data: binned and uploaded in %.1f s: %d groups, %d total bins, "
-        "widest group %d" % (time.time() - t, len(inner.groups),
-                             inner.total_bins, int(inner.group_widths().max())))
+    params = dict(COMMON, num_leaves=255)
+    ds, inner = make_dataset(lgb, X, y, params, "HIGGS")
     cfg = lgb.Config(params)
-    kernels = phase_kernels(inner.binned, feature_meta(inner),
-                            grow_config(cfg, inner),
-                            SplitParams.from_config(cfg))
-    kernels += phase_payload_kernels(inner)
+    meta, gc = feature_meta(inner), grow_config(cfg, inner)
+    split_params = SplitParams.from_config(cfg)
+    kernels = phase_kernels(inner.binned, meta, gc, split_params)
+    kernels += phase_payload_kernels(inner, meta, gc, split_params)
+    runs = {}
     if not args.skip_train:
-        persist = phase_train(lgb, X, y, ds, args.iters, card, args.profile,
-                              "persist")
-        v1 = phase_train(lgb, X, y, ds, args.v1_iters, card, args.profile,
-                         "v1")
-        # each kernel's count from the run of the path it serves: the
-        # persistent grower's (this slice's main path) for scan_pair and the
-        # payload kernels, the v1 grower's for hist_window
+        runs["persist"] = phase_train(lgb, X, y, ds, args.iters, card,
+                                      args.profile, "persist")
+        runs["v1"] = phase_train(lgb, X, y, ds, args.v1_iters, card,
+                                 args.profile, "v1")
+        runs["level"] = phase_train(lgb, X, y, ds, args.level_iters, card,
+                                    args.profile, "level", args.off_iters)
+    del X, y, ds, inner
+
+    X, y = make_expo_like(args.expo_rows)
+    log("data: make_expo_like(%d) -> %s" % (args.expo_rows, X.shape))
+    params = dict(COMMON, **PATHS["bundled"][0])
+    ds, inner = make_dataset(lgb, X, y, params, "Expo")
+    if not inner.has_bundles:
+        raise AssertionError("the Expo-shaped data are not EFB-bundled")
+    cfg = lgb.Config(params)
+    kernels.append(phase_block_kernels(inner, feature_meta(inner),
+                                       grow_config(cfg, inner),
+                                       SplitParams.from_config(cfg)))
+    if not args.skip_train:
+        runs["bundled"] = phase_train(lgb, X, y, ds, args.level_iters, card,
+                                      args.profile, "bundled",
+                                      args.off_iters)
+        # each kernel's count from the run of the path it serves: the v1
+        # grower's for hist_window, the per-split persistent grower's for
+        # scan_pair, root_hist, split_pass and seg_hist, the level path's
+        # for level_pass and level_seg_hist, the bundled path's for
+        # scan_blocks
+        serves = {"hist_window": "v1", "level_pass": "level",
+                  "level_seg_hist": "level", "scan_blocks": "bundled"}
         for rec in kernels:
-            rec["launches"] = (v1 if rec["name"] == "hist_window"
-                               else persist)[rec["name"]]
+            rec["launches"] = runs[serves.get(rec["name"], "persist")][
+                rec["name"]]
     del X, y, ds, inner
     if not args.skip_parity:
-        phase_parity(lgb, make_higgs_like, args.parity_rows,
-                     args.parity_iters)
+        data = {"higgs": make_higgs_like(args.parity_rows, seed=11),
+                "expo": make_expo_like(args.expo_parity_rows, seed=11)}
+        phase_parity(lgb, data, args.parity_iters)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("kernels: " + ", ".join(k["name"] for k in kernels), flush=True)
     print(card, flush=True)

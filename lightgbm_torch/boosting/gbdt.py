@@ -29,7 +29,7 @@ import numpy as np
 from ..config import Config
 from ..models.tree import Tree
 from ..objectives import parse_objective_string
-from ..treelearner.serial import SerialTreeLearner
+from ..treelearner.serial import SerialTreeLearner, check_v1_layout
 from ..utils.log import Log
 from .score_updater import ScoreUpdater
 
@@ -74,6 +74,8 @@ class GBDT:
                                         train_data.metadata.init_score)
         self.use_persist = (objective is not None
                             and self.tree_learner.can_persist_scan(objective))
+        if not self.use_persist:
+            check_v1_layout(train_data)
 
     @staticmethod
     def _feature_info(mapper) -> str:

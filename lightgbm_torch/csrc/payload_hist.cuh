@@ -1,5 +1,6 @@
 // payload_hist.cuh: the (grad, hess) histogram of a run of payload lanes,
-// shared by seg_hist.cu, root_hist.cu and split_pass.cu.
+// shared by seg_hist.cu, root_hist.cu, split_pass.cu, level_pass.cu and
+// level_seg_hist.cu.
 //
 // The payload is the persistent grower's [WPA, NP] int32 matrix
 // (lightgbm_torch/ops/payload.py): row r of lane i at pay[r * NP + i]. Group
@@ -34,34 +35,25 @@
 #define PH_BINS 256
 #define PH_TILE 4096
 
-__global__ void __launch_bounds__(PH_THREADS)
-payload_hist_partial(const int32_t* __restrict__ pay, long long np_,
-                     const int32_t* __restrict__ plan, int grad_row,
-                     long long start, long long length, int G,
-                     long long rows_per_block, float* __restrict__ partial,
-                     double* __restrict__ sums_partial) {
-  __shared__ __align__(16) uint8_t tb[PH_TILE];
-  __shared__ float tg[PH_TILE];
-  __shared__ float th[PH_TILE];
-  __shared__ double red[2][PH_THREADS];
-  const int g = blockIdx.y;
+// Thread t's sums (bin t of group g) over lanes [lo, hi), staged tile by
+// tile through the block's shared buffers; with do_sums, also the f64 sums
+// of the grad and hess of the lanes it stages. The caller syncs before it
+// reuses the buffers.
+static __device__ __forceinline__ void payload_hist_rows(
+    const int32_t* __restrict__ pay, long long np_,
+    const int32_t* __restrict__ plan, int grad_row, int g, long long lo,
+    long long hi, bool do_sums, uint8_t* tb, float* tg, float* th,
+    float& acc_g, float& acc_h, double& sum_g, double& sum_h) {
   const int t = threadIdx.x;
   const int32_t* word = pay + (long long)plan[3 * g] * np_;
   const unsigned sh = (unsigned)plan[3 * g + 1];
   const unsigned mk = (unsigned)plan[3 * g + 2];
   const float* grad = reinterpret_cast<const float*>(pay + grad_row * np_);
   const float* hess = grad + np_;
-  const long long r_begin = (long long)blockIdx.x * rows_per_block;
-  const long long r_end = min(length, r_begin + rows_per_block);
   const unsigned pat = (unsigned)t * 0x01010101u;
-  const bool do_sums = sums_partial != nullptr && g == 0;
-  float acc_g = 0.f, acc_h = 0.f;
-  double sum_g = 0.0, sum_h = 0.0;
-
-  for (long long t0 = r_begin; t0 < r_end; t0 += PH_TILE) {
-    const int n = (int)min((long long)PH_TILE, r_end - t0);
+  for (long long i0 = lo; i0 < hi; i0 += PH_TILE) {
+    const int n = (int)min((long long)PH_TILE, hi - i0);
     __syncthreads();  // the previous tile is consumed
-    const long long i0 = start + t0;
 #pragma unroll 4
     for (int i = t; i < n; i += PH_THREADS) {
       tb[i] = (uint8_t)(((unsigned)word[i0 + i] >> sh) & mk);
@@ -87,6 +79,28 @@ payload_hist_partial(const int32_t* __restrict__ pay, long long np_,
       if (tb[i] == t) { acc_g += tg[i]; acc_h += th[i]; }
     }
   }
+}
+
+__global__ void __launch_bounds__(PH_THREADS)
+payload_hist_partial(const int32_t* __restrict__ pay, long long np_,
+                     const int32_t* __restrict__ plan, int grad_row,
+                     long long start, long long length, int G,
+                     long long rows_per_block, float* __restrict__ partial,
+                     double* __restrict__ sums_partial) {
+  __shared__ __align__(16) uint8_t tb[PH_TILE];
+  __shared__ float tg[PH_TILE];
+  __shared__ float th[PH_TILE];
+  __shared__ double red[2][PH_THREADS];
+  const int g = blockIdx.y;
+  const int t = threadIdx.x;
+  const long long r_begin = (long long)blockIdx.x * rows_per_block;
+  const long long r_end = min(length, r_begin + rows_per_block);
+  const bool do_sums = sums_partial != nullptr && g == 0;
+  float acc_g = 0.f, acc_h = 0.f;
+  double sum_g = 0.0, sum_h = 0.0;
+  payload_hist_rows(pay, np_, plan, grad_row, g, start + r_begin,
+                    start + r_end, do_sums, tb, tg, th, acc_g, acc_h, sum_g,
+                    sum_h);
   const long long cells = (long long)G * PH_BINS;
   float* o = partial + (long long)blockIdx.x * 2 * cells;
   o[g * PH_BINS + t] = acc_g;
@@ -157,5 +171,85 @@ static inline int payload_hist_run(const void* pay, long long np_,
       static_cast<const float*>(partial), nblocks, cells2,
       static_cast<float*>(out), static_cast<const double*>(sums_partial),
       static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
+// ---- many segments in one launch (level_seg_hist.cu, level_pass.cu) -------
+//
+// seg is [S, PH_SEG] int64 per segment: start lane, length, rows per block
+// and block count (ops/histogram.py:row_blocks of the length, so each
+// segment is cut as seg_hist cuts it) and the index of its first block in
+// the flat block grid; slot_of_block maps each block of that grid to its
+// segment. Each segment's histogram is then seg_hist's, bit for bit: the
+// same row blocks, the same chains, the blocks added in order.
+#define PH_SEG 5
+enum { PH_START = 0, PH_LEN, PH_ROWS, PH_NBLK, PH_BASE };
+
+__global__ void __launch_bounds__(PH_THREADS)
+payload_hist_multi_partial(const int32_t* __restrict__ pay, long long np_,
+                           const int32_t* __restrict__ plan, int grad_row,
+                           int G, const long long* __restrict__ seg,
+                           const int* __restrict__ slot_of_block,
+                           float* __restrict__ partial) {
+  __shared__ __align__(16) uint8_t tb[PH_TILE];
+  __shared__ float tg[PH_TILE];
+  __shared__ float th[PH_TILE];
+  const int g = blockIdx.y;
+  const int t = threadIdx.x;
+  const long long* sj = seg + (long long)slot_of_block[blockIdx.x] * PH_SEG;
+  const long long b = blockIdx.x - sj[PH_BASE];
+  const long long r_begin = b * sj[PH_ROWS];
+  const long long r_end = min(sj[PH_LEN], r_begin + sj[PH_ROWS]);
+  float acc_g = 0.f, acc_h = 0.f;
+  double unused_g = 0.0, unused_h = 0.0;
+  payload_hist_rows(pay, np_, plan, grad_row, g, sj[PH_START] + r_begin,
+                    sj[PH_START] + r_end, false, tb, tg, th, acc_g, acc_h,
+                    unused_g, unused_h);
+  const long long cells = (long long)G * PH_BINS;
+  float* o = partial + (long long)blockIdx.x * 2 * cells;
+  o[g * PH_BINS + t] = acc_g;
+  o[cells + g * PH_BINS + t] = acc_h;
+}
+
+// out[k][j][c] = partial[base_j][k][c] + partial[base_j + 1][k][c] + ...
+// in block order (k = 0 grad, 1 hess); grid (cells / 256, S, 2).
+__global__ void payload_hist_multi_reduce(const float* __restrict__ partial,
+                                          const long long* __restrict__ seg,
+                                          int S, long long cells,
+                                          float* __restrict__ out) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y;
+  const int k = blockIdx.z;
+  if (c >= cells) return;
+  const long long* sj = seg + (long long)j * PH_SEG;
+  const float* p = partial + (sj[PH_BASE] * 2 + k) * cells + c;
+  float acc = p[0];
+  for (long long b = 1; b < sj[PH_NBLK]; ++b) acc += p[b * 2 * cells];
+  out[((long long)k * S + j) * cells + c] = acc;
+}
+
+// Launches the histograms of S segments on `stream` (seg and slot_of_block
+// on the device, nblocks = the sum of the segments' block counts, each at
+// least 1). partial is [nblocks, 2, G * 256] f32 scratch, out
+// [2, S, G * 256] f32. Returns cudaGetLastError() after the launches.
+static inline int payload_hist_multi_run(const void* pay, long long np_,
+                                         const void* plan, int G,
+                                         int grad_row, const void* seg,
+                                         int S, const void* slot_of_block,
+                                         int nblocks, void* partial,
+                                         void* out, cudaStream_t s) {
+  dim3 grid(nblocks, G);
+  payload_hist_multi_partial<<<grid, PH_THREADS, 0, s>>>(
+      static_cast<const int32_t*>(pay), np_,
+      static_cast<const int32_t*>(plan), grad_row, G,
+      static_cast<const long long*>(seg),
+      static_cast<const int*>(slot_of_block), static_cast<float*>(partial));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long cells = (long long)G * PH_BINS;
+  dim3 rgrid((unsigned)((cells + 255) / 256), S, 2);
+  payload_hist_multi_reduce<<<rgrid, 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<const long long*>(seg),
+      S, cells, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

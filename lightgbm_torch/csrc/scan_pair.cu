@@ -36,35 +36,7 @@
 // is compiled with -fmad=false so every product and sum rounds as in the
 // plain version. Against the TPU kernel's f32 matmul prefix sums, gains
 // agree to f32 rounding.
-#include <cuda_runtime.h>
-#include <math.h>
-
-#define SP_MAX_WARPS 32
-#define SP_MAX_LANES 1024
-
-__device__ float block_max(float v, float* red, int lane, int warp,
-                           int nwarps) {
-  for (int d = 16; d > 0; d >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, d));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < nwarps; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ float block_min(float v, float* red, int lane, int warp,
-                           int nwarps) {
-  for (int d = 16; d > 0; d >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, d));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < nwarps; ++w) r = fminf(r, red[w]);
-  __syncthreads();
-  return r;
-}
+#include "block_reduce.cuh"
 
 __global__ void scan_pair_kernel(const float* __restrict__ scal,
                                  const float* __restrict__ gb,

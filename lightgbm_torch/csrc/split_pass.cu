@@ -37,28 +37,11 @@
 // segment twice more than the TPU's in-place FIFO, for a simple kernel
 // whose order is the oracle's.
 #include "payload_hist.cuh"
-
-#define SP_TILE 1024
-#define SP_WARPS (SP_TILE / 32)
-
-enum {
-  S_NCH = 0, S_S0, S_NL, S_WG, S_SH, S_MASK, S_NB, S_MT, S_DB, S_THR, S_DL,
-  S_SMALL_L, S_LS, S_LE, S_MF, N_SCALARS
-};
+#include "split_common.cuh"
 
 struct SplitScalars {
   int s[N_SCALARS];
 };
-
-__device__ __forceinline__ bool sp_go_left(int32_t w, const SplitScalars& S) {
-  const int b_raw =
-      (int)(((unsigned)w >> (unsigned)S.s[S_SH]) & (unsigned)S.s[S_MASK]);
-  const bool in_r = b_raw >= S.s[S_LS] && b_raw < S.s[S_LE];
-  const int b = in_r ? b_raw - S.s[S_LS] : S.s[S_MF];
-  const bool is_na = S.s[S_MT] == 2 && b == S.s[S_NB] - 1;
-  const bool is_zero = S.s[S_MT] == 1 && b == S.s[S_DB];
-  return (is_na || is_zero) ? S.s[S_DL] > 0 : b <= S.s[S_THR];
-}
 
 __global__ void __launch_bounds__(SP_TILE)
 split_count(const int32_t* __restrict__ pay, long long np_, SplitScalars S,
@@ -67,7 +50,7 @@ split_count(const int32_t* __restrict__ pay, long long np_, SplitScalars S,
   const long long i = (long long)blockIdx.x * SP_TILE + threadIdx.x;
   bool gl = false;
   if (i < S.s[S_NL])
-    gl = sp_go_left(pay[(long long)S.s[S_WG] * np_ + S.s[S_S0] + i], S);
+    gl = sp_go_left(pay[(long long)S.s[S_WG] * np_ + S.s[S_S0] + i], S.s);
   const unsigned bal = __ballot_sync(0xffffffffu, gl);
   if ((threadIdx.x & 31) == 0) wc[threadIdx.x >> 5] = __popc(bal);
   __syncthreads();
@@ -84,36 +67,8 @@ split_scan(const int* __restrict__ tile_left, int ntiles,
            int* __restrict__ tile_off, int* __restrict__ n_left) {
   __shared__ int ws[SP_WARPS];
   __shared__ int carry_s;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (t == 0) carry_s = 0;
-  __syncthreads();
-  for (int base = 0; base < ntiles; base += SP_TILE) {
-    const int k = base + t;
-    const int v = k < ntiles ? tile_left[k] : 0;
-    int x = v;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) ws[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int wv = ws[lane];
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, wv, d);
-        if (lane >= d) wv += y;
-      }
-      ws[lane] = wv;
-    }
-    __syncthreads();
-    const int incl = x + (warp > 0 ? ws[warp - 1] : 0);
-    const int carry = carry_s;
-    if (k < ntiles) tile_off[k] = carry + incl - v;
-    __syncthreads();
-    if (t == SP_TILE - 1) carry_s = carry + incl;
-    __syncthreads();
-  }
-  if (t == 0) *n_left = carry_s;
+  const int total = sp_scan_tiles(tile_left, ntiles, tile_off, ws, &carry_s);
+  if (threadIdx.x == 0) *n_left = total;
 }
 
 __global__ void __launch_bounds__(SP_TILE)
@@ -128,7 +83,7 @@ split_scatter(const int32_t* __restrict__ pay, long long np_, int wp_live,
   const long long i = base + t;
   const bool valid = i < n_l;
   bool gl = false;
-  if (valid) gl = sp_go_left(pay[(long long)S.s[S_WG] * np_ + s0 + i], S);
+  if (valid) gl = sp_go_left(pay[(long long)S.s[S_WG] * np_ + s0 + i], S.s);
   const unsigned bal = __ballot_sync(0xffffffffu, gl);
   if (lane == 0) wl[warp] = __popc(bal);
   __syncthreads();

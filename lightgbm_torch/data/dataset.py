@@ -11,10 +11,10 @@ data and config.
 tensors on the chosen device (:class:`DeviceData`).
 
 Not in this slice (ROADMAP.md queue A): sparse and file ingest, the
-multi-value (ELL) layout, 4-bit packing (the JAX package's storage detail:
-the port always stores one byte per group, which gives the same trees),
-and EFB bundles, which need FixHistogram in the grower — a dataset whose
-grouping bundles features is refused by the tree learner.
+multi-value (ELL) layout and 4-bit packing (the JAX package's storage
+detail: the port always stores one byte per group, which gives the same
+trees). EFB-bundled datasets train on the persistent grower only (its
+scan_blocks applies FixHistogram); the v1 grower refuses them.
 """
 from __future__ import annotations
 

@@ -102,56 +102,61 @@ def _empty_arrays(L: int) -> dict:
         leaf_weight=np.zeros(L, F32))
 
 
-def _assemble(out: np.ndarray, scal: np.ndarray, layout: ScanLayout,
-              lambda_l2, depth_child: int, max_depth: int):
-    """SplitCandidates from the kernel's [B, 8, Fp] output: the
-    cross-feature argmax (first maximum = smallest feature id) and the
-    scalar assembly of grow.py:650-683, in numpy float32."""
+def assemble(gain, feature, threshold, use_f, lg, lh, lc, forced_right,
+             scal: np.ndarray, lambda_l2, depths, max_depth: int):
+    """SplitCandidates of B children from each child's best split (per-child
+    arrays: penalized gain, feature, local threshold, direction, the left
+    side's grad/hess/count, forced_right of the feature): the scalar
+    assembly of grow.py:650-683 (grow_persist.py:1087-1106), in numpy
+    float32. A child at max_depth gets no split."""
     l2 = F32(lambda_l2)
+    depths = np.broadcast_to(np.asarray(depths), (len(gain),))
     cands = []
-    for b in range(out.shape[0]):
-        gains = out[b, 0]
-        bf = int(np.argmax(gains))
-        gain_b = gains[bf]
-        use_f = bool(out[b, 2, bf] > 0.5)
-        lg, lh, lc = out[b, 3, bf], out[b, 4, bf], out[b, 5, bf]
+    for b in range(len(gain)):
+        gain_b = gain[b]
         valid = bool(np.isfinite(gain_b))
         if max_depth > 0:
-            valid &= depth_child < max_depth
+            valid &= int(depths[b]) < max_depth
         sg, sh, cnt = scal[b, 0], scal[b, 1], scal[b, 2]
-        rg, rh, rc = sg - lg, sh - lh, cnt - lc
+        rg, rh, rc = sg - lg[b], sh - lh[b], cnt - lc[b]
         # an unsplittable child's outputs may divide by zero; they are
         # never used (its gain is -inf)
         with np.errstate(divide="ignore", invalid="ignore"):
-            lo = leaf_output_unconstrained(lg, lh, l2)
+            lo = leaf_output_unconstrained(lg[b], lh[b], l2)
             ro = leaf_output_unconstrained(rg, rh, l2)
         cands.append(SplitCandidate(
             gain=gain_b if valid else F32(K_MIN_SCORE),
-            feature=bf if valid else -1,
-            threshold=int(out[b, 1, bf]) if valid else 0,
-            default_left=(not use_f and not bool(layout.forced_right[bf]))
+            feature=int(feature[b]) if valid else -1,
+            threshold=int(threshold[b]) if valid else 0,
+            default_left=(not use_f[b] and not bool(forced_right[b]))
             if valid else True,
             left_output=lo, right_output=ro,
-            left_sum_grad=lg, left_sum_hess=lh,
+            left_sum_grad=lg[b], left_sum_hess=lh[b],
             right_sum_grad=rg, right_sum_hess=rh,
-            left_count=int(np.floor(lc + F32(0.5))),
+            left_count=int(np.floor(lc[b] + F32(0.5))),
             right_count=int(np.floor(rc + F32(0.5)))))
     return cands
 
 
 def scan_children(gb: torch.Tensor, hb: torch.Tensor, layout: ScanLayout,
-                  params: SplitParams, sgs, shs, cnts, depth_child: int,
+                  params: SplitParams, sgs, shs, cnts, depths,
                   max_depth: int):
     """SplitCandidates of B children from their gathered [B, Fp, Wp]
-    grad/hess histograms: one scan_pair launch, then the host assembly."""
+    grad/hess histograms: one scan_pair launch, then the cross-feature
+    argmax (first maximum = smallest feature id) and the host assembly.
+    `depths` is each child's depth, or one depth for all."""
     scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
                         params.min_gain_to_split, params.min_data_in_leaf,
                         params.min_sum_hessian_in_leaf)
     out = scan_pair(torch.as_tensor(scal, device=gb.device), gb, hb,
                     layout.keep_r, layout.keep_f, layout.valid_r,
-                    layout.valid_f, layout.aux)
-    return _assemble(out.cpu().numpy(), scal, layout, params.lambda_l2,
-                     depth_child, max_depth)
+                    layout.valid_f, layout.aux).cpu().numpy()
+    bf = np.argmax(out[:, 0], axis=1)
+    best = out[np.arange(len(bf)), :, bf]                        # [B, 8]
+    return assemble(best[:, 0], bf, best[:, 1], best[:, 2] > 0.5,
+                    best[:, 3], best[:, 4], best[:, 5],
+                    layout.forced_right[bf], scal, params.lambda_l2, depths,
+                    max_depth)
 
 
 def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,

@@ -15,21 +15,37 @@ per-row gather or scatter runs between iterations:
     the parent minus it; one ``scan_pair`` launch scans both children;
   * histograms stay in the padded [G * 256] group-plane layout end to end;
     feature f's window sits at group_of[f] * 256 + ls[f] (``pad_meta`` at
-    grow_persist.py:873-882), and the scan gathers each feature's window
-    from there;
+    grow_persist.py:873-882);
   * scores are a payload row: gradients are computed in payload order from
     the label and score rows (:func:`PersistGrower.fill_grad`), a tree's
     outputs are added to its leaves' segments (:meth:`apply_scores`), and
     scores return to row order only when read (:meth:`finalize_scores`).
 
+The level phase (make_persist_grower's level program, :1295-1527) runs
+first where :func:`can_level_grow` holds (``max_depth`` in [1, 16]): while
+the no-bind certificate holds, every positive-gain leaf of the frontier
+splits at once, in gain order, with one ``level_pass`` launch (partition,
+n_left and, when G <= 20, the smaller children's histograms), one read-back
+of the level's n_left, one ``level_seg_hist`` launch when G > 20, one
+parent-minus-smaller subtraction for all slots, and one scan of all 2S
+children. Slot j's right child is leaf s + j and its split record is
+s - 1 + j, so leaves are numbered level by level. Where the certificate
+fails (a leaf budget below the depth-limited capacity of the frontier), the
+per-split loop above takes the rest of the tree; it grows the same trees by
+make_persist_grower's contract (:661-673), and since each partition is
+stable and the slots' segments are disjoint, every leaf's payload segment,
+histogram and value are the per-split path's, bit for bit.
+
+EFB-bundled data (several features in one group) are scanned with the
+bundle-native ``scan_blocks`` over the group planes, FixHistogram inside
+the kernel (:1108-1139); the group argmax, the owner map and the window
+offset give the feature and its threshold. Unbundled data gather each
+feature's window and scan it with ``scan_pair``.
+
 The host loop is Python over numpy leaf state, as in ops/grow.py; leaf
 counts are the kernel's exact n_left (``stat_from_scan=False``) and stay
-integers on the host. Not ported here: the level phase (``level_pass`` and
-``level_seg_hist``, ROADMAP.md queue A, item 6) — with ``max_depth > 0``
-this grower runs the per-split path, which grows the same trees by
-make_persist_grower's own contract (:661-673) — the bundle-native
-``scan_blocks`` (EFB data is refused by the tree learner), sharding,
-voting, quantization, bagging and the health vector.
+integers on the host. Not ported here: sharding, voting, quantization,
+bagging and the health vector.
 """
 from __future__ import annotations
 
@@ -37,14 +53,17 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .grow import TreeArrays, _empty_arrays, scan_children
+from .block_scan import BlockScanLayout, scan_blocks
+from .grow import TreeArrays, _empty_arrays, assemble, scan_children
 from .payload import PersistAssets, payload_weight_row
 from .payload_kernels import (HIST_W, N_SCALARS, S_DB, S_DL, S_LE, S_LS,
                               S_MASK, S_MF, S_MT, S_NB, S_NCH, S_NL, S_S0,
-                              S_SH, S_SMALL_L, S_THR, S_WG, plan_tensor,
+                              S_SH, S_SMALL_L, S_THR, S_WG, level_children,
+                              level_pass, level_seg_hist, plan_tensor,
                               root_hist, seg_hist, split_pass)
-from .scan import ScanLayout
+from .scan import ScanLayout, pair_scalars
 from .split import K_MIN_SCORE, SplitCandidate, leaf_output_unconstrained
 
 F32 = np.float32
@@ -52,6 +71,17 @@ F32 = np.float32
 # group count at or below which the smaller child's histogram comes out of
 # split_pass instead of a separate seg_hist launch (grow_persist.py:123)
 SEG_HIST_MIN_GROUPS = 20
+
+# deepest max_depth the level phase takes on (grow_persist.py:94)
+LEVEL_MAX_DEPTH = 16
+
+
+def can_level_grow(gc) -> bool:
+    """The static gate of the level phase (grow_persist.py:97-113) for the
+    port's configurations (no voting, no forced splits): a finite
+    max_depth to size the level's slots, and trees of at least 4 leaves."""
+    return 1 <= int(gc.max_depth) <= LEVEL_MAX_DEPTH \
+        and int(gc.num_leaves) >= 4
 
 
 class LeafState(NamedTuple):
@@ -67,9 +97,14 @@ class LeafState(NamedTuple):
 
 class PersistGrower:
     """grow / apply_scores / fill_grad / init_carry / finalize_scores over
-    one dataset's payload, for one grow configuration, on one device."""
+    one dataset's payload, for one grow configuration, on one device.
+    ``level_mode`` "auto" runs the level phase where :func:`can_level_grow`
+    holds, "off" never. ``grow_stats`` holds (level programs, splits of the
+    per-split loop after them) of every tree grown, as the JAX stats vector
+    does (:77-89)."""
 
-    def __init__(self, assets: PersistAssets, meta, gc, params, device):
+    def __init__(self, assets: PersistAssets, meta, gc, params, device,
+                 level_mode: str = "auto"):
         G, plan, nbw, n, C = assets.geometry[2:7]
         K, has_w = assets.geometry[8], bool(assets.geometry[9])
         self.assets = assets
@@ -86,6 +121,14 @@ class PersistGrower:
         group_of, ls, nb = assets.efb[0], assets.efb[1], assets.efb[2]
         self.win_start = (group_of.astype(np.int64) * HIST_W + ls)
         self.win_end = self.win_start + nb
+        self.blocks = (BlockScanLayout(assets.efb, meta.penalty, G,
+                                       self.device)
+                       if assets.efb[5] else None)
+        self.use_level = level_mode != "off" and can_level_grow(gc)
+        # the widest frontier a depth-bounded tree presents (:789-791)
+        self.s_maxl = min(1 << max(int(gc.max_depth) - 1, 0),
+                          gc.num_leaves - 1)
+        self.grow_stats = []
 
     # ---- payload <-> row order ---------------------------------------------
     def _f32_row(self, pay, r):
@@ -165,11 +208,38 @@ class PersistGrower:
                                               int(a.mf[f]))
         return scal
 
+    def _scan_blocks(self, g2, h2, masks, sgs, shs, cnts, depths):
+        """SplitCandidates of B children from their [B, G * 256] planes
+        through scan_blocks (grow_persist.py:1108-1139): the group argmax
+        (first maximum), the feature from the owner map, the threshold
+        t_abs - ls[f]."""
+        params, blk = self.params, self.blocks
+        B = g2.shape[0]
+        scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
+                            params.min_gain_to_split,
+                            params.min_data_in_leaf,
+                            params.min_sum_hessian_in_leaf)
+        scal9 = np.concatenate([scal, np.asarray(shs, F32)[:, None]], axis=1)
+        pad = (0, blk.Wp - HIST_W, 0, blk.Gp - self.G)
+        gb = F.pad(g2.reshape(B, self.G, HIST_W), pad)
+        hb = F.pad(h2.reshape(B, self.G, HIST_W), pad)
+        out = scan_blocks(torch.as_tensor(scal9, device=g2.device), gb, hb,
+                          masks, blk.do_fix).cpu().numpy()
+        bg = np.argmax(out[:, 0], axis=1)
+        best = out[np.arange(B), :, bg]                          # [B, 8]
+        t_abs = best[:, 1]
+        f = blk.owner[bg, np.clip(t_abs, 0, blk.Wp - 1).astype(np.int64)]
+        return assemble(best[:, 0], f, t_abs - blk.ls[f], best[:, 2] > 0.5,
+                        best[:, 3], best[:, 4], best[:, 5],
+                        blk.forced_right[f], scal, params.lambda_l2, depths,
+                        self.gc.max_depth)
+
     def grow(self, pay, feature_mask):
         """Grow one tree on the payload (partitioned in place). Returns
         (LeafState, split records as a dict of [L-1] arrays, num_leaves)."""
         gc, params, meta = self.gc, self.params, self.meta
         L, n, G, nbw = gc.num_leaves, self.n, self.G, self.nbw
+        md = int(gc.max_depth)
         dev = pay.device
         l2 = F32(params.lambda_l2)
         tree = {k: v for k, v in _empty_arrays(L).items()
@@ -181,15 +251,26 @@ class PersistGrower:
         gh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
         hh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
         gh[0], hh[0] = gh0, hh0
-        layout = ScanLayout(self.win_start, self.win_end, meta.missing_type,
-                            meta.default_bin, meta.penalty, feature_mask,
-                            gc.scan_width, TBp, dev)
+        if self.blocks is not None:
+            masks = self.blocks.tree_masks(feature_mask)
 
-        def evaluate(leaves, sgs, shs, cnts, depth_child):
-            rows = torch.as_tensor(leaves, device=dev)
-            return scan_children(gh[rows][:, layout.gidx],     # [B, Fp, Wp]
-                                 hh[rows][:, layout.gidx], layout, params,
-                                 sgs, shs, cnts, depth_child, gc.max_depth)
+            def scan(rows, sgs, shs, cnts, depths):
+                return self._scan_blocks(gh[rows], hh[rows], masks, sgs, shs,
+                                         cnts, depths)
+        else:
+            layout = ScanLayout(self.win_start, self.win_end,
+                                meta.missing_type, meta.default_bin,
+                                meta.penalty, feature_mask, gc.scan_width,
+                                TBp, dev)
+
+            def scan(rows, sgs, shs, cnts, depths):
+                return scan_children(gh[rows][:, layout.gidx],  # [B, Fp, Wp]
+                                     hh[rows][:, layout.gidx], layout,
+                                     params, sgs, shs, cnts, depths, md)
+
+        def evaluate(leaves, sgs, shs, cnts, depths):
+            return scan(torch.as_tensor(np.asarray(leaves), device=dev), sgs,
+                        shs, cnts, depths)
 
         st = LeafState(sum_hess=np.zeros(L, F32),
                        count=np.zeros(L, np.int64), value=np.zeros(L, F32),
@@ -203,7 +284,84 @@ class PersistGrower:
         best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0)[0]
         best_gain[0] = best[0].gain
 
-        s = 1
+        def split(l, r, cand, n_left):
+            """Record the split of leaf l into l (left) and r (right) and
+            the children's state; returns (left count, right count, the
+            children's depth)."""
+            s0, n_l = int(st.start[l]), int(st.nrows[l])
+            k = r - 1
+            tree["split_leaf"][k] = l
+            tree["split_feature"][k] = cand.feature
+            tree["threshold"][k] = cand.threshold
+            tree["default_left"][k] = cand.default_left
+            tree["gain"][k] = cand.gain
+            tree["internal_value"][k] = st.value[l]
+            tree["internal_count"][k] = st.count[l]
+            left_cnt = n_left
+            right_cnt = int(st.count[l]) - left_cnt
+            depth = int(st.depth[l]) + 1
+            for leaf, sh_, cnt_, val_, st_, nr_ in (
+                    (l, cand.left_sum_hess, left_cnt, cand.left_output, s0,
+                     n_left),
+                    (r, cand.right_sum_hess, right_cnt, cand.right_output,
+                     s0 + n_left, n_l - n_left)):
+                st.sum_hess[leaf] = sh_
+                st.count[leaf], st.value[leaf] = cnt_, val_
+                st.depth[leaf] = depth
+                st.start[leaf], st.nrows[leaf] = st_, nr_
+            return left_cnt, right_cnt, depth
+
+        # ---- the level phase (grow_persist.py:1295-1527) -----------------
+        s, levels = 1, 0
+        while self.use_level and s < L:
+            # the no-bind certificate: the leaf budget covers the
+            # depth-limited completion of every positive-gain frontier leaf
+            pos = (np.arange(L) < s) & (best_gain > 0)
+            cntp = int(pos.sum())
+            cap = int(np.sum((1 << np.clip(md - st.depth[pos], 0,
+                                           LEVEL_MAX_DEPTH)) - 1))
+            if not (0 < cntp <= self.s_maxl and L - s >= cap):
+                break
+            # gain-ordered admission; exact ties keep the smaller leaf id
+            key = np.where(pos, best_gain, F32(K_MIN_SCORE))
+            slots = np.argsort(-key, kind="stable")[:cntp]
+            cands = [best[l] for l in slots]
+            small_l = [c.left_count <= c.right_count for c in cands]
+            scal = np.array([self._scalars(c, int(st.start[l]),
+                                           int(st.nrows[l]), sl) + [0]
+                             for l, c, sl in zip(slots, cands, small_l)],
+                            np.int64)
+            n_lefts, small = level_pass(pay, scal, self.plan, nbw,
+                                        self.wp_live, self.inpass_hist)
+            if small is None:
+                small = level_seg_hist(pay, self.plan, nbw,
+                                       level_children(scal, n_lefts))
+            rows = torch.as_tensor(slots, device=dev)
+            new = torch.arange(s, s + cntp, device=dev)
+            sl_t = torch.as_tensor(small_l, device=dev)[:, None]
+            for planes, sm in ((gh, small[0]), (hh, small[1])):
+                big = planes[rows] - sm
+                planes[new] = torch.where(sl_t, big, sm)
+                planes[rows] = torch.where(sl_t, sm, big)
+            kids = [split(int(l), s + j, c, int(n_lefts[j]))
+                    for j, (l, c) in enumerate(zip(slots, cands))]
+            res = evaluate(
+                np.concatenate([slots, np.arange(s, s + cntp)]),
+                [c.left_sum_grad for c in cands]
+                + [c.right_sum_grad for c in cands],
+                [c.left_sum_hess for c in cands]
+                + [c.right_sum_hess for c in cands],
+                [k[0] for k in kids] + [k[1] for k in kids],
+                [k[2] for k in kids] * 2)
+            for j, l in enumerate(slots):
+                best[l], best[s + j] = res[j], res[cntp + j]
+                best_gain[l], best_gain[s + j] = res[j].gain, \
+                    res[cntp + j].gain
+            s += cntp
+            levels += 1
+
+        # ---- the per-split loop ------------------------------------------
+        s_level = s
         while s < L:
             l = int(np.argmax(best_gain))
             cand = best[l]
@@ -214,13 +372,10 @@ class PersistGrower:
             scal = self._scalars(cand, s0, n_l, smaller_is_left)
             n_left, small = split_pass(pay, scal, self.plan, nbw,
                                        self.wp_live, self.inpass_hist)
-            n_right = n_l - n_left
             if small is None:
                 small = seg_hist(pay, self.plan, nbw,
                                  s0 if smaller_is_left else s0 + n_left,
-                                 n_left if smaller_is_left else n_right)
-            left_cnt = n_left
-            right_cnt = int(st.count[l]) - left_cnt
+                                 n_left if smaller_is_left else n_l - n_left)
             big_g, big_h = gh[l] - small[0], hh[l] - small[1]
             if smaller_is_left:
                 gh[s], hh[s] = big_g, big_h
@@ -228,34 +383,15 @@ class PersistGrower:
             else:
                 gh[s], hh[s] = small
                 gh[l], hh[l] = big_g, big_h
-
-            k = s - 1
-            tree["split_leaf"][k] = l
-            tree["split_feature"][k] = cand.feature
-            tree["threshold"][k] = cand.threshold
-            tree["default_left"][k] = cand.default_left
-            tree["gain"][k] = cand.gain
-            tree["internal_value"][k] = st.value[l]
-            tree["internal_count"][k] = st.count[l]
-
-            depth_child = int(st.depth[l]) + 1
-            for leaf, sh_, cnt_, val_, st_, nr_ in (
-                    (l, cand.left_sum_hess, left_cnt, cand.left_output, s0,
-                     n_left),
-                    (s, cand.right_sum_hess, right_cnt, cand.right_output,
-                     s0 + n_left, n_right)):
-                st.sum_hess[leaf] = sh_
-                st.count[leaf], st.value[leaf] = cnt_, val_
-                st.depth[leaf] = depth_child
-                st.start[leaf], st.nrows[leaf] = st_, nr_
-
+            left_cnt, right_cnt, depth = split(l, s, cand, n_left)
             cand_l, cand_r = evaluate(
                 [l, s], [cand.left_sum_grad, cand.right_sum_grad],
                 [cand.left_sum_hess, cand.right_sum_hess],
-                [left_cnt, right_cnt], depth_child)
+                [left_cnt, right_cnt], depth)
             best[l], best[s] = cand_l, cand_r
             best_gain[l], best_gain[s] = cand_l.gain, cand_r.gain
             s += 1
+        self.grow_stats.append((levels, s - s_level))
         return st, tree, s
 
     @staticmethod

@@ -1,8 +1,9 @@
-"""The persistent grower's payload kernels: root_hist, split_pass, seg_hist.
+"""The persistent grower's payload kernels: root_hist, split_pass, seg_hist,
+level_pass and level_seg_hist.
 
 The port of lightgbm_tpu/ops/pallas_grow.py: the scalar slots of a split
 (``S_*``, pallas_grow.py:83-98), the group-bin decode
-(``_unpack_group_bins``:209) and the wrappers of three kernels, each beside
+(``_unpack_group_bins``:209) and the wrappers of five kernels, each beside
 its plain PyTorch version:
 
   * :func:`root_hist` (``make_root_hist``:944 -> ``csrc/root_hist.cu``):
@@ -11,7 +12,12 @@ its plain PyTorch version:
     the stable partition of one leaf's segment, its n_left and, where the
     grower asks for it, the smaller child's histogram;
   * :func:`seg_hist` (``make_seg_hist``:866 -> ``csrc/seg_hist.cu``): the
-    histogram of one contiguous segment.
+    histogram of one contiguous segment;
+  * :func:`level_pass` (``make_level_pass``:543 -> ``csrc/level_pass.cu``):
+    split_pass for every splitting leaf of a tree level at once, each slot's
+    scalars one row of an [S, 16] matrix;
+  * :func:`level_seg_hist` (``make_level_seg_hist``:785 ->
+    ``csrc/level_seg_hist.cu``): seg_hist of S segments at once.
 
 The payload is the [WPA, NP] int32 matrix of ops/payload.py. Histograms are
 two f32 planes of [G * 256]: group g's bin b at g * 256 + b, the layout of
@@ -55,6 +61,7 @@ S_LS = 12         # feature's group-local bin range start (EFB bundles)
 S_LE = 13         # range end; bins outside [LS, LE) read as most_freq
 S_MF = 14         # most_freq (feature-local) bin
 N_SCALARS = 15
+LEVEL_COLS = 16   # a level slot's row: the S_* slots and one unused column
 
 HIST_W = 256      # bins per group plane
 
@@ -309,6 +316,191 @@ def split_pass(pay: torch.Tensor, scal, plan: torch.Tensor, nbw: int,
 
 
 split_pass.launches = 0
+
+
+def level_seg_hist_plain(pay: torch.Tensor, plan: torch.Tensor, nbw: int,
+                         segs):
+    """(grad planes, hess planes), [S, G * 256] f32 each: seg_hist_plain of
+    each (start, length) segment."""
+    planes = [seg_hist_plain(pay, plan, nbw, st, ln) for st, ln in segs]
+    return (torch.stack([p[0] for p in planes]),
+            torch.stack([p[1] for p in planes]))
+
+
+def level_pass_plain(pay: torch.Tensor, scal_mat, plan: torch.Tensor,
+                     nbw: int, wp_live: int, with_hist: bool):
+    """split_pass_plain over the rows of `scal_mat` ([S, LEVEL_COLS], one
+    slot each, disjoint segments), in place. Returns (n_left [S] int64
+    numpy, the smaller children's (grad, hess) planes [S, G * 256] or
+    None)."""
+    n_left = np.zeros(len(scal_mat), np.int64)
+    hists = []
+    for j, row in enumerate(np.asarray(scal_mat).tolist()):
+        n_left[j], h = split_pass_plain(pay, row[:N_SCALARS], plan, nbw,
+                                        wp_live, with_hist)
+        hists.append(h)
+    if not with_hist:
+        return n_left, None
+    return n_left, (torch.stack([h[0] for h in hists]),
+                    torch.stack([h[1] for h in hists]))
+
+
+def _segments(name, pay, plan, nbw, segs):
+    segs = [(int(st), int(ln)) for st, ln in segs]
+    if not segs:
+        raise LightGBMError("%s: no segments" % name)
+    for lanes in segs:
+        _check(name, pay, plan, nbw, lanes)
+    return segs
+
+
+def _multi_hist_tables(segs, G, device):
+    """The device tables of a many-segment histogram launch: the [S, 5]
+    int64 segment table of payload_hist.cuh (start, length, rows per
+    block, block count, first block; each segment cut by row_blocks as
+    seg_hist cuts it) and the segment of every block."""
+    cut = [row_blocks(ln, G) for _, ln in segs]
+    nblk = np.array([nb for nb, _ in cut], np.int64)
+    tab = np.stack([[st for st, _ in segs], [ln for _, ln in segs],
+                    [rows for _, rows in cut], nblk,
+                    np.cumsum(nblk) - nblk], axis=1).astype(np.int64)
+    slot_of_block = np.repeat(np.arange(len(segs), dtype=np.int32), nblk)
+    return (torch.as_tensor(tab, device=device),
+            torch.as_tensor(slot_of_block, device=device))
+
+
+def _launch_multi_hist(lib_name, fn_name, pay, plan, nbw, tables):
+    """Queue the histograms of the segments of `tables`
+    (:func:`_multi_hist_tables`) on the card (payload_hist.cuh's
+    multi-segment kernels): (grad planes, hess planes) [S, G * 256]."""
+    from .build import load
+    fn = getattr(load(lib_name), fn_name)
+    fn.argtypes = [_P, _LL, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P]
+    fn.restype = _I
+    tab_d, sob_d = tables
+    G, S, nblocks = plan.shape[0], len(tab_d), len(sob_d)
+    partial = torch.empty((nblocks, 2, G * HIST_W), dtype=torch.float32,
+                          device=pay.device)
+    out = torch.empty((2, S, G * HIST_W), dtype=torch.float32,
+                      device=pay.device)
+    err = fn(_void(pay), pay.shape[1], _void(plan), G, nbw + 2, _void(tab_d),
+             S, _void(sob_d), nblocks, _void(partial), _void(out),
+             _stream(pay))
+    if err != 0:
+        raise LightGBMError("%s kernel launch failed: CUDA error %d"
+                            % (lib_name, err))
+    return out[0], out[1]
+
+
+def level_seg_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, segs):
+    """(grad planes, hess planes), [S, G * 256] f32 each, of S (start,
+    length) payload segments: the CUDA kernel for a payload on the card,
+    the plain version on the CPU. A zero-length segment gives zeros."""
+    nbw = int(nbw)
+    segs = _segments("level_seg_hist", pay, plan, nbw, segs)
+    if pay.device.type == "cpu":
+        return level_seg_hist_plain(pay, plan, nbw, segs)
+    out = _launch_multi_hist("level_seg_hist", "level_seg_hist_launch", pay,
+                             plan, nbw, _multi_hist_tables(
+                                 segs, plan.shape[0], pay.device))
+    level_seg_hist.launches += 1
+    return out
+
+
+level_seg_hist.launches = 0
+
+
+def _check_level(pay, scal, plan, nbw, wp_live):
+    if scal.ndim != 2 or scal.shape[1] != LEVEL_COLS or len(scal) < 1:
+        raise LightGBMError("level_pass: the scalars must be an [S, %d] "
+                            "matrix with S >= 1, got %s"
+                            % (LEVEL_COLS, scal.shape))
+    if not nbw + 4 <= wp_live <= pay.shape[0]:
+        raise LightGBMError("level_pass: wp_live=%d outside [%d, %d]"
+                            % (wp_live, nbw + 4, pay.shape[0]))
+    for row in scal:
+        _check("level_pass", pay, plan, nbw, (int(row[S_S0]),
+                                              int(row[S_NL])))
+        if not 0 <= row[S_WG] < nbw:
+            raise LightGBMError("level_pass: word row %d is not a bin word"
+                                % row[S_WG])
+    order = np.argsort(scal[:, S_S0], kind="stable")
+    s0, nl = scal[order, S_S0], scal[order, S_NL]
+    if np.any(s0[1:] < s0[:-1] + nl[:-1]):
+        raise LightGBMError("level_pass: the slots' segments overlap")
+
+
+def _level_tables(scal, device):
+    """The device tables of a level_pass launch from the host [S,
+    LEVEL_COLS] matrix `scal`: the int32 scalars, the int64 [S, 3] slot
+    table of level_pass.cu (first tile, tile count, first scratch lane) and
+    the slot of every 1024-lane tile."""
+    n_l = scal[:, S_NL]
+    ntiles = -(-n_l // 1024)
+    tab = np.stack([np.cumsum(ntiles) - ntiles, ntiles,
+                    np.cumsum(n_l) - n_l], axis=1).astype(np.int64)
+    slot_of_tile = np.repeat(np.arange(len(scal), dtype=np.int32), ntiles)
+    return (torch.as_tensor(scal.astype(np.int32), device=device),
+            torch.as_tensor(tab, device=device),
+            torch.as_tensor(slot_of_tile, device=device), int(n_l.sum()))
+
+
+def _launch_level(pay, wp_live, tables):
+    """Queue the partition kernels of the slots of `tables`
+    (:func:`_level_tables`) on the card; returns n_left as an [S] int32
+    tensor on the card, without waiting."""
+    from .build import load
+    fn = load("level_pass").level_pass_launch
+    fn.argtypes = [_P, _LL, _I, _P, _P, _I, _P, _I, _LL, _P, _P, _P, _P, _P]
+    fn.restype = _I
+    scal_d, tab_d, sot_d, total = tables
+    S, T, dev = len(scal_d), len(sot_d), pay.device
+    tiles = torch.empty((2, max(T, 1)), dtype=torch.int32, device=dev)
+    n_left_d = torch.empty(S, dtype=torch.int32, device=dev)
+    scratch = torch.empty((wp_live, max(total, 1)), dtype=torch.int32,
+                          device=dev)
+    err = fn(_void(pay), pay.shape[1], wp_live, _void(scal_d), _void(tab_d),
+             S, _void(sot_d), T, total, _void(tiles[0]), _void(tiles[1]),
+             _void(n_left_d), _void(scratch), _stream(pay))
+    if err != 0:
+        raise LightGBMError("level_pass kernel launch failed: CUDA error %d"
+                            % err)
+    return n_left_d
+
+
+def level_pass(pay: torch.Tensor, scal_mat, plan: torch.Tensor, nbw: int,
+               wp_live: int, with_hist: bool):
+    """Partition the segments of every slot of a tree level in place: the
+    CUDA kernel for a payload on the card, the plain version on the CPU.
+    `scal_mat` is the host [S, LEVEL_COLS] matrix of the slots' S_* slots;
+    their segments must be disjoint. Returns (n_left [S] int64 numpy, the
+    smaller children's (grad, hess) planes [S, G * 256] when `with_hist`,
+    else None). The whole sequence is one launch of level_pass; reading
+    n_left back is its one host sync."""
+    scal = np.asarray(scal_mat, np.int64)
+    nbw, wp_live = int(nbw), int(wp_live)
+    _check_level(pay, scal, plan, nbw, wp_live)
+    if pay.device.type == "cpu":
+        return level_pass_plain(pay, scal, plan, nbw, wp_live, with_hist)
+    n_left = _launch_level(pay, wp_live, _level_tables(scal, pay.device)) \
+        .cpu().numpy().astype(np.int64)
+    hist = None
+    if with_hist:
+        hist = _launch_multi_hist(
+            "level_pass", "level_pass_hist_launch", pay, plan, nbw,
+            _multi_hist_tables(level_children(scal, n_left), plan.shape[0],
+                               pay.device))
+    level_pass.launches += 1
+    return n_left, hist
+
+
+level_pass.launches = 0
+
+
+def level_children(scal_mat, n_left):
+    """[(start, length)] of each slot's smaller child after the partition."""
+    return [_child(row, int(nl)) for row, nl in
+            zip(np.asarray(scal_mat).tolist(), n_left)]
 
 
 def plan_tensor(plan, device) -> torch.Tensor:

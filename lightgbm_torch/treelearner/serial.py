@@ -11,7 +11,10 @@ both scanning splits with the ``scan_pair`` kernel:
     the card for 65536 rows or more, ``force`` on any device (on the CPU
     with the kernels' plain versions), ``off``/``false``/``0`` never. The
     payload, with the scores in it, stays on the learner between
-    iterations (:meth:`train_persist`);
+    iterations (:meth:`train_persist`). ``tpu_level_grow`` routes its
+    level phase (serial.py:550-554): ``auto`` runs it where
+    ``can_level_grow`` holds (``max_depth`` in [1, 16]), ``off``/
+    ``false``/``0`` never. EFB-bundled data train only here;
   * the v1 partitioned grower (ops/grow.py) otherwise.
 
 The JAX package picks among more growers and scans (``resolve_scan_impl``,
@@ -82,9 +85,17 @@ def check_fast_path(config: Config, dataset) -> None:
     if str(c.tpu_multival).lower() == "force":
         _refuse("tpu_multival=force",
                 "queue A, item 2: binned dataset layouts")
+
+
+def check_v1_layout(dataset) -> None:
+    """Raise for data the v1 grower cannot train: EFB bundles need
+    FixHistogram in its scan, which only the persistent grower's
+    scan_blocks has."""
     if dataset.has_bundles:
-        _refuse("EFB bundles (features sharing a group need FixHistogram; "
-                "enable_bundle=false avoids them)",
+        _refuse("EFB bundles on the v1 grower (bundled data train on the "
+                "persistent grower: tpu_persist_scan=force, or auto on the "
+                "card from %d rows; enable_bundle=false avoids bundles)"
+                % PARTITION_MIN_ROWS,
                 "queue A, item 2: binned dataset layouts")
 
 
@@ -153,8 +164,7 @@ class SerialTreeLearner:
         ``force`` asks for it on any device and raises when the objective
         has no payload gradient; ``auto`` takes it on the card for 65536
         rows or more; both need a payload pack plan and an objective with
-        something to train (EFB bundles never get here: check_fast_path
-        refuses them)."""
+        something to train."""
         opt = str(self.config.tpu_persist_scan).lower()
         if opt in ("false", "0", "off"):
             return False
@@ -173,17 +183,12 @@ class SerialTreeLearner:
 
     def _persist_grower(self) -> PersistGrower:
         if self._persist_gr is None:
-            if (self.grow_config.max_depth > 0 and
-                    str(self.config.tpu_level_grow).lower()
-                    not in ("off", "false", "0")):
-                Log.info("the persistent grower's level phase is not ported "
-                         "yet (ROADMAP.md queue A, item 6); max_depth=%d "
-                         "trees grow split by split, which gives the same "
-                         "trees" % self.grow_config.max_depth)
+            level = str(self.config.tpu_level_grow).lower()
             assets = build_assets(self.dataset, self.dataset.metadata.label)
-            self._persist_gr = PersistGrower(assets, self.meta,
-                                             self.grow_config, self.params,
-                                             self.device)
+            self._persist_gr = PersistGrower(
+                assets, self.meta, self.grow_config, self.params, self.device,
+                level_mode="off" if level in ("off", "false", "0")
+                else "auto")
         return self._persist_gr
 
     def train_persist(self, objective, score0, shrink: float):

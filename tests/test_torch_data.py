@@ -7,13 +7,14 @@ import torch
 import lightgbm_tpu as lt
 from lightgbm_tpu.data.bin_mapper import BinMapper as JaxBinMapper
 from lightgbm_tpu.data.dataset import BinnedDataset as JaxDataset
+from lightgbm_tpu.data.synth import make_expo_like as jax_expo
 from lightgbm_tpu.data.synth import make_higgs_like as jax_higgs
 import lightgbm_torch as lp
 from lightgbm_torch.config import PARAMS
 from lightgbm_torch.data.bin_mapper import BinMapper
 from lightgbm_torch.data.dataset import BinnedDataset
-from lightgbm_torch.data.synth import make_higgs_like
-from lightgbm_torch.treelearner.serial import SerialTreeLearner
+from lightgbm_torch.data.synth import make_expo_like, make_higgs_like
+from lightgbm_torch.treelearner.serial import SerialTreeLearner, check_v1_layout
 from lightgbm_torch.utils.log import LightGBMError
 
 
@@ -30,6 +31,14 @@ def test_synth_is_the_jax_generator():
     a, b = make_higgs_like(1000, seed=3), jax_higgs(1000, seed=3)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_expo_synth_is_the_jax_generator():
+    a, b = make_expo_like(1000, seed=3), jax_expo(1000, seed=3)
+    assert a[0].shape == (1000, 648)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("col,use_missing,zero_as_missing,max_bin", [
@@ -75,7 +84,9 @@ def test_dataset_layout_matches_jax(params):
 
 def test_bundled_dataset_is_refused():
     """Sparse one-hot columns bundle under EFB; bundles need FixHistogram,
-    which is not in this slice, so the learner refuses them by name."""
+    which only the persistent grower's scan_blocks has, so the v1 grower
+    refuses them by name while the learner (persistent grower) takes
+    them."""
     rng = np.random.default_rng(0)
     n = 3000
     X = np.zeros((n, 6))
@@ -85,10 +96,12 @@ def test_bundled_dataset_is_refused():
     assert ds.has_bundles
     cfg = lp.Config({"objective": "binary", "device_type": "cpu"})
     with pytest.raises(LightGBMError, match="ROADMAP.md queue A, item 2"):
-        SerialTreeLearner(cfg, ds, torch.device("cpu"))
+        check_v1_layout(ds)
+    SerialTreeLearner(cfg, ds, torch.device("cpu"))
     ds2 = BinnedDataset.from_matrix(X, lp.Config({"enable_bundle": False}),
                                     label=X[:, 0] > 0)
     assert not ds2.has_bundles
+    check_v1_layout(ds2)
     SerialTreeLearner(cfg, ds2, torch.device("cpu"))
 
 

@@ -20,7 +20,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, lightgbm_torch, lightgbm_torch.engine, "
             "lightgbm_torch.convert, lightgbm_torch.ops.grow, "
             "lightgbm_torch.ops.grow_persist, lightgbm_torch.ops.payload, "
-            "lightgbm_torch.ops.payload_kernels, lightgbm_torch.ops.build; "
+            "lightgbm_torch.ops.payload_kernels, lightgbm_torch.ops.build, "
+            "lightgbm_torch.ops.block_scan; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('lightgbm_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -34,7 +34,6 @@ from lightgbm_torch.data.synth import make_higgs_like
 from lightgbm_torch.ops import grow_persist
 from lightgbm_torch.ops import payload_kernels as pk
 from lightgbm_torch.ops.histogram import hist_window
-from lightgbm_torch.treelearner import serial as port_serial
 from lightgbm_torch.utils.log import LightGBMError
 
 ROUNDS = 16
@@ -91,7 +90,12 @@ def _defaults_taken(tree, X):
     return out
 
 
-def _assert_same_trees(ref, mine, X, lr, min_leaves=3):
+def _assert_same_trees(ref, mine, X, lr, min_leaves=3, mxu=False):
+    """`mxu`: the reference ran the Pallas kernels, whose histograms keep
+    each value to 2^-17 of its size (the MXU's bf16 hi/lo split); a leaf's
+    sums then carry that error of its ancestors' histograms, at most
+    2 * 2^-17 * sum|grad| (the root's and the subtracted siblings', which
+    are disjoint), with sum|grad| <= n."""
     assert len(ref) == len(mine) == ROUNDS
     n = X.shape[0]
     for a, b in zip(ref, mine):
@@ -107,7 +111,8 @@ def _assert_same_trees(ref, mine, X, lr, min_leaves=3):
         np.testing.assert_array_equal(a.decision_type[:k][taken],
                                       b.decision_type[:k][taken])
         ref_v = a.leaf_value[:k + 1]
-        cancel = 4 * EPS32 * n / a.leaf_weight[:k + 1] * lr
+        cancel = (4 * EPS32 + (2 * 2.0 ** -17 if mxu else 0.0)) * n \
+            / a.leaf_weight[:k + 1] * lr
         assert np.all(np.abs(b.leaf_value[:k + 1] - ref_v)
                       <= np.maximum(2e-4 * np.abs(ref_v) + 1e-7, cancel))
 
@@ -142,16 +147,22 @@ def test_persist_weighted_matches_jax_persist(monkeypatch):
 
 
 def test_persist_max_depth_matches_jax_per_split(monkeypatch):
-    """max_depth > 0: the JAX package would run its level phase; with
-    tpu_level_grow=off it runs the per-split path, which the port runs for
-    any max_depth (the same trees by make_persist_grower's contract)."""
-    params = dict(BASE, max_depth=3, tpu_level_grow="off")
+    """max_depth > 0, each mode against its like: with tpu_level_grow=off
+    both packages grow split by split (JAX in Pallas interpret mode), with
+    auto both run their level phase (JAX in its widened XLA mode), which
+    numbers the nodes level by level."""
     X, y = _data(seed=5)
-    ref = _jax(params, X, y, True, monkeypatch)
-    bp = _port(dict(params, tpu_level_grow="auto"), X, y)
-    leaves = [t.num_leaves for t in bp._booster.models]
-    assert max(leaves) == 8 and min(leaves) > 2
-    _assert_same_trees(ref, bp._booster.models, X, BASE["learning_rate"])
+    for mode, pallas in (("off", True), ("auto", False)):
+        params = dict(BASE, max_depth=3, tpu_level_grow=mode)
+        ref = _jax(params, X, y, pallas, monkeypatch)
+        bp = _port(params, X, y)
+        levels = sum(s[0] for s in
+                     bp._booster.tree_learner._persist_gr.grow_stats)
+        assert (levels > 0) == (mode == "auto"), mode
+        leaves = [t.num_leaves for t in bp._booster.models]
+        assert max(leaves) == 8 and min(leaves) > 2
+        _assert_same_trees(ref, bp._booster.models, X,
+                           BASE["learning_rate"])
 
 
 def test_persist_seg_hist_branch_matches_jax(monkeypatch):
@@ -201,8 +212,8 @@ def test_persist_matches_v1_grower():
 def test_routing(monkeypatch):
     """auto keeps the v1 grower on the CPU, force takes the persistent one,
     false/off/0 never do; force with an objective that has no payload
-    gradient raises; a level-phase request logs once and runs split by
-    split."""
+    gradient raises; with max_depth the level phase runs (auto), and
+    tpu_level_grow=off keeps it off."""
     X, y = _data(n=2000)
     for opt, want in (("auto", False), ("force", True), ("false", False),
                       ("off", False), ("0", False)):
@@ -217,12 +228,12 @@ def test_routing(monkeypatch):
     with pytest.raises(LightGBMError, match="payload gradient"):
         learner.can_persist_scan(bst._booster.objective)
     monkeypatch.undo()
-    seen = []
-    monkeypatch.setattr(port_serial.Log, "info",
-                        classmethod(lambda cls, msg, *a: seen.append(msg)))
-    p = dict(BASE, device_type="cpu", max_depth=2)
-    lp.train(p, lp.Dataset(X, y, params=p), 2)
-    assert sum("level phase" in m for m in seen) == 1
+    for level, runs in (("auto", True), ("off", False)):
+        p = dict(BASE, device_type="cpu", max_depth=2, tpu_level_grow=level)
+        bst = lp.train(p, lp.Dataset(X, y, params=p), 2)
+        gr = bst._booster.tree_learner._persist_gr
+        assert gr.use_level is runs, level
+        assert all((levels > 0) == runs for levels, _ in gr.grow_stats)
 
 
 def test_persist_histograms_equal_v1_histograms():
