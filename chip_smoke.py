@@ -17,10 +17,14 @@ exits non-zero without printing a result:
               10.5M lanes cut into 128 slots as at depth 8 (the level
               phase), scan_pair at B = 256 on the level's children. Each is
               held bit for bit against its plain version on the CPU, and
-              two launches must agree; times for the kernel, the plain
-              version, one PyTorch library call where one computes the same
-              function, the bound, and, for the level kernels, the 128
-              per-split launches they replace;
+              two launches must agree. hist_window and root_hist also run
+              on skewed inputs (every lane in one bin, bins >= W, ragged
+              segments; root_hist at the Expo root too), and root_hist's
+              planes must equal seg_hist's over the same lanes (seg_hist
+              runs the other histogram routine). Times for the kernel,
+              the plain version, one PyTorch library call where one
+              computes the same function, the bound, and, for the level
+              kernels, the 128 per-split launches they replace;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255, binary) on cuda with the default
               routing, along three paths, each wrapper's launch count set
@@ -177,6 +181,23 @@ def check_hist(bins, grad, hess, start, length, w, label):
     return err_cpu
 
 
+def library_hist_window(bins, grad, hess, W):
+    """The time of one index_add_ computing hist_window over all rows of
+    `bins` (the flattened (group, bin) index and the values built outside
+    the timed call): hist_window's yardstick."""
+    import torch
+    G = bins.shape[1]
+    idx = (bins.long() + torch.arange(G, device=bins.device)[None, :] * W) \
+        .reshape(-1)
+    vals = torch.stack([grad, hess], 1)[:, None, :].expand(-1, G, -1) \
+        .reshape(-1, 2).contiguous()
+    out = torch.zeros((G * W, 2), device=bins.device)
+    ms = device_ms(lambda: out.index_add_(0, idx, vals), reps=5, warmup=1)
+    del idx, vals, out
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_kernels(binned: np.ndarray, meta, gc, params):
     """Both kernels against their plain versions at the main path's
     shapes; returns the kernel records for the JSON line (launches filled
@@ -195,34 +216,53 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
     G, W = bins.shape[1], gc.hist_width
     err_h = check_hist(bins, grad, hess, 0, R, W, "%d rows" % R)
     err_r = check_hist(bins, grad, hess, 12345, 8191, W, "ragged")
+    # skewed inputs: every row in one bin; bins >= W (left out); a ragged
+    # segment over several row blocks
+    one = torch.full_like(bins, 7)
+    err_r = max(err_r, check_hist(one, grad, hess, 0, R, W,
+                                  "every row in bin 7"))
+    wide = torch.randint(0, 256, bins.shape, dtype=torch.uint8, device=dev)
+    err_r = max(err_r, check_hist(wide, grad, hess, 13, R - 20, 40,
+                                  "bins >= W=40, ragged over row blocks"))
+    del wide
 
     ms = device_ms(lambda: hist_window(bins, grad, hess, 0, R, W))
     plain_ms = device_ms(lambda: hist_window_plain(bins, grad, hess, 0, R,
                                                    W), reps=5)
-    # the library yardstick: one index_add_ over the flattened (group, bin)
-    # index, built outside the timed call
-    idx = (bins.long() + torch.arange(G, device=dev)[None, :] * W).reshape(-1)
-    vals = torch.stack([grad, hess], 1)[:, None, :].expand(-1, G, -1) \
-        .reshape(-1, 2).contiguous()
-    lib_out = torch.zeros((G * W, 2), device=dev)
-    library_ms = device_ms(lambda: lib_out.index_add_(0, idx, vals))
+    library_ms = library_hist_window(bins, grad, hess, W)
     b_ms, b_by = bound_ms(R * (G + 8) + G * W * 8, 2.0 * R * G)
     log("hist_window %d rows, median time per call: kernel %.4f ms, "
         "plain %.4f ms, index_add_ %.4f ms; bound %.4f ms (%s)"
         % (R, ms, plain_ms, library_ms, b_ms, b_by))
-    del idx, vals, lib_out
+    one_ms = device_ms(lambda: hist_window(one, grad, hess, 0, R, W))
+    log("hist_window %d rows, every row in one bin: kernel %.4f ms, "
+        "index_add_ %.4f ms; bound %.4f ms" % (
+            R, one_ms, library_hist_window(one, grad, hess, W), b_ms))
+    del one
     N = binned.shape[0]
     if N > R:
         # the main path's largest call: the root histogram over every row
         full = torch.as_tensor(binned, device=dev)
         gf = torch.as_tensor(rng.normal(size=N).astype(np.float32),
                              device=dev)
+        _same("hist_window root, %d rows: two launches" % N,
+              hist_window(full, gf, gf, 0, N, W),
+              hist_window(full, gf, gf, 0, N, W))
         root_ms = device_ms(lambda: hist_window(full, gf, gf, 0, N, W),
                             reps=5, warmup=1)
+        root_lib = library_hist_window(full, gf, gf, W)
         log("hist_window root, %d rows: kernel %.3f ms (median per call), "
-            "bound %.3f ms"
-            % (N, root_ms, bound_ms(N * (G + 8) + G * W * 8, 2.0 * N * G)[0]))
+            "index_add_ %.3f ms; bound %.3f ms"
+            % (N, root_ms, root_lib,
+               bound_ms(N * (G + 8) + G * W * 8, 2.0 * N * G)[0]))
+        full.fill_(7)
+        log("hist_window root, %d rows, every row in one bin: kernel %.3f "
+            "ms, index_add_ %.3f ms" % (
+                N, device_ms(lambda: hist_window(full, gf, gf, 0, N, W),
+                             reps=5, warmup=1),
+                library_hist_window(full, gf, gf, W)))
         del full, gf
+        torch.cuda.empty_cache()
 
     # ---- scan_pair at B=2 on real child histograms --------------------
     layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
@@ -380,6 +420,41 @@ def library_hist_segments(pay, plan, nbw, segs):
     return ms
 
 
+def check_root_hist(pay, cpu, plan, nbw, n, label):
+    """root_hist over lanes [0, n) of the payload `pay` (and its CPU copy):
+    two launches bit-identical, bit-identical to the plain version on the
+    CPU (planes and totals), planes equal to seg_hist's over the same lanes
+    (seg_hist runs payload_hist.cuh's ownership routine, an independent
+    implementation of the same contract). Returns (max abs err, kernel ms,
+    index_add_ ms, bound ms, bound_by), times median per call."""
+    import torch
+    from lightgbm_torch.ops import payload_kernels as pk
+    plan_c, plan_d = pk.plan_tensor(plan, "cpu"), pk.plan_tensor(plan,
+                                                                pay.device)
+    k1 = pk.root_hist(pay, plan_d, nbw, n)
+    k2 = pk.root_hist(pay, plan_d, nbw, n)
+    seg = pk.seg_hist(pay, plan_d, nbw, 0, n)
+    torch.cuda.synchronize()
+    _same("root_hist %s: two launches" % label, k1, k2)
+    _same("root_hist %s: planes vs seg_hist over the same lanes" % label,
+          k1[:2], seg)
+    err = _same("root_hist %s vs the plain version on the CPU" % label, k1,
+                pk.root_hist_plain(cpu, plan_c, nbw, n))
+    del k1, k2, seg
+    ms = device_ms(lambda: pk.root_hist(pay, plan_d, nbw, n), reps=5,
+                   warmup=1)
+    lib_ms = library_hist_segments(pay, plan, nbw, [(0, n)])
+    G = len(plan)
+    b_ms, b_by = bound_ms(n * (4 * nbw + 8) + 2 * G * 256 * 4 + 8,
+                          2.0 * n * G)
+    log("root_hist %s, %d lanes x %d groups: two launches bit-identical, "
+        "planes equal to seg_hist's, bit-identical to the plain version on "
+        "the CPU (planes and totals); median time per call: kernel %.3f ms, "
+        "index_add_ %.3f ms; bound %.4f ms (%s)"
+        % (label, n, G, ms, lib_ms, b_ms, b_by))
+    return err, ms, lib_ms, b_ms, b_by
+
+
 def phase_payload_kernels(inner, meta, gc, params):
     """root_hist, seg_hist, split_pass, level_pass and level_seg_hist
     against their plain versions at the persistent grower's HIGGS shapes;
@@ -408,22 +483,27 @@ def phase_payload_kernels(inner, meta, gc, params):
     records = []
 
     # ---- root_hist over all n lanes ---------------------------------------
-    k1 = pk.root_hist(pay, plan_d, nbw, n)
-    k2 = pk.root_hist(pay, plan_d, nbw, n)
-    torch.cuda.synchronize()
-    _same("root_hist: two launches", k1, k2)
-    err = _same("root_hist vs the plain version on the CPU", k1,
-                pk.root_hist_plain(cpu, plan_c, nbw, n))
-    ms = device_ms(lambda: pk.root_hist(pay, plan_d, nbw, n), reps=5,
-                   warmup=1)
+    err, ms, lib_ms, b_ms, b_by = check_root_hist(pay, cpu, plan, nbw, n,
+                                                  "HIGGS")
     plain_ms = device_ms(lambda: pk.root_hist_plain(pay, plan_d, nbw, n),
                          reps=3, warmup=1)
-    lib_ms = library_hist_segments(pay, plan, nbw, [(0, n)])
-    b_ms, b_by = bound_ms(n * lane_bytes + plane_bytes + 8, 2.0 * n * G)
-    log("root_hist, %d lanes: two launches bit-identical, bit-identical to "
-        "the plain version on the CPU (planes and totals); median time per "
-        "call: kernel %.3f ms, plain %.3f ms, index_add_ %.3f ms; bound "
-        "%.4f ms (%s)" % (n, ms, plain_ms, lib_ms, b_ms, b_by))
+    log("root_hist HIGGS: plain version %.3f ms per call" % plain_ms)
+    # skewed: every lane in one bin of every group (all bin words 7 in each
+    # byte), the full length and a ragged one
+    one = pay.clone()
+    one[:nbw, :n] = 0x07070707
+    one_c = one.cpu()
+    check_root_hist(one, one_c, plan, nbw, n, "every lane in bin 7")
+    del one, one_c
+    nr = min(1_000_003, n - 5)
+    k1 = pk.root_hist(pay, plan_d, nbw, nr)
+    _same("root_hist ragged (%d lanes): two launches" % nr, k1,
+          pk.root_hist(pay, plan_d, nbw, nr))
+    err = max(err, _same("root_hist ragged (%d lanes) vs the plain version "
+                         "on the CPU" % nr, k1,
+                         pk.root_hist_plain(cpu, plan_c, nbw, nr)))
+    del k1
+    torch.cuda.empty_cache()
     records.append({"name": "root_hist", "route": "cuda",
                     "source": "lightgbm_torch/csrc/root_hist.cu",
                     "replaces": "lightgbm_tpu/ops/pallas_grow.py:944",
@@ -691,6 +771,9 @@ def phase_block_kernels(inner, meta, gc, params):
         .view(np.int32)
     pay = torch.from_numpy(host).to(dev)
     plan_d = pk.plan_tensor(plan, dev)
+    # root_hist at the bundled path's root: 18 groups in byte and nibble
+    # slots, each bundle's shared zero bin holding most lanes
+    check_root_hist(pay, torch.from_numpy(host), plan, nbw, n, "Expo")
     B = 256
     segs = random_segments(rng, n, B)
     gh, hh = pk.level_seg_hist(pay, plan_d, nbw, segs)
@@ -924,11 +1007,14 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
 # per path: the wrappers whose every launch runs one histogram partial
 # kernel, and that kernel's name prefixes
 PROFILED = {
-    "persist": (("root_hist", "seg_hist"), ("payload_hist_partial",)),
+    "persist": (("root_hist", "seg_hist"),
+                ("root_hist_partial", "payload_hist_partial")),
     "level": (("root_hist", "level_seg_hist", "seg_hist"),
-              ("payload_hist_partial", "payload_hist_multi_partial")),
+              ("root_hist_partial", "payload_hist_partial",
+               "payload_hist_multi_partial")),
     "bundled": (("root_hist", "level_pass", "split_pass"),
-                ("payload_hist_partial", "payload_hist_multi_partial")),
+                ("root_hist_partial", "payload_hist_partial",
+                 "payload_hist_multi_partial")),
     "v1": (("hist_window",), ("hist_window_partial",)),
 }
 
@@ -955,7 +1041,8 @@ def phase_profile(bst, card, path):
         bst.update()
         torch.cuda.synchronize()
     rows = _device_events(prof)
-    seen = sum(n for _, n, key in rows if key.startswith(kernels))
+    seen = sum(n for _, n, key in rows
+               if key.removeprefix("void ").startswith(kernels))
     busy = sum(r[0] for r in rows)
     log("profile %s: one iteration %.1f ms wall (unprofiled), device busy "
         "%.1f ms (profiled iteration; profiler saw %d %s kernels for %d %s "

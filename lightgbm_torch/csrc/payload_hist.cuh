@@ -1,6 +1,7 @@
 // payload_hist.cuh: the (grad, hess) histogram of a run of payload lanes,
-// shared by seg_hist.cu, root_hist.cu, split_pass.cu, level_pass.cu and
-// level_seg_hist.cu.
+// shared by seg_hist.cu, split_pass.cu, level_pass.cu and level_seg_hist.cu.
+// root_hist.cu takes only payload_hist_reduce from it (its histogram is
+// ordered_hist.cuh's counting sort).
 //
 // The payload is the persistent grower's [WPA, NP] int32 matrix
 // (lightgbm_torch/ops/payload.py): row r of lane i at pay[r * NP + i]. Group
@@ -16,12 +17,13 @@
 //   G * 256 bins is one f32 chain, 0 + v[i1] + v[i2] + ... in lane order;
 //   the blocks' sums are then added in block order. Output: two planes,
 //   out[0][g * 256 + b] (grad) and out[1][g * 256 + b] (hess).
-//   Optionally (root_hist) the f64 sums of grad and hess over the lanes,
-//   rounded to f32 at the end.
+//   Optionally the f64 sums of grad and hess over the lanes, rounded to
+//   f32 at the end (payload_hist_reduce adds root_hist's).
 //
-// Design: the ownership scheme of hist_window.cu, with the bin decode
-// folded into the staging loop. Block (row block, g) gives each of its 256
-// threads one bin of group g; the block stages a tile of decoded bin bytes
+// Design: ownership, the scheme hist_window.cu used before it moved to
+// ordered_hist.cuh, with the bin decode folded into the staging loop.
+// Block (row block, g) gives each of its 256 threads one bin of group g;
+// the block stages a tile of decoded bin bytes
 // and the grad/hess of each lane in shared memory, and every thread reads
 // the tile four lanes to a 32-bit word and compares them with its bin at
 // once (__vcmpeq4), adding the matching lanes' values in lane order. A
@@ -36,14 +38,13 @@
 #define PH_TILE 4096
 
 // Thread t's sums (bin t of group g) over lanes [lo, hi), staged tile by
-// tile through the block's shared buffers; with do_sums, also the f64 sums
-// of the grad and hess of the lanes it stages. The caller syncs before it
+// tile through the block's shared buffers. The caller syncs before it
 // reuses the buffers.
 static __device__ __forceinline__ void payload_hist_rows(
     const int32_t* __restrict__ pay, long long np_,
     const int32_t* __restrict__ plan, int grad_row, int g, long long lo,
-    long long hi, bool do_sums, uint8_t* tb, float* tg, float* th,
-    float& acc_g, float& acc_h, double& sum_g, double& sum_h) {
+    long long hi, uint8_t* tb, float* tg, float* th, float& acc_g,
+    float& acc_h) {
   const int t = threadIdx.x;
   const int32_t* word = pay + (long long)plan[3 * g] * np_;
   const unsigned sh = (unsigned)plan[3 * g + 1];
@@ -57,11 +58,8 @@ static __device__ __forceinline__ void payload_hist_rows(
 #pragma unroll 4
     for (int i = t; i < n; i += PH_THREADS) {
       tb[i] = (uint8_t)(((unsigned)word[i0 + i] >> sh) & mk);
-      const float vg = grad[i0 + i];
-      const float vh = hess[i0 + i];
-      tg[i] = vg;
-      th[i] = vh;
-      if (do_sums) { sum_g += (double)vg; sum_h += (double)vh; }
+      tg[i] = grad[i0 + i];
+      th[i] = hess[i0 + i];
     }
     __syncthreads();
     const int n4 = n & ~3;
@@ -85,44 +83,27 @@ __global__ void __launch_bounds__(PH_THREADS)
 payload_hist_partial(const int32_t* __restrict__ pay, long long np_,
                      const int32_t* __restrict__ plan, int grad_row,
                      long long start, long long length, int G,
-                     long long rows_per_block, float* __restrict__ partial,
-                     double* __restrict__ sums_partial) {
+                     long long rows_per_block, float* __restrict__ partial) {
   __shared__ __align__(16) uint8_t tb[PH_TILE];
   __shared__ float tg[PH_TILE];
   __shared__ float th[PH_TILE];
-  __shared__ double red[2][PH_THREADS];
   const int g = blockIdx.y;
   const int t = threadIdx.x;
   const long long r_begin = (long long)blockIdx.x * rows_per_block;
   const long long r_end = min(length, r_begin + rows_per_block);
-  const bool do_sums = sums_partial != nullptr && g == 0;
   float acc_g = 0.f, acc_h = 0.f;
-  double sum_g = 0.0, sum_h = 0.0;
   payload_hist_rows(pay, np_, plan, grad_row, g, start + r_begin,
-                    start + r_end, do_sums, tb, tg, th, acc_g, acc_h, sum_g,
-                    sum_h);
+                    start + r_end, tb, tg, th, acc_g, acc_h);
   const long long cells = (long long)G * PH_BINS;
   float* o = partial + (long long)blockIdx.x * 2 * cells;
   o[g * PH_BINS + t] = acc_g;
   o[cells + g * PH_BINS + t] = acc_h;
-  if (do_sums) {
-    red[0][t] = sum_g;
-    red[1][t] = sum_h;
-    __syncthreads();
-    for (int s = PH_THREADS / 2; s > 0; s >>= 1) {
-      if (t < s) { red[0][t] += red[0][t + s]; red[1][t] += red[1][t + s]; }
-      __syncthreads();
-    }
-    if (t == 0) {
-      sums_partial[2 * blockIdx.x] = red[0][0];
-      sums_partial[2 * blockIdx.x + 1] = red[1][0];
-    }
-  }
 }
 
 // out[c] = partial[0][c] + partial[1][c] + ... in block order (0 + p0 + ...,
-// as the plain version's `out = out + part` loop); thread 0 of block 0 also
-// adds the blocks' f64 sums in block order and rounds them to f32.
+// as the plain version's `out = out + part` loop); with sums_partial
+// (root_hist.cu), thread 0 of block 0 also adds the blocks' f64 sums in
+// block order and rounds them to f32.
 __global__ void payload_hist_reduce(const float* __restrict__ partial,
                                     int nblocks, long long cells2,
                                     float* __restrict__ out,
@@ -147,30 +128,26 @@ __global__ void payload_hist_reduce(const float* __restrict__ partial,
 
 // Launches the histogram of lanes [start, start + length) on `stream`.
 // `partial` is [nblocks, 2, G * 256] f32 scratch, or `out` itself when
-// nblocks == 1 and no sums are asked for; `out` is [2, G * 256] f32.
-// sums_partial ([nblocks, 2] f64) and sums ([2] f32) may be null.
-// Returns cudaGetLastError() after the launches.
+// nblocks == 1; `out` is [2, G * 256] f32. Returns cudaGetLastError()
+// after the launches.
 static inline int payload_hist_run(const void* pay, long long np_,
                                    const void* plan, int G, int grad_row,
                                    long long start, long long length,
                                    int nblocks, long long rows_per_block,
                                    void* partial, void* out,
-                                   void* sums_partial, void* sums,
                                    cudaStream_t s) {
   dim3 grid(nblocks, G);
   payload_hist_partial<<<grid, PH_THREADS, 0, s>>>(
       static_cast<const int32_t*>(pay), np_,
       static_cast<const int32_t*>(plan), grad_row, start, length, G,
-      rows_per_block, static_cast<float*>(partial),
-      static_cast<double*>(sums_partial));
+      rows_per_block, static_cast<float*>(partial));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (partial == out) return 0;
   const long long cells2 = 2LL * G * PH_BINS;
   payload_hist_reduce<<<(unsigned)((cells2 + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(partial), nblocks, cells2,
-      static_cast<float*>(out), static_cast<const double*>(sums_partial),
-      static_cast<float*>(sums));
+      static_cast<float*>(out), nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -201,10 +178,8 @@ payload_hist_multi_partial(const int32_t* __restrict__ pay, long long np_,
   const long long r_begin = b * sj[PH_ROWS];
   const long long r_end = min(sj[PH_LEN], r_begin + sj[PH_ROWS]);
   float acc_g = 0.f, acc_h = 0.f;
-  double unused_g = 0.0, unused_h = 0.0;
   payload_hist_rows(pay, np_, plan, grad_row, g, sj[PH_START] + r_begin,
-                    sj[PH_START] + r_end, false, tb, tg, th, acc_g, acc_h,
-                    unused_g, unused_h);
+                    sj[PH_START] + r_end, tb, tg, th, acc_g, acc_h);
   const long long cells = (long long)G * PH_BINS;
   float* o = partial + (long long)blockIdx.x * 2 * cells;
   o[g * PH_BINS + t] = acc_g;

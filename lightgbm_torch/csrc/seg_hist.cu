@@ -25,6 +25,6 @@ extern "C" int seg_hist_launch(const void* pay, long long np_,
                                int nblocks, long long rows_per_block,
                                void* partial, void* out, void* stream) {
   return payload_hist_run(pay, np_, plan, G, grad_row, start, length,
-                          nblocks, rows_per_block, partial, out, nullptr,
-                          nullptr, reinterpret_cast<cudaStream_t>(stream));
+                          nblocks, rows_per_block, partial, out,
+                          reinterpret_cast<cudaStream_t>(stream));
 }

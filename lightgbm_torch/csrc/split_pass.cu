@@ -157,6 +157,6 @@ extern "C" int split_pass_hist_launch(const void* pay, long long np_,
                                       void* partial, void* out,
                                       void* stream) {
   return payload_hist_run(pay, np_, plan, G, grad_row, start, length,
-                          nblocks, rows_per_block, partial, out, nullptr,
-                          nullptr, reinterpret_cast<cudaStream_t>(stream));
+                          nblocks, rows_per_block, partial, out,
+                          reinterpret_cast<cudaStream_t>(stream));
 }
