@@ -17,14 +17,18 @@ exits non-zero without printing a result:
               10.5M lanes cut into 128 slots as at depth 8 (the level
               phase), scan_pair at B = 256 on the level's children. Each is
               held bit for bit against its plain version on the CPU, and
-              two launches must agree. hist_window and root_hist also run
-              on skewed inputs (every lane in one bin, bins >= W, ragged
-              segments; root_hist at the Expo root too), and root_hist's
-              planes must equal seg_hist's over the same lanes (seg_hist
-              runs the other histogram routine). Times for the kernel,
-              the plain version, one PyTorch library call where one
-              computes the same function, the bound, and, for the level
-              kernels, the 128 per-split launches they replace;
+              two launches must agree. The histogram kernels also run on
+              skewed inputs (every lane in one bin, bins >= W, ragged,
+              one-lane and zero-length segments; root_hist at the Expo
+              root too). root_hist, seg_hist and level_seg_hist share
+              one counting-sort routine, so each is also held equal to a
+              witness that does not: the in-pass launchers of split_pass
+              and level_pass (payload_hist.cuh's ownership routine) over
+              the same lanes. Times for the kernel, the plain version,
+              one PyTorch library call where one computes the same
+              function, the bound, the ownership routine for seg_hist
+              (also on small children) and level_seg_hist, and, for the
+              level kernels, the 128 per-split launches they replace;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255, binary) on cuda with the default
               routing, along three paths, each wrapper's launch count set
@@ -96,18 +100,20 @@ def _device_events(prof):
     return sorted(out, reverse=True)
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3,
+              sleep_cycles: int = 200_000_000) -> float:
     """Median time of one call of fn on the card's clock: CUDA events
     recorded between `reps` back-to-back calls, all queued behind a sleep
     kernel so that the host's launch time opens no gap between them
     (except where fn itself waits for the card, as the plain versions'
-    boolean masks do)."""
+    boolean masks do). The default sleep, ~0.1 s of cycles, covers the
+    queueing of 20 calls; a few quick calls need ~1 ms (2M cycles)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(200_000_000)      # ~0.1 s of cycles: the queue fills
+    torch.cuda._sleep(sleep_cycles)     # the queue fills meanwhile
     ev[0].record()
     for i in range(reps):
         fn()
@@ -393,10 +399,10 @@ def segment_sums(pay, nbw, segs):
     return sums[:, 0], sums[:, 1], np.array([ln for _, ln in segs])
 
 
-def library_hist_segments(pay, plan, nbw, segs):
-    """The time of one index_add_ computing the planes of every segment of
-    `segs` at once ([S * G * 256] bins, index and values built outside the
-    timed call): the yardstick of the payload histogram kernels."""
+def index_add_inputs(pay, plan, nbw, segs):
+    """(index, values, out) of one index_add_ computing the planes of every
+    segment of `segs` at once ([S * G * 256] bins): the yardstick of the
+    payload histogram kernels, built outside the timed call."""
     import torch
     dev = pay.device
     G = len(plan)
@@ -413,20 +419,46 @@ def library_hist_segments(pay, plan, nbw, segs):
     gh = pay[nbw + 2:nbw + 4][:, lanes].view(torch.float32)
     vals = gh.t()[:, None, :].expand(-1, G, -1).reshape(-1, 2).contiguous()
     del gh, lanes
-    out = torch.zeros((len(segs) * G * 256, 2), device=dev)
+    return idx, vals, torch.zeros((len(segs) * G * 256, 2), device=dev)
+
+
+def library_hist_segments(pay, plan, nbw, segs):
+    """The time of one index_add_ computing the planes of every segment of
+    `segs` at once (index_add_inputs)."""
+    import torch
+    idx, vals, out = index_add_inputs(pay, plan, nbw, segs)
     ms = device_ms(lambda: out.index_add_(0, idx, vals), reps=5, warmup=1)
     del idx, vals, out
     torch.cuda.empty_cache()
     return ms
 
 
+def ownership_hist(pay, plan_d, nbw, start, length):
+    """The histogram of lanes [start, start + length) by split_pass's
+    in-pass launcher, payload_hist.cuh's ownership routine: an independent
+    implementation of the payload histograms' contract, the witness of the
+    counting-sort kernels (not counted as a launch of any wrapper)."""
+    from lightgbm_torch.ops import payload_kernels as pk
+    return pk._launch_hist("split_pass", "split_pass_hist_launch", pay,
+                           plan_d, nbw, start, length)
+
+
+def ownership_multi(pay, plan_d, nbw, tables):
+    """level_pass's in-pass launcher over the segments of `tables`: the
+    ownership witness of level_seg_hist."""
+    from lightgbm_torch.ops import payload_kernels as pk
+    return pk._launch_multi_hist("level_pass", "level_pass_hist_launch", pay,
+                                 plan_d, nbw, tables)
+
+
 def check_root_hist(pay, cpu, plan, nbw, n, label):
     """root_hist over lanes [0, n) of the payload `pay` (and its CPU copy):
     two launches bit-identical, bit-identical to the plain version on the
     CPU (planes and totals), planes equal to seg_hist's over the same lanes
-    (seg_hist runs payload_hist.cuh's ownership routine, an independent
-    implementation of the same contract). Returns (max abs err, kernel ms,
-    index_add_ ms, bound ms, bound_by), times median per call."""
+    (the same counting-sort routine over a segment) and to the ownership
+    routine's (ownership_hist, an independent implementation of the same
+    contract). Returns (max abs err, kernel ms, index_add_ ms, bound ms,
+    bound_by), times median per call."""
     import torch
     from lightgbm_torch.ops import payload_kernels as pk
     plan_c, plan_d = pk.plan_tensor(plan, "cpu"), pk.plan_tensor(plan,
@@ -434,13 +466,16 @@ def check_root_hist(pay, cpu, plan, nbw, n, label):
     k1 = pk.root_hist(pay, plan_d, nbw, n)
     k2 = pk.root_hist(pay, plan_d, nbw, n)
     seg = pk.seg_hist(pay, plan_d, nbw, 0, n)
+    own = ownership_hist(pay, plan_d, nbw, 0, n)
     torch.cuda.synchronize()
     _same("root_hist %s: two launches" % label, k1, k2)
     _same("root_hist %s: planes vs seg_hist over the same lanes" % label,
           k1[:2], seg)
+    _same("root_hist %s: planes vs the ownership routine over the same "
+          "lanes" % label, k1[:2], own)
     err = _same("root_hist %s vs the plain version on the CPU" % label, k1,
                 pk.root_hist_plain(cpu, plan_c, nbw, n))
-    del k1, k2, seg
+    del k1, k2, seg, own
     ms = device_ms(lambda: pk.root_hist(pay, plan_d, nbw, n), reps=5,
                    warmup=1)
     lib_ms = library_hist_segments(pay, plan, nbw, [(0, n)])
@@ -448,11 +483,24 @@ def check_root_hist(pay, cpu, plan, nbw, n, label):
     b_ms, b_by = bound_ms(n * (4 * nbw + 8) + 2 * G * 256 * 4 + 8,
                           2.0 * n * G)
     log("root_hist %s, %d lanes x %d groups: two launches bit-identical, "
-        "planes equal to seg_hist's, bit-identical to the plain version on "
+        "planes equal to seg_hist's and the ownership routine's, "
+        "bit-identical to the plain version on "
         "the CPU (planes and totals); median time per call: kernel %.3f ms, "
         "index_add_ %.3f ms; bound %.4f ms (%s)"
         % (label, n, G, ms, lib_ms, b_ms, b_by))
     return err, ms, lib_ms, b_ms, b_by
+
+
+# (start, length) of seg_hist's ragged checks: a short segment, zero
+# lanes, one lane, a tile less and more one lane, a row block and one
+# lane, 3 row blocks less 7 lanes (four teams per group at 28 groups), 7
+# (two) and 13 row blocks (one), and 19 row blocks (longer than 19 *
+# 16384 lanes), each from an unaligned lane
+SEG_CASES = [(12345, 8191), (5, 0), (777, 1), (13, 1023), (1029, 1025),
+             (3, 16385), (99, 3 * 16384 - 7), (11, 100_003), (7, 200_000),
+             (4097, 400_001)]
+# lengths of the small children timed against the ownership routine
+SMALL_CHILDREN = (1024, 8192, 16384)
 
 
 def phase_payload_kernels(inner, meta, gc, params):
@@ -494,7 +542,6 @@ def phase_payload_kernels(inner, meta, gc, params):
     one[:nbw, :n] = 0x07070707
     one_c = one.cpu()
     check_root_hist(one, one_c, plan, nbw, n, "every lane in bin 7")
-    del one, one_c
     nr = min(1_000_003, n - 5)
     k1 = pk.root_hist(pay, plan_d, nbw, nr)
     _same("root_hist ragged (%d lanes): two launches" % nr, k1,
@@ -511,28 +558,54 @@ def phase_payload_kernels(inner, meta, gc, params):
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib_ms})
 
-    # ---- seg_hist on a 1M-lane segment -------------------------------------
+    # ---- seg_hist on a 1M-lane segment, skewed, ragged and small ---------
     R = min(1_000_000, n - 777)
     args = (nbw, 777, R)
     k1 = pk.seg_hist(pay, plan_d, *args)
     k2 = pk.seg_hist(pay, plan_d, *args)
+    own = ownership_hist(pay, plan_d, *args)
     torch.cuda.synchronize()
     _same("seg_hist: two launches", k1, k2)
+    _same("seg_hist vs the ownership routine", k1, own)
     err = _same("seg_hist vs the plain version on the CPU", k1,
                 pk.seg_hist_plain(cpu, plan_c, *args))
-    err = max(err, _same("seg_hist ragged", pk.seg_hist(pay, plan_d, nbw,
-                                                         12345, 8191),
-                         pk.seg_hist_plain(cpu, plan_c, nbw, 12345, 8191)))
+    err = max(err, _same("seg_hist, every lane in bin 7",
+                         pk.seg_hist(one, plan_d, *args),
+                         pk.seg_hist_plain(one_c, plan_c, *args)))
+    del k1, k2, own, one_c
+    cases = [(st, ln) for st, ln in SEG_CASES if st + ln <= n]
+    for st, ln in cases:
+        err = max(err, _same("seg_hist, %d lanes from lane %d" % (ln, st),
+                             pk.seg_hist(pay, plan_d, nbw, st, ln),
+                             pk.seg_hist_plain(cpu, plan_c, nbw, st, ln)))
     ms = device_ms(lambda: pk.seg_hist(pay, plan_d, *args))
+    own_ms = device_ms(lambda: ownership_hist(pay, plan_d, *args))
     plain_ms = device_ms(lambda: pk.seg_hist_plain(pay, plan_d, *args),
                          reps=5)
     lib_ms = library_hist_segments(pay, plan, nbw, [(777, R)])
     b_ms, b_by = bound_ms(R * lane_bytes + plane_bytes, 2.0 * R * G)
     log("seg_hist, %d lanes from lane 777: two launches bit-identical, "
-        "bit-identical to the plain version on the CPU (and a ragged 8191-"
-        "lane segment); median time per call: kernel %.4f ms, plain %.4f "
-        "ms, index_add_ %.4f ms; bound %.4f ms (%s)"
-        % (R, ms, plain_ms, lib_ms, b_ms, b_by))
+        "equal to the ownership routine, bit-identical to the plain version "
+        "on the CPU (and on every lane in one bin, and on %d ragged "
+        "segments: (start, length) %s); median time per call: kernel %.4f "
+        "ms, ownership routine %.4f ms, plain %.4f ms, index_add_ %.4f ms; "
+        "bound %.4f ms (%s)" % (R, len(cases), cases, ms, own_ms, plain_ms,
+                                lib_ms, b_ms, b_by))
+    log("seg_hist, %d lanes, every lane in bin 7: kernel %.4f ms, ownership "
+        "routine %.4f ms, index_add_ %.4f ms" % (
+            R, device_ms(lambda: pk.seg_hist(one, plan_d, *args)),
+            device_ms(lambda: ownership_hist(one, plan_d, *args)),
+            library_hist_segments(one, plan, nbw, [(777, R)])))
+    del one
+    torch.cuda.empty_cache()
+    for ln in SMALL_CHILDREN:
+        sa = (nbw, 777, ln)
+        log("seg_hist, a small child of %d lanes from lane 777: kernel %.4f "
+            "ms, ownership routine %.4f ms, index_add_ %.4f ms; bound %.6f "
+            "ms" % (ln, device_ms(lambda: pk.seg_hist(pay, plan_d, *sa)),
+                    device_ms(lambda: ownership_hist(pay, plan_d, *sa)),
+                    library_hist_segments(pay, plan, nbw, [(777, ln)]),
+                    bound_ms(ln * lane_bytes + plane_bytes, 2.0 * ln * G)[0]))
     seg_rec = {"name": "seg_hist", "route": "cuda",
                "source": "lightgbm_torch/csrc/seg_hist.cu",
                "replaces": "lightgbm_tpu/ops/pallas_grow.py:866",
@@ -566,7 +639,21 @@ def phase_payload_kernels(inner, meta, gc, params):
     _same("split_pass: in-pass histogram", runs[2][2], p_hist)
     _same("split_pass: payload with the in-pass histogram", runs[2][0],
           runs[0][0])
-    del runs, sub
+    # seg_hist over the smaller child of the partitioned payload against
+    # the in-pass histogram (the ownership routine) of the same child
+    child = pk._child(scal, p_left)
+    _same("seg_hist over split_pass's smaller child vs split_pass's in-pass "
+          "histogram", pk.seg_hist(runs[2][0], plan_d, nbw, *child),
+          runs[2][2])
+    part1 = runs[0][0]
+    log("seg_hist over split_pass's smaller child (%d lanes from lane %d, "
+        "partitioned payload): equal to the in-pass histogram; kernel %.4f "
+        "ms, ownership routine %.4f ms, index_add_ %.4f ms" % (
+            child[1], child[0],
+            device_ms(lambda: pk.seg_hist(part1, plan_d, nbw, *child)),
+            device_ms(lambda: ownership_hist(part1, plan_d, nbw, *child)),
+            library_hist_segments(part1, plan, nbw, [child])))
+    del runs, sub, part1
     d = pay.clone()
     ms = device_ms(lambda: pk._launch_split(d, scal, wp_live))
     plain_ms = device_ms(lambda: pk.split_pass_plain(d, scal, plan_d, nbw,
@@ -641,18 +728,29 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     _same("level_pass: payload with the in-pass histograms", runs[2][0],
           runs[0][0])
     part = runs[0][0]
-    del runs, sub
+    del runs
     kids = pk.level_children(scal, p_left)
     small = sum(ln for _, ln in kids)
 
     # ---- level_seg_hist: the smaller children after the partition -----------
+    htab = pk._multi_hist_tables(kids, G, dev)
     k1 = pk.level_seg_hist(part, plan_d, nbw, kids)
     k2 = pk.level_seg_hist(part, plan_d, nbw, kids)
+    own = ownership_multi(part, plan_d, nbw, htab)
     torch.cuda.synchronize()
     _same("level_seg_hist: two launches", k1, k2)
+    _same("level_seg_hist vs the ownership routine over the same children",
+          k1, own)
     err_seg = _same("level_seg_hist vs the plain version on the CPU", k1,
                     p_hist)
-    del k1, k2, p_hist
+    # zero-length, one-lane and ragged segments in one table
+    odd = [(st, ln) for st, ln in SEG_CASES if st + ln <= n] + [(n - 1, 1),
+                                                                 (n, 0)]
+    err_seg = max(err_seg, _same(
+        "level_seg_hist over %s vs the plain version on the CPU" % odd,
+        pk.level_seg_hist(part, plan_d, nbw, odd),
+        pk.level_seg_hist_plain(sub, plan_c, nbw, odd)))
+    del k1, k2, own, p_hist, sub
 
     # ---- times ---------------------------------------------------------------
     tables = pk._level_tables(scal, dev)
@@ -676,9 +774,9 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
         "partitions %.4f ms, no single PyTorch call computes it; bound "
         "%.4f ms (%s)" % (S, n, small, lp_ms, lp_plain, len(rows), lp_split,
                           lp_bound, lp_by))
-    htab = pk._multi_hist_tables(kids, G, dev)
     ls_ms = device_ms(lambda: pk._launch_multi_hist(
         "level_seg_hist", "level_seg_hist_launch", part, plan_d, nbw, htab))
+    own_ms = device_ms(lambda: ownership_multi(part, plan_d, nbw, htab))
     ls_plain = device_ms(lambda: pk.level_seg_hist_plain(part, plan_d, nbw,
                                                          kids),
                          reps=3, warmup=1)
@@ -690,11 +788,13 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     ls_bound, ls_by = bound_ms(small * (4 * nbw + 8) + S * 2 * G * 256 * 4,
                                2.0 * small * G)
     log("level_seg_hist, %d smaller children, %d lanes: two launches "
-        "bit-identical, bit-identical to the plain version on the CPU; "
-        "median time per call: kernel %.4f ms, plain %.4f ms, %d seg_hist "
-        "launches %.4f ms, index_add_ %.4f ms; bound %.4f ms (%s)"
-        % (S, small, ls_ms, ls_plain, len(live), ls_split, ls_lib, ls_bound,
-           ls_by))
+        "bit-identical, equal to the ownership routine, bit-identical to "
+        "the plain version on the CPU (and on %d ragged, one-lane and "
+        "zero-length segments); median time per call: kernel %.4f ms, "
+        "ownership routine %.4f ms, plain %.4f ms, %d seg_hist launches "
+        "%.4f ms, index_add_ %.4f ms; bound %.4f ms (%s)"
+        % (S, small, len(odd), ls_ms, own_ms, ls_plain, len(live), ls_split,
+           ls_lib, ls_bound, ls_by))
 
     # ---- scan_pair at B = 256: both children of every slot -------------------
     both = [c for (s0, n_l), nl in zip(slots, p_left)
@@ -1004,19 +1104,80 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
     return counts
 
 
-# per path: the wrappers whose every launch runs one histogram partial
-# kernel, and that kernel's name prefixes
+# per path: each wrapper whose every launch runs one histogram partial
+# kernel, and that kernel's name prefix (the payload_ordered.cuh kernel is
+# a template on its caller's tag)
 PROFILED = {
-    "persist": (("root_hist", "seg_hist"),
-                ("root_hist_partial", "payload_hist_partial")),
-    "level": (("root_hist", "level_seg_hist", "seg_hist"),
-              ("root_hist_partial", "payload_hist_partial",
-               "payload_hist_multi_partial")),
-    "bundled": (("root_hist", "level_pass", "split_pass"),
-                ("root_hist_partial", "payload_hist_partial",
-                 "payload_hist_multi_partial")),
-    "v1": (("hist_window",), ("hist_window_partial",)),
+    "persist": (("root_hist", "payload_ordered_partial<RootHist"),
+                ("seg_hist", "payload_ordered_partial<SegHist")),
+    "level": (("root_hist", "payload_ordered_partial<RootHist"),
+              ("level_seg_hist", "payload_ordered_partial<LevelSegHist"),
+              ("seg_hist", "payload_ordered_partial<SegHist")),
+    "bundled": (("root_hist", "payload_ordered_partial<RootHist"),
+                ("level_pass", "payload_hist_multi_partial"),
+                ("split_pass", "payload_hist_partial")),
+    "v1": (("hist_window", "hist_window_partial"),),
 }
+
+
+def seg_hist_call_mix(bst):
+    """One more per-split iteration with every seg_hist call's (start,
+    length) recorded, then each call timed again, alone, on the grower's
+    payload as that iteration left it (each child's lanes are the same
+    rows, in leaf order): seg_hist against one index_add_ over the same
+    lanes, both on the card's clock behind a short sleep kernel, and the
+    call's bound. Logged in all and by the teams per group the kernel
+    takes at HIGGS's 28 groups on an H100 (up to 4 row blocks: four; 5 to
+    9: two; more: one)."""
+    import torch
+    import lightgbm_torch.ops.grow_persist as gp
+    from lightgbm_torch.ops import payload_kernels as pk
+    from lightgbm_torch.ops.histogram import row_blocks
+    calls, real = [], gp.seg_hist
+
+    def record(pay, plan, nbw, start, length):
+        calls.append((pay, plan, int(nbw), int(start), int(length)))
+        return real(pay, plan, nbw, start, length)
+
+    gp.seg_hist = record
+    try:
+        bst.update()
+        torch.cuda.synchronize()
+    finally:
+        gp.seg_hist = real
+    if not calls:
+        raise AssertionError("the per-split iteration made no seg_hist call")
+    classes = {}
+    for pay, plan, nbw, st, ln in calls:
+        k_ms = device_ms(lambda: pk.seg_hist(pay, plan, nbw, st, ln), reps=3,
+                         warmup=1, sleep_cycles=2_000_000)
+        idx, vals, out = index_add_inputs(pay, plan.tolist(), nbw,
+                                          [(st, ln)])
+        l_ms = device_ms(lambda: out.index_add_(0, idx, vals), reps=3,
+                         warmup=1, sleep_cycles=2_000_000)
+        del idx, vals, out
+        G = plan.shape[0]
+        b_ms = bound_ms(ln * (4 * nbw + 8) + 2 * G * 256 * 4,
+                        2.0 * ln * G)[0]
+        nb = row_blocks(ln, G)[0]
+        cls = ("up to 4 row blocks" if nb <= 4 else
+               "5 to 9 row blocks" if nb <= 9 else "10 or more row blocks")
+        for key in ("all", cls):
+            c = classes.setdefault(key, [0, 0, 0.0, 0.0, 0.0])
+            c[0] += 1
+            c[1] += ln
+            c[2] += k_ms
+            c[3] += l_ms
+            c[4] += b_ms
+    torch.cuda.empty_cache()
+    lens = sorted(c[4] for c in calls)
+    log("seg_hist over one per-split iteration's %d calls (lengths %d to "
+        "%d, median %d), each timed alone: %s" % (
+            len(calls), lens[0], lens[-1], lens[len(lens) // 2],
+            "; ".join("%s: %d calls, %d lanes, kernel %.4f ms (mean %.4f), "
+                      "index_add_ %.4f ms (mean %.4f), bound %.4f ms"
+                      % (key, n, lanes, k, k / n, li, li / n, b)
+                      for key, (n, lanes, k, li, b) in classes.items())))
 
 
 def phase_profile(bst, card, path):
@@ -1034,7 +1195,8 @@ def phase_profile(bst, card, path):
     torch.cuda.synchronize()
     wall_ms = (time.time() - t) * 1e3
     wrappers = _wrappers()
-    names, kernels = PROFILED[path]
+    names = tuple(w for w, _ in PROFILED[path])
+    kernels = tuple(k for _, k in PROFILED[path])
     before = sum(wrappers[k].launches for k in names)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1052,6 +1214,15 @@ def phase_profile(bst, card, path):
            " + ".join(names), 1 - busy / wall_ms, card))
     for ms, n, key in rows[:12]:
         log("profile %s:   %9.2f ms  %6d calls  %s" % (path, ms, n, key[:90]))
+    log("profile %s: histogram partials by wrapper: %s" % (path, ", ".join(
+        "%s %.2f ms in %d calls" % (
+            w, sum(ms for ms, _, key in rows
+                   if key.removeprefix("void ").startswith(k)),
+            sum(n for _, n, key in rows
+                if key.removeprefix("void ").startswith(k)))
+        for w, k in PROFILED[path])))
+    if path == "persist":
+        seg_hist_call_mix(bst)
 
 
 PARITY = (

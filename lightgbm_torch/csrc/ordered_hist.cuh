@@ -1,5 +1,6 @@
 // ordered_hist.cuh: the order-exact histogram of a tile of lanes by a
-// per-tile stable counting sort, shared by hist_window.cu and root_hist.cu.
+// per-tile stable counting sort, shared by hist_window.cu and the payload
+// histograms of payload_ordered.cuh (root_hist, seg_hist, level_seg_hist).
 //
 // Contract (the same arithmetic as ops/histogram.py:hist_window_plain and
 // ops/payload_kernels.py:seg_hist_plain, bit for bit): within a row block
@@ -28,15 +29,20 @@
 //   4. walk: each thread adds the slots of its two bins, in order, to its
 //      chains: the same additions in the same order as a loop over the
 //      lanes, so the sums are bit-identical to the plain version's.
+// oh_sort runs steps 1-3 for one team and oh_walk step 4, so that several
+// teams can sort consecutive tiles of one group at once and one of them
+// walk the sorted tiles in lane order; oh_tile runs all four for a team's
+// own tile.
 // Integer bookkeeping only, in shared memory; no float atomics. Work per
 // group is O(lanes): a few instructions per lane to rank and scatter it,
 // and one add in the walk. The kernels stage tile k + 1 with cp.async
 // while tile k is sorted and walked (two staging buffers), so the loads'
 // latency hides behind the sort.
 //
-// Grid shape: a segment has nblocks row blocks and G groups, so nblocks * G
-// (row block, group) units, each a serial pass over its row block. All of
-// them run in one wave: oh_groups_per_block picks K, the groups per block,
+// Grid shape (hist_window.cu; payload_ordered.cuh picks its own): a
+// segment has nblocks row blocks and G groups, so nblocks * G (row block,
+// group) units, each a serial pass over its row block. All of them run in
+// one wave: oh_groups_per_block picks K, the groups per block,
 // so that every multiprocessor holds at most one block (the units per
 // multiprocessor then differ by at most K; with K = 4 the 133 blocks of the
 // 10.5M-row HIGGS root would put two blocks on one of 132 multiprocessors,
@@ -171,21 +177,22 @@ static __device__ __forceinline__ void oh_chain(const float2* p, int n,
   }
 }
 
-// Add the staged tile of n lanes to the calling thread's chains:
-// acc = {grad, hess} of bin oh_bin0(team, tt), then of the bin after it.
+// Steps 1-3 for the calling thread's team: rank the staged tile of n
+// lanes into s.cnt[team], scatter their (grad, hess) into s.sorted[team]
+// by bin, and return where the calling thread's two bins, oh_bin0(rot,
+// tt) and the one after it, sit there: {first slot, count} of each.
 // bin_of(i) is the team's group's bin of lane i, below 2^nbits (nbits <=
 // 8); bins >= W, the lanes >= n, and every lane of a team whose group does
 // not exist (live is false) are left out. val[i] is lane i's (grad, hess).
-// The caller syncs between staging and this call; when it returns, every
-// thread is done reading the staged tile (the last barrier is before the
-// walk).
+// The caller syncs between staging and this call. When it returns, every
+// thread is done reading the staged tile and the scatter is complete
+// (its last barrier follows the scatter), and the counts are zero again
+// for the next tile.
 template <int K, class BinOf>
-static __device__ __forceinline__ void oh_tile(OhShared<K>& s,
-                                               const float2* val, int n,
-                                               int W, int nbits,
-                                               bool live, BinOf bin_of,
-                                               float (&acc)[4]) {
-  const int team = threadIdx.x / OH_TEAM;
+static __device__ __forceinline__ int4 oh_sort(OhShared<K>& s, int team,
+                                               int rot, const float2* val,
+                                               int n, int W, int nbits,
+                                               bool live, BinOf bin_of) {
   const int tt = threadIdx.x % OH_TEAM;
   const int warp = tt / 32;
   const int lane = tt % 32;
@@ -239,7 +246,7 @@ static __device__ __forceinline__ void oh_tile(OhShared<K>& s,
   // 2. offsets: this thread's two bins, scanned over the team (in thread
   //    order: any order of the bins will do, each bin's slots stay in
   //    lane order)
-  const int b0 = oh_bin0(team, tt);
+  const int b0 = oh_bin0(rot, tt);
   int t0 = 0, t1 = 0;
 #pragma unroll
   for (int w = 0; w < OH_WARPS; ++w) {
@@ -256,8 +263,7 @@ static __device__ __forceinline__ void oh_tile(OhShared<K>& s,
   __syncthreads();
   int start0 = incl - t0 - t1;
   for (int w = 0; w < warp; ++w) start0 += s.wsum[team][w];
-  const int start1 = start0 + t0;
-  int off0 = start0, off1 = start1;
+  int off0 = start0, off1 = start0 + t0;
 #pragma unroll
   for (int w = 0; w < OH_WARPS; ++w) {
     const int c0 = s.cnt[team][w][b0];
@@ -269,7 +275,9 @@ static __device__ __forceinline__ void oh_tile(OhShared<K>& s,
   }
   __syncthreads();
 
-  // 3. scatter every lane's (grad, hess) to its slot
+  // 3. scatter every lane's (grad, hess) to its slot, then clear the
+  //    counts of this thread's bins for the next tile (nobody reads them
+  //    after the barrier)
   float2* so = s.sorted[team];
 #pragma unroll
   for (int j = 0; j < OH_ROUNDS; ++j) {
@@ -279,19 +287,23 @@ static __device__ __forceinline__ void oh_tile(OhShared<K>& s,
     }
   }
   __syncthreads();
-
-  // 4. walk the two chains, in slot order: both together while both have
-  //    slots (two independent chains), then the longer one alone; then
-  //    clear the counts of this thread's bins for the next tile (nobody
-  //    reads them before it)
 #pragma unroll
   for (int w = 0; w < OH_WARPS; ++w) {
     s.cnt[team][w][b0] = 0;
     s.cnt[team][w][b0 + 1] = 0;
   }
-  const float2* p0 = so + start0;
-  const float2* p1 = so + start1;
-  const int both = min(t0, t1);
+  return make_int4(start0, t0, start0 + t0, t1);
+}
+
+// Step 4: add the slots of the calling thread's two bins in a sorted tile
+// (sp from oh_sort) to its chains, in slot order: acc = {grad, hess} of
+// the first bin, then of the second. Both together while both have slots
+// (two independent chains), then the longer one alone.
+static __device__ __forceinline__ void oh_walk(const float2* so, int4 sp,
+                                               float (&acc)[4]) {
+  const float2* p0 = so + sp.x;
+  const float2* p1 = so + sp.z;
+  const int both = min(sp.y, sp.w);
 #pragma unroll 4
   for (int k = 0; k < both; ++k) {
     const float2 a = p0[k];
@@ -301,16 +313,30 @@ static __device__ __forceinline__ void oh_tile(OhShared<K>& s,
     acc[2] += c.x;
     acc[3] += c.y;
   }
-  if (t0 > both)
-    oh_chain(p0 + both, t0 - both, acc[0], acc[1]);
+  if (sp.y > both)
+    oh_chain(p0 + both, sp.y - both, acc[0], acc[1]);
   else
-    oh_chain(p1 + both, t1 - both, acc[2], acc[3]);
+    oh_chain(p1 + both, sp.w - both, acc[2], acc[3]);
+}
+
+// One tile, sorted and walked by the calling thread's team alone:
+// acc = {grad, hess} of bin oh_bin0(team, tt), then of the bin after it
+// (oh_sort has the arguments).
+template <int K, class BinOf>
+static __device__ __forceinline__ void oh_tile(OhShared<K>& s,
+                                               const float2* val, int n,
+                                               int W, int nbits,
+                                               bool live, BinOf bin_of,
+                                               float (&acc)[4]) {
+  const int team = threadIdx.x / OH_TEAM;
+  oh_walk(s.sorted[team],
+          oh_sort(s, team, team, val, n, W, nbits, live, bin_of), acc);
 }
 
 // Groups per block: the fewest that put the launch's blocks in one wave
 // of at most one block per multiprocessor, capped at OH_MAX_GROUPS (past
 // that the launch takes several waves).
-static inline int oh_groups_per_block(int G, int nblocks) {
+static inline int oh_multiprocessors() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -319,6 +345,11 @@ static inline int oh_groups_per_block(int G, int nblocks) {
             cudaSuccess || sms < 1)
       sms = 132;
   }
+  return sms;
+}
+
+static inline int oh_groups_per_block(int G, int nblocks) {
+  const int sms = oh_multiprocessors();
   int k = 1;
   while (k < OH_MAX_GROUPS && k < G &&
          (long long)((G + k - 1) / k) * nblocks > sms)

@@ -1,7 +1,9 @@
-// payload_hist.cuh: the (grad, hess) histogram of a run of payload lanes,
-// shared by seg_hist.cu, split_pass.cu, level_pass.cu and level_seg_hist.cu.
-// root_hist.cu takes only payload_hist_reduce from it (its histogram is
-// ordered_hist.cuh's counting sort).
+// payload_hist.cuh: the contract of the payload histograms, the segment
+// table of the many-segment form and the reduces that add row blocks in
+// order (every payload histogram kernel), and the ownership routine that
+// only the in-pass histograms of split_pass.cu and level_pass.cu still
+// use. root_hist.cu, seg_hist.cu and level_seg_hist.cu build their
+// partials with payload_ordered.cuh (ordered_hist.cuh's counting sort).
 //
 // The payload is the persistent grower's [WPA, NP] int32 matrix
 // (lightgbm_torch/ops/payload.py): row r of lane i at pay[r * NP + i]. Group
@@ -20,15 +22,14 @@
 //   Optionally the f64 sums of grad and hess over the lanes, rounded to
 //   f32 at the end (payload_hist_reduce adds root_hist's).
 //
-// Design: ownership, the scheme hist_window.cu used before it moved to
-// ordered_hist.cuh, with the bin decode folded into the staging loop.
-// Block (row block, g) gives each of its 256 threads one bin of group g;
-// the block stages a tile of decoded bin bytes
-// and the grad/hess of each lane in shared memory, and every thread reads
-// the tile four lanes to a 32-bit word and compares them with its bin at
-// once (__vcmpeq4), adding the matching lanes' values in lane order. A
-// second kernel adds the row blocks in block order. No atomics: two
-// launches give bit-identical results.
+// The ownership routine (payload_hist_rows): block (row block, g) gives
+// each of its 256 threads one bin of group g; the block stages a tile of
+// decoded bin bytes and the grad/hess of each lane in shared memory, and
+// every thread reads the tile four lanes to a 32-bit word and compares
+// them with its bin at once (__vcmpeq4), adding the matching lanes' values
+// in lane order. It gives the same bits as payload_ordered.cuh, by another
+// route (chip_smoke.py holds the two equal). No atomics: two launches give
+// bit-identical results.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +127,20 @@ __global__ void payload_hist_reduce(const float* __restrict__ partial,
   }
 }
 
+// Queue the reduce of nblocks [2, G * 256] partials into out on `s`, and
+// of the f64 sums where sums_partial is not null.
+static inline int payload_hist_finish(const void* partial, int nblocks,
+                                      int G, void* out,
+                                      const void* sums_partial, void* sums,
+                                      cudaStream_t s) {
+  const long long cells2 = 2LL * G * PH_BINS;
+  payload_hist_reduce<<<(unsigned)((cells2 + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partial), nblocks, cells2,
+      static_cast<float*>(out), static_cast<const double*>(sums_partial),
+      static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
 // Launches the histogram of lanes [start, start + length) on `stream`.
 // `partial` is [nblocks, 2, G * 256] f32 scratch, or `out` itself when
 // nblocks == 1; `out` is [2, G * 256] f32. Returns cudaGetLastError()
@@ -144,14 +159,11 @@ static inline int payload_hist_run(const void* pay, long long np_,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (partial == out) return 0;
-  const long long cells2 = 2LL * G * PH_BINS;
-  payload_hist_reduce<<<(unsigned)((cells2 + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(partial), nblocks, cells2,
-      static_cast<float*>(out), nullptr, nullptr);
-  return (int)cudaGetLastError();
+  return payload_hist_finish(partial, nblocks, G, out, nullptr, nullptr, s);
 }
 
-// ---- many segments in one launch (level_seg_hist.cu, level_pass.cu) -------
+// ---- many segments in one launch (level_pass.cu; the table and the reduce
+// also level_seg_hist.cu) ----------------------------------------------------
 //
 // seg is [S, PH_SEG] int64 per segment: start lane, length, rows per block
 // and block count (ops/histogram.py:row_blocks of the length, so each
@@ -203,6 +215,19 @@ __global__ void payload_hist_multi_reduce(const float* __restrict__ partial,
   out[((long long)k * S + j) * cells + c] = acc;
 }
 
+// Queue the reduce of the segments' partials ([nblocks, 2, G * 256], each
+// segment's from its first block on) into out [2, S, G * 256] on `s`.
+static inline int payload_hist_multi_finish(const void* partial,
+                                            const void* seg, int S, int G,
+                                            void* out, cudaStream_t s) {
+  const long long cells = (long long)G * PH_BINS;
+  dim3 rgrid((unsigned)((cells + 255) / 256), S, 2);
+  payload_hist_multi_reduce<<<rgrid, 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<const long long*>(seg),
+      S, cells, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
 // Launches the histograms of S segments on `stream` (seg and slot_of_block
 // on the device, nblocks = the sum of the segments' block counts, each at
 // least 1). partial is [nblocks, 2, G * 256] f32 scratch, out
@@ -221,10 +246,5 @@ static inline int payload_hist_multi_run(const void* pay, long long np_,
       static_cast<const int*>(slot_of_block), static_cast<float*>(partial));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long cells = (long long)G * PH_BINS;
-  dim3 rgrid((unsigned)((cells + 255) / 256), S, 2);
-  payload_hist_multi_reduce<<<rgrid, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const long long*>(seg),
-      S, cells, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return payload_hist_multi_finish(partial, seg, S, G, out, s);
 }

@@ -358,7 +358,9 @@ def _multi_hist_tables(segs, G, device):
     """The device tables of a many-segment histogram launch: the [S, 5]
     int64 segment table of payload_hist.cuh (start, length, rows per
     block, block count, first block; each segment cut by row_blocks as
-    seg_hist cuts it) and the segment of every block."""
+    seg_hist cuts it) and the segment of every row block. The kernels'
+    blocks are (row block, group); the row blocks of a segment are
+    consecutive, in lane order."""
     cut = [row_blocks(ln, G) for _, ln in segs]
     nblk = np.array([nb for nb, _ in cut], np.int64)
     tab = np.stack([[st for st, _ in segs], [ln for _, ln in segs],
@@ -371,8 +373,8 @@ def _multi_hist_tables(segs, G, device):
 
 def _launch_multi_hist(lib_name, fn_name, pay, plan, nbw, tables):
     """Queue the histograms of the segments of `tables`
-    (:func:`_multi_hist_tables`) on the card (payload_hist.cuh's
-    multi-segment kernels): (grad planes, hess planes) [S, G * 256]."""
+    (:func:`_multi_hist_tables`) on the card: (grad planes, hess planes)
+    [S, G * 256]."""
     from .build import load
     fn = getattr(load(lib_name), fn_name)
     fn.argtypes = [_P, _LL, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P]

@@ -1,7 +1,7 @@
 """The chain contract of the port's histograms, on skewed inputs.
 
-hist_window (v1 grower) and the payload histograms (seg_hist, root_hist)
-sum in one order, which their CUDA kernels reproduce bit for bit: the
+hist_window (v1 grower) and the payload histograms (seg_hist, root_hist,
+level_seg_hist) sum in one order, which their CUDA kernels reproduce bit for bit: the
 segment is cut by ``ops/histogram.py:row_blocks``, within a block every
 (group, bin) is one f32 chain 0 + v[i1] + v[i2] + ... in lane order, and
 the blocks are added in block order. The reference here is that order
@@ -10,7 +10,9 @@ order) per row block, then the blocks added in order. The inputs are the
 ones that stress a counting-sort kernel: every lane in one bin, one heavy
 bin over a uniform tail, bins >= W (hist_window ignores them), nibble and
 byte groups of a payload packed by ``ops/payload.py``, a ragged start and
-lengths that span several row blocks. Equality is exact.
+lengths that span several row blocks, zero-length and one-lane segments.
+Equality is exact. The segment table of the many-segment launches is
+checked to cover every row block once, in order.
 """
 import numpy as np
 import pytest
@@ -19,7 +21,9 @@ import torch
 from lightgbm_torch.ops.histogram import hist_window_plain, row_blocks
 from lightgbm_torch.ops.payload import (_pack_payload, _payload_geometry,
                                         _payload_plan)
-from lightgbm_torch.ops.payload_kernels import (plan_tensor, root_hist_plain,
+from lightgbm_torch.ops.payload_kernels import (_multi_hist_tables,
+                                                level_seg_hist_plain,
+                                                plan_tensor, root_hist_plain,
                                                 seg_hist_plain)
 
 # payload group widths: byte groups (> 16 bins) and nibble groups (pairs
@@ -124,3 +128,66 @@ def test_payload_plain_chain_order(kind, rows, start, length):
     np.testing.assert_array_equal(
         sums.numpy(), np.array([grad.astype(np.float64).sum(),
                                 hess.astype(np.float64).sum()], np.float32))
+
+
+# level_seg_hist's segments: zero lanes at both ends of the payload, one
+# lane, a tile less and more one lane, a row block and one lane, and 3 row
+# blocks less 7 lanes, from unaligned starts
+LEVEL_SEGS = [(0, 0), (5, 1), (13, 1023), (1029, 1025), (3, 16_385),
+              (99, 3 * 16_384 - 7), (50_002, 1), (50_003, 0)]
+
+
+@pytest.mark.parametrize("kind", ["one_bin", "heavy", "uniform"])
+def test_level_seg_hist_plain_chain_order(kind):
+    """level_seg_hist_plain over zero-length, one-lane and row-block
+    spanning segments of a payload with nibble and byte groups: each
+    segment's planes are the chain reference of its lanes."""
+    rows = 50_003
+    rng = np.random.default_rng(len(kind))
+    bins = skewed_bins(kind, rows, WIDTHS, rng)
+    grad, hess = values(rows, rng)
+    pay, plan, nbw = payload(bins, grad, hess, WIDTHS)
+    G = len(WIDTHS)
+    assert row_blocks(3 * 16_384 - 7, G)[0] == 3
+    gh, hh = level_seg_hist_plain(pay, plan, nbw, LEVEL_SEGS)
+    assert gh.shape == hh.shape == (len(LEVEL_SEGS), G * 256)
+    for j, (start, length) in enumerate(LEVEL_SEGS):
+        ref = reference(bins, grad, hess, start, length, 256)
+        np.testing.assert_array_equal(gh[j].numpy(),
+                                      ref[:, :, 0].reshape(G * 256))
+        np.testing.assert_array_equal(hh[j].numpy(),
+                                      ref[:, :, 1].reshape(G * 256))
+        if length == 0:
+            assert not gh[j].any() and not hh[j].any()
+
+
+@pytest.mark.parametrize("G", [28, 8, 1])
+def test_multi_hist_tables_cover_each_row_block_once(G):
+    """The segment table and slot_of_block of a many-segment launch: the
+    row blocks of each segment are consecutive and cut as row_blocks cuts
+    it, so walking the kernels' flat grid (row block, then group fastest)
+    visits every (segment, row block, group) once, each segment's lanes in
+    order."""
+    segs = [(0, 0), (7, 1), (100, 16_384), (20_000, 16_385),
+            (40_000, 400_001), (500_000, 0), (500_001, 3 * 16_384 - 7)]
+    tab, sob = _multi_hist_tables(segs, G, "cpu")
+    tab, sob = tab.numpy(), sob.numpy()
+    for j, (start, length) in enumerate(segs):
+        nb, per = row_blocks(length, G)
+        assert list(tab[j]) == [start, length, per, nb,
+                                int(tab[:j, 3].sum())]
+    assert len(sob) == int(tab[:, 3].sum())
+    seen, lanes = [], {j: [] for j in range(len(segs))}
+    for x in range(len(sob) * G):
+        rb, g = divmod(x, G)
+        st, ln, per, nb, base = tab[sob[rb]]
+        b = rb - base
+        assert 0 <= b < nb
+        seen.append((int(sob[rb]), int(b), g))
+        if g == 0:
+            lanes[int(sob[rb])] += range(st + b * per,
+                                         st + min(ln, (b + 1) * per))
+    assert seen == sorted(set(seen))
+    assert len(seen) == int(tab[:, 3].sum()) * G
+    for j, (start, length) in enumerate(segs):
+        assert lanes[j] == list(range(start, start + length))
