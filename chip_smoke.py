@@ -13,22 +13,29 @@ exits non-zero without printing a result:
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
               scan_pair (the v1 grower), root_hist over all 10.5M payload
               lanes, seg_hist and split_pass on a 1M-lane payload segment
-              (the persistent grower), level_pass and level_seg_hist on the
-              10.5M lanes cut into 128 slots as at depth 8 (the level
-              phase), scan_pair at B = 256 on the level's children. Each is
-              held bit for bit against its plain version on the CPU, and
-              two launches must agree. The histogram kernels also run on
-              skewed inputs (every lane in one bin, bins >= W, ragged,
-              one-lane and zero-length segments; root_hist at the Expo
-              root too). root_hist, seg_hist and level_seg_hist share
-              one counting-sort routine, so each is also held equal to a
-              witness that does not: the in-pass launchers of split_pass
-              and level_pass (payload_hist.cuh's ownership routine) over
-              the same lanes. Times for the kernel, the plain version,
-              one PyTorch library call where one computes the same
-              function, the bound, the ownership routine for seg_hist
-              (also on small children) and level_seg_hist, and, for the
-              level kernels, the 128 per-split launches they replace;
+              from an unaligned lane (the persistent grower), level_pass
+              and level_seg_hist on the 10.5M lanes cut into 128 slots as
+              at depth 8 (the level phase), scan_pair at B = 256 on the
+              level's children. Each is held bit for bit against its plain
+              version on the CPU, and two launches must agree. The
+              partitions write the grower's other buffer (a second buffer
+              of random words, or the payload): the source and every lane
+              and row of the destination outside the segments must stay
+              as they were, and the consolidation (the copy of segments
+              from the second buffer back into the payload at the end of a
+              tree) is held against its plain version and one copy_ per
+              segment. The histogram kernels also run on skewed inputs
+              (every lane in one bin, bins >= W, ragged, one-lane and
+              zero-length segments; root_hist at the Expo root too).
+              root_hist, seg_hist, level_seg_hist and the partitions'
+              in-pass histograms share one counting-sort routine, so each
+              is also held equal to a witness that does not:
+              payload_hist.cuh's ownership routine over the same lanes.
+              Times for the kernel, the plain version, one PyTorch library
+              call where one computes the same function, the bound, the
+              ownership routine for seg_hist (also on small children) and
+              level_seg_hist, and, for the level kernels, the 128
+              per-split launches they replace;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255, binary) on cuda with the default
               routing, along three paths, each wrapper's launch count set
@@ -42,7 +49,8 @@ exits non-zero without printing a result:
                        bit;
               launch counts checked against the trees, splits, level
               programs and per-split splits grown (level programs at most
-              max_depth per tree), training logloss falling every
+              max_depth per tree) and, for the consolidation, the trees
+              with a leaf at an odd depth, training logloss falling every
               iteration, the device scores against the numpy walk (v1:
               1e-9; f32 payload scores: within 2 * (iterations + 1) f32 ulps
               of the largest score), and a model-text round trip;
@@ -65,7 +73,8 @@ kernels, the card's name and power limit, and the result line
 --expo-iters, --parity-rows, --expo-parity-rows, --parity-iters,
 --skip-train, --skip-parity); the defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
-(PERF.md's "where the time goes").
+(PERF.md's "where the time goes"), with the partition's stages (count,
+scan, scatter, consolidation; a copy-back kernel fails the run).
 """
 from __future__ import annotations
 
@@ -434,21 +443,42 @@ def library_hist_segments(pay, plan, nbw, segs):
 
 
 def ownership_hist(pay, plan_d, nbw, start, length):
-    """The histogram of lanes [start, start + length) by split_pass's
-    in-pass launcher, payload_hist.cuh's ownership routine: an independent
+    """The histogram of lanes [start, start + length) by payload_hist.cuh's
+    ownership routine (split_pass.cu's witness launcher): an independent
     implementation of the payload histograms' contract, the witness of the
     counting-sort kernels (not counted as a launch of any wrapper)."""
     from lightgbm_torch.ops import payload_kernels as pk
-    return pk._launch_hist("split_pass", "split_pass_hist_launch", pay,
+    return pk._launch_hist("split_pass", "ownership_hist_launch", pay,
                            plan_d, nbw, start, length)
 
 
 def ownership_multi(pay, plan_d, nbw, tables):
-    """level_pass's in-pass launcher over the segments of `tables`: the
-    ownership witness of level_seg_hist."""
+    """The ownership routine over the segments of `tables` (level_pass.cu's
+    witness launcher): the witness of level_seg_hist and of level_pass's
+    in-pass histograms."""
     from lightgbm_torch.ops import payload_kernels as pk
-    return pk._launch_multi_hist("level_pass", "level_pass_hist_launch", pay,
+    return pk._launch_multi_hist("level_pass", "ownership_multi_launch", pay,
                                  plan_d, nbw, tables)
+
+
+def sentinel(shape, dev, seed):
+    """A buffer of random words on the card, so that a lane a partition
+    must not write shows when it is written."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randint(0, 2 ** 31 - 1, shape, dtype=torch.int32,
+                         device=dev, generator=g)
+
+
+def same_outside(name, dst, dst0, segs, wp_live):
+    """Every lane of `dst` outside the (start, length) segments, and every
+    row from wp_live on, as in `dst0`."""
+    import torch
+    keep = torch.ones(dst.shape[1], dtype=torch.bool, device=dst.device)
+    for st, ln in segs:
+        keep[st:st + ln] = False
+    _same(name + ": lanes outside the segments", dst[:, keep], dst0[:, keep])
+    _same(name + ": rows from wp_live on", dst[wp_live:], dst0[wp_live:])
 
 
 def check_root_hist(pay, cpu, plan, nbw, n, label):
@@ -524,8 +554,9 @@ def phase_payload_kernels(inner, meta, gc, params):
     plan_c, plan_d = pk.plan_tensor(plan, "cpu"), pk.plan_tensor(plan, dev)
     wp_live = nbw + 5
     log("payload: [%d, %d] int32 (%.2f GB), %d bin words, packed and "
-        "uploaded in %.1f s" % (WPA, NP, WPA * NP * 4 / 1e9, nbw,
-                                time.time() - t))
+        "uploaded in %.1f s; the grower's second buffer: [%d, %d] int32, %d "
+        "bytes" % (WPA, NP, WPA * NP * 4 / 1e9, nbw, time.time() - t,
+                   wp_live, NP, wp_live * NP * 4))
     lane_bytes = 4 * nbw + 8             # bin words + grad + hess per lane
     plane_bytes = 2 * G * 256 * 4
     records = []
@@ -613,13 +644,15 @@ def phase_payload_kernels(inner, meta, gc, params):
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
 
-    # ---- split_pass on a 1M-lane segment -----------------------------------
+    # ---- split_pass on a 1M-lane segment, both directions -----------------
     scal = split_scalars(assets, inner, 0, 777, R, 1, 1)
-    end = 777 + R + 1024                 # the CPU copy covers the segment
+    end = 777 + R + 1024                 # the CPU copies cover the segment
+    seg = [(777, R)]
+    second0 = sentinel((wp_live, NP), dev, 7)
     runs = []
     for with_hist in (False, False, True):
-        d = pay.clone()
-        n_left, hist = pk.split_pass(d, scal, plan_d, nbw, wp_live,
+        d = second0.clone()
+        n_left, hist = pk.split_pass(pay, d, scal, plan_d, nbw, wp_live,
                                      with_hist)
         runs.append((d, n_left, hist))
     torch.cuda.synchronize()
@@ -627,65 +660,96 @@ def phase_payload_kernels(inner, meta, gc, params):
         raise AssertionError("split_pass: two launches give n_left %d and %d"
                              % (runs[0][1], runs[1][1]))
     _same("split_pass: two launches", runs[0][0], runs[1][0])
-    sub = cpu[:, :end].clone()
-    p_left, p_hist = pk.split_pass(sub, scal, plan_c, nbw, wp_live, True)
+    _same("split_pass: the source", pay, cpu)
+    same_outside("split_pass", runs[0][0], second0, seg, wp_live)
+    dst_c = second0[:, :end].cpu().contiguous()
+    p_left, p_hist = pk.split_pass(cpu[:, :end].clone(), dst_c, scal, plan_c,
+                                   nbw, wp_live, True)
     if p_left != runs[0][1]:
         raise AssertionError("split_pass: n_left %d on the card, %d in the "
                              "plain version" % (runs[0][1], p_left))
     _same("split_pass vs the plain version on the CPU", runs[0][0][:, :end],
-          sub)
-    _same("split_pass: lanes past the segment", runs[0][0][:, end:],
-          pay[:, end:])
-    _same("split_pass: in-pass histogram", runs[2][2], p_hist)
-    _same("split_pass: payload with the in-pass histogram", runs[2][0],
+          dst_c)
+    _same("split_pass: in-pass histogram vs the plain version on the CPU",
+          runs[2][2], p_hist)
+    _same("split_pass: destination with the in-pass histogram", runs[2][0],
           runs[0][0])
-    # seg_hist over the smaller child of the partitioned payload against
-    # the in-pass histogram (the ownership routine) of the same child
+    # the other direction, from a second buffer into a payload: its rows
+    # from wp_live on stay as they were
+    src_b, pay0_b = pay[:wp_live].clone(), sentinel(tuple(pay.shape), dev, 8)
+    dst_b = pay0_b.clone()
+    if pk.split_pass(src_b, dst_b, scal, plan_d, nbw, wp_live,
+                     False)[0] != p_left:
+        raise AssertionError("split_pass, second buffer to payload: n_left")
+    _same("split_pass, second buffer to payload vs payload to second buffer",
+          dst_b[:wp_live, 777:777 + R], runs[0][0][:, 777:777 + R])
+    _same("split_pass, second buffer to payload: the source", src_b,
+          pay[:wp_live])
+    same_outside("split_pass, second buffer to payload", dst_b, pay0_b, seg,
+                 wp_live)
+    del src_b, pay0_b, dst_b
+    # the in-pass histogram (the counting sort) of the smaller child against
+    # seg_hist and the ownership witness over the same lanes
+    part1 = runs[2][0]
     child = pk._child(scal, p_left)
-    _same("seg_hist over split_pass's smaller child vs split_pass's in-pass "
-          "histogram", pk.seg_hist(runs[2][0], plan_d, nbw, *child),
-          runs[2][2])
-    part1 = runs[0][0]
-    log("seg_hist over split_pass's smaller child (%d lanes from lane %d, "
-        "partitioned payload): equal to the in-pass histogram; kernel %.4f "
-        "ms, ownership routine %.4f ms, index_add_ %.4f ms" % (
-            child[1], child[0],
+    _same("split_pass's in-pass histogram vs seg_hist over the smaller "
+          "child", runs[2][2], pk.seg_hist(part1, plan_d, nbw, *child))
+    _same("split_pass's in-pass histogram vs the ownership routine",
+          runs[2][2], ownership_hist(part1, plan_d, nbw, *child))
+    hist_ms = device_ms(lambda: pk._launch_hist(
+        "split_pass", "split_pass_hist_launch", part1, plan_d, nbw, *child))
+    log("split_pass's in-pass histogram of the smaller child (%d lanes from "
+        "lane %d, partitioned buffer): equal to seg_hist's and the "
+        "ownership routine's; kernel %.4f ms, seg_hist %.4f ms, ownership "
+        "routine %.4f ms, index_add_ %.4f ms; bound %.4f ms" % (
+            child[1], child[0], hist_ms,
             device_ms(lambda: pk.seg_hist(part1, plan_d, nbw, *child)),
             device_ms(lambda: ownership_hist(part1, plan_d, nbw, *child)),
-            library_hist_segments(part1, plan, nbw, [child])))
-    del runs, sub, part1
-    d = pay.clone()
-    ms = device_ms(lambda: pk._launch_split(d, scal, wp_live))
-    plain_ms = device_ms(lambda: pk.split_pass_plain(d, scal, plan_d, nbw,
-                                                     wp_live, False), reps=5)
+            library_hist_segments(part1, plan, nbw, [child]),
+            bound_ms(child[1] * lane_bytes + plane_bytes,
+                     2.0 * child[1] * G)[0]))
+    del runs, dst_c, p_hist, part1
+    d = second0.clone()
+    ms = device_ms(lambda: pk._launch_split(pay, d, scal, wp_live))
+    plain_ms = device_ms(lambda: pk.split_pass_plain(pay, d, scal, plan_d,
+                                                     nbw, wp_live, False),
+                         reps=5)
     del d
     torch.cuda.empty_cache()
     b_ms, b_by = bound_ms(2.0 * wp_live * R * 4, float(R))
-    log("split_pass, %d lanes from lane 777 (n_left %d): two launches "
-        "bit-identical, bit-identical to the plain version on the CPU "
-        "(payload, n_left, the in-pass histogram), lanes past the segment "
+    log("split_pass, %d lanes from lane 777 (n_left %d) into a second "
+        "buffer and back: two launches bit-identical, bit-identical to the "
+        "plain version on the CPU (destination, n_left, the in-pass "
+        "histogram), the source and every lane and row outside the segment "
         "untouched; median time per call: kernel %.4f ms (the partition "
         "launches, without the wrapper's host sync for n_left), plain %.4f "
         "ms, no single PyTorch call computes it; bound %.4f ms (%s)"
         % (R, p_left, ms, plain_ms, b_ms, b_by))
-    records.append({"name": "split_pass", "route": "cuda",
-                    "source": "lightgbm_torch/csrc/split_pass.cu",
-                    "replaces": "lightgbm_tpu/ops/pallas_grow.py:292",
-                    "launches": 0, "max_abs_err": 0.0, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None})
+    sp_rec = {"name": "split_pass", "route": "cuda",
+              "source": "lightgbm_torch/csrc/split_pass.cu",
+              "replaces": "lightgbm_tpu/ops/pallas_grow.py:292",
+              "launches": 0, "max_abs_err": 0.0, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "library_ms": None, "inpass_hist_ms": hist_ms}
+    records.append(sp_rec)
     records.append(seg_rec)
-    records += phase_level_kernels(pay, cpu, assets, inner, meta, gc, params)
-    del pay, cpu, host, assets
+    level_recs, cons = phase_level_kernels(pay, cpu, second0, assets, inner,
+                                           meta, gc, params)
+    sp_rec.update(cons)
+    records += level_recs
+    del pay, cpu, host, assets, second0
     torch.cuda.empty_cache()
     return records
 
 
-def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
+def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
     """level_pass and level_seg_hist against their plain versions on the
     pristine HIGGS payload `pay` (and its CPU copy) cut into 128 slots, as
-    at depth 8 of a 256-leaf tree, and scan_pair at B = 256 on the level's
-    children; returns the two kernel records."""
+    at depth 8 of a 256-leaf tree (a lane left out between neighbours), the
+    level written into a copy of the second buffer `second0`; the
+    consolidation of half of the slots back into the payload; and scan_pair
+    at B = 256 on the level's children. Returns (the two kernel records,
+    the consolidation's numbers for split_pass's record)."""
     import torch
     from lightgbm_torch.ops import payload_kernels as pk
     from lightgbm_torch.ops.scan import (ScanLayout, pair_scalars, scan_pair,
@@ -696,7 +760,9 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     wp_live = nbw + 5
     S = 128
     rng = np.random.default_rng(2)
-    slots = random_segments(rng, n, S)
+    cover = random_segments(rng, n, S)
+    slots = [(st + 1, ln - 2) for st, ln in cover]
+    lanes = sum(ln for _, ln in slots)
     F = inner.num_features
     scal = np.array([split_scalars(assets, inner, j % F, s0, n_l, j % 2,
                                    (j // 2) % 2) + [0]
@@ -705,8 +771,8 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     # ---- level_pass: the partition of all 128 slots ------------------------
     runs = []
     for with_hist in (False, False, True):
-        d = pay.clone()
-        n_left, hist = pk.level_pass(d, scal, plan_d, nbw, wp_live,
+        d = second0.clone()
+        n_left, hist = pk.level_pass(pay, d, scal, plan_d, nbw, wp_live,
                                      with_hist)
         runs.append((d, n_left, hist))
     torch.cuda.synchronize()
@@ -714,9 +780,12 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
         raise AssertionError("level_pass: two launches give different "
                              "n_left")
     _same("level_pass: two launches", runs[0][0], runs[1][0])
+    _same("level_pass: the source", pay, cpu)
+    same_outside("level_pass", runs[0][0], second0, slots, wp_live)
     t = time.time()
-    sub = cpu.clone()
-    p_left, p_hist = pk.level_pass(sub, scal, plan_c, nbw, wp_live, True)
+    sub = second0.cpu()
+    p_left, p_hist = pk.level_pass(cpu, sub, scal, plan_c, nbw, wp_live,
+                                   True)
     log("level_pass: the plain version on the CPU took %.1f s" % (
         time.time() - t))
     if not np.array_equal(p_left, runs[0][1]):
@@ -725,9 +794,10 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     _same("level_pass vs the plain version on the CPU", runs[0][0], sub)
     _same("level_pass: in-pass histograms vs the plain version on the CPU",
           runs[2][2], p_hist)
-    _same("level_pass: payload with the in-pass histograms", runs[2][0],
+    _same("level_pass: destination with the in-pass histograms", runs[2][0],
           runs[0][0])
     part = runs[0][0]
+    inpass = runs[2][2]
     del runs
     kids = pk.level_children(scal, p_left)
     small = sum(ln for _, ln in kids)
@@ -741,6 +811,8 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     _same("level_seg_hist: two launches", k1, k2)
     _same("level_seg_hist vs the ownership routine over the same children",
           k1, own)
+    _same("level_pass's in-pass histograms vs level_seg_hist over the same "
+          "children", inpass, k1)
     err_seg = _same("level_seg_hist vs the plain version on the CPU", k1,
                     p_hist)
     # zero-length, one-lane and ragged segments in one table
@@ -750,30 +822,71 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
         "level_seg_hist over %s vs the plain version on the CPU" % odd,
         pk.level_seg_hist(part, plan_d, nbw, odd),
         pk.level_seg_hist_plain(sub, plan_c, nbw, odd)))
-    del k1, k2, own, p_hist, sub
+    del k1, k2, own, p_hist, inpass
+
+    # ---- consolidation: half of the slots back into the payload ------------
+    back = slots[1::2]
+    c_dev = pay.clone()
+    pk.consolidate(part, c_dev, back, wp_live)
+    ref = pay.clone()
+    for st, ln in back:
+        ref[:wp_live, st:st + ln].copy_(part[:, st:st + ln])
+    c_cpu = cpu.clone()
+    pk.consolidate_plain(sub, c_cpu, back, wp_live)
+    torch.cuda.synchronize()
+    _same("consolidate vs one copy_ per segment", c_dev, ref)
+    _same("consolidate vs the plain version on the CPU", c_dev, c_cpu)
+    _same("consolidate: the source", part, sub)
+    del c_dev, ref, c_cpu
+    # timed over every lane: the most a tree can consolidate
+    c_dst = pay.clone()
+    ctab = pk._segment_tables(cover, dev)
+    cons_ms = device_ms(lambda: pk._launch_consolidate(part, c_dst, wp_live,
+                                                       ctab))
+    cons_plain = device_ms(lambda: pk.consolidate_plain(part, c_dst, cover,
+                                                        wp_live), reps=5)
+    cons_lib = device_ms(lambda: c_dst[:wp_live, :n].copy_(part[:, :n]))
+    del c_dst
+    torch.cuda.empty_cache()
+    cons_bound, cons_by = bound_ms(2.0 * wp_live * n * 4, 0.0)
+    log("consolidate, %d of the slots' segments from the second buffer into "
+        "the payload: equal to one copy_ per segment and bit-identical to "
+        "the plain version on the CPU, the source untouched; over all %d "
+        "lanes in %d segments, median time per call: kernel %.4f ms, plain "
+        "%.4f ms, one copy_ %.4f ms; bound %.4f ms (%s)"
+        % (len(back), n, S, cons_ms, cons_plain, cons_lib, cons_bound,
+           cons_by))
+    cons = {"consolidate_ms": cons_ms, "consolidate_plain_ms": cons_plain,
+            "consolidate_bound_ms": cons_bound,
+            "consolidate_library_ms": cons_lib, "consolidate_launches": 0}
 
     # ---- times ---------------------------------------------------------------
     tables = pk._level_tables(scal, dev)
-    d = pay.clone()
-    lp_ms = device_ms(lambda: pk._launch_level(d, wp_live, tables))
-    lp_plain = device_ms(lambda: pk.level_pass_plain(d, scal, plan_d, nbw,
-                                                     wp_live, False),
+    d = second0.clone()
+    lp_ms = device_ms(lambda: pk._launch_level(pay, d, wp_live, tables))
+    lp_plain = device_ms(lambda: pk.level_pass_plain(pay, d, scal, plan_d,
+                                                     nbw, wp_live, False),
                          reps=3, warmup=1)
     rows = [r[:pk.N_SCALARS].tolist() for r in scal if r[pk.S_NL] > 0]
-    lp_split = device_ms(lambda: [pk._launch_split(d, r, wp_live)
+    lp_split = device_ms(lambda: [pk._launch_split(pay, d, r, wp_live)
                                   for r in rows], reps=5, warmup=1)
     del d
     torch.cuda.empty_cache()
-    lp_bound, lp_by = bound_ms(2.0 * wp_live * n * 4 + scal.size * 4,
-                               float(n))
-    log("level_pass, %d slots over %d lanes (smaller children %d lanes): "
-        "two launches bit-identical, bit-identical to the plain version on "
-        "the CPU (payload, n_left, the in-pass histograms); median time per "
-        "call: kernel %.4f ms (the partition launches, without the "
-        "wrapper's host sync for n_left), plain %.4f ms, %d split_pass "
-        "partitions %.4f ms, no single PyTorch call computes it; bound "
-        "%.4f ms (%s)" % (S, n, small, lp_ms, lp_plain, len(rows), lp_split,
-                          lp_bound, lp_by))
+    lp_bound, lp_by = bound_ms(2.0 * wp_live * lanes * 4 + scal.size * 4,
+                               float(lanes))
+    lpk = pk._multi_hist_tables(kids, G, dev)
+    lp_hist = device_ms(lambda: pk._launch_multi_hist(
+        "level_pass", "level_pass_hist_launch", part, plan_d, nbw, lpk))
+    log("level_pass, %d slots over %d lanes (smaller children %d lanes) "
+        "into a second buffer: two launches bit-identical, bit-identical to "
+        "the plain version on the CPU (destination, n_left, the in-pass "
+        "histograms), the source and every lane outside the segments "
+        "untouched; median time per call: kernel %.4f ms (the partition "
+        "launches, without the wrapper's host sync for n_left), plain %.4f "
+        "ms, %d split_pass partitions %.4f ms, no single PyTorch call "
+        "computes it; bound %.4f ms (%s); the in-pass histograms %.4f ms"
+        % (S, lanes, small, lp_ms, lp_plain, len(rows), lp_split, lp_bound,
+           lp_by, lp_hist))
     ls_ms = device_ms(lambda: pk._launch_multi_hist(
         "level_seg_hist", "level_seg_hist_launch", part, plan_d, nbw, htab))
     own_ms = device_ms(lambda: ownership_multi(part, plan_d, nbw, htab))
@@ -788,13 +901,13 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     ls_bound, ls_by = bound_ms(small * (4 * nbw + 8) + S * 2 * G * 256 * 4,
                                2.0 * small * G)
     log("level_seg_hist, %d smaller children, %d lanes: two launches "
-        "bit-identical, equal to the ownership routine, bit-identical to "
-        "the plain version on the CPU (and on %d ragged, one-lane and "
-        "zero-length segments); median time per call: kernel %.4f ms, "
-        "ownership routine %.4f ms, plain %.4f ms, %d seg_hist launches "
-        "%.4f ms, index_add_ %.4f ms; bound %.4f ms (%s)"
-        % (S, small, len(odd), ls_ms, own_ms, ls_plain, len(live), ls_split,
-           ls_lib, ls_bound, ls_by))
+        "bit-identical, equal to the ownership routine and to level_pass's "
+        "in-pass histograms, bit-identical to the plain version on the CPU "
+        "(and on %d ragged, one-lane and zero-length segments); median time "
+        "per call: kernel %.4f ms, ownership routine %.4f ms, plain %.4f ms, "
+        "%d seg_hist launches %.4f ms, index_add_ %.4f ms; bound %.4f ms "
+        "(%s)" % (S, small, len(odd), ls_ms, own_ms, ls_plain, len(live),
+                  ls_split, ls_lib, ls_bound, ls_by))
 
     # ---- scan_pair at B = 256: both children of every slot -------------------
     both = [c for (s0, n_l), nl in zip(slots, p_left)
@@ -822,7 +935,7 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
     log("scan_pair B=%d F=%d Wp=%d (the level's children): bit-identical to "
         "the plain version on the CPU; median time per call %.4f ms, bound "
         "%.6f ms" % (len(both), F, layout.Wp, sp_ms, sp_bound))
-    del part, gh, hh, args, k
+    del part, sub, gh, hh, args, k
     torch.cuda.empty_cache()
     return [
         {"name": "level_pass", "route": "cuda",
@@ -830,14 +943,14 @@ def phase_level_kernels(pay, cpu, assets, inner, meta, gc, params):
          "replaces": "lightgbm_tpu/ops/pallas_grow.py:543",
          "launches": 0, "max_abs_err": 0.0, "ms": lp_ms,
          "plain_ms": lp_plain, "bound_ms": lp_bound, "bound_by": lp_by,
-         "library_ms": None},
+         "library_ms": None, "inpass_hist_ms": lp_hist},
         {"name": "level_seg_hist", "route": "cuda",
          "source": "lightgbm_torch/csrc/level_seg_hist.cu",
          "replaces": "lightgbm_tpu/ops/pallas_grow.py:785",
          "launches": 0, "max_abs_err": err_seg, "ms": ls_ms,
          "plain_ms": ls_plain, "bound_ms": ls_bound, "bound_by": ls_by,
          "library_ms": ls_lib},
-    ]
+    ], cons
 
 
 def logloss(y, raw):
@@ -935,13 +1048,14 @@ def phase_block_kernels(inner, meta, gc, params):
 COMMON = {"objective": "binary", "max_bin": 255, "verbosity": -1}
 PATHS = {
     "persist": ({"num_leaves": 255, "tpu_persist_scan": "auto"},
-                ("root_hist", "split_pass", "seg_hist", "scan_pair"),
+                ("root_hist", "split_pass", "seg_hist", "scan_pair",
+                 "consolidate"),
                 ("hist_window", "level_pass", "level_seg_hist",
                  "scan_blocks")),
     "v1": ({"num_leaves": 255, "tpu_persist_scan": "false"},
            ("hist_window", "scan_pair"),
            ("root_hist", "split_pass", "seg_hist", "level_pass",
-            "level_seg_hist", "scan_blocks")),
+            "level_seg_hist", "scan_blocks", "consolidate")),
     "level": ({"num_leaves": 256, "max_depth": 8},
               ("root_hist", "level_pass", "level_seg_hist", "scan_pair"),
               ("hist_window", "scan_blocks")),
@@ -954,7 +1068,7 @@ PATHS = {
 def _wrappers():
     from lightgbm_torch.ops.block_scan import scan_blocks
     from lightgbm_torch.ops.histogram import hist_window
-    from lightgbm_torch.ops.payload_kernels import (level_pass,
+    from lightgbm_torch.ops.payload_kernels import (consolidate, level_pass,
                                                     level_seg_hist,
                                                     root_hist, seg_hist,
                                                     split_pass)
@@ -962,16 +1076,34 @@ def _wrappers():
     return {"hist_window": hist_window, "scan_pair": scan_pair,
             "root_hist": root_hist, "split_pass": split_pass,
             "seg_hist": seg_hist, "level_pass": level_pass,
-            "level_seg_hist": level_seg_hist, "scan_blocks": scan_blocks}
+            "level_seg_hist": level_seg_hist, "scan_blocks": scan_blocks,
+            "consolidate": consolidate}
+
+
+def has_odd_leaf(tree) -> bool:
+    """Does a leaf of `tree` lie at an odd depth? (A walk over the model's
+    child arrays, apart from the grower's own bookkeeping: such a leaf's
+    segment ends the tree in the second buffer.)"""
+    stack = [(0, 0)] if tree.num_leaves > 1 else []
+    while stack:
+        node, depth = stack.pop()
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child < 0:
+                if depth % 2 == 0:
+                    return True
+            else:
+                stack.append((child, depth + 1))
+    return False
 
 
 def expected_launches(bst, trees):
     """Each wrapper's launches for the trees of `bst`: v1 scans and
     histograms once per node; the persistent grower runs root_hist per
     tree, one level_pass (level_seg_hist when G > 20) and one scan per
-    level program, and one split_pass (seg_hist when G > 20) and one scan
-    per split of its per-split loop. Returns (counts, per-tree (level
-    programs, per-split splits))."""
+    level program, one split_pass (seg_hist when G > 20) and one scan per
+    split of its per-split loop, and one consolidate per tree with a leaf
+    at an odd depth. Returns (counts, per-tree (level programs, per-split
+    splits))."""
     nodes = sum(t.num_leaves for t in trees)
     if not bst._booster.use_persist:
         return {"hist_window": nodes, "scan_pair": nodes}, []
@@ -986,7 +1118,8 @@ def expected_launches(bst, trees):
     scan = "scan_blocks" if gr.blocks is not None else "scan_pair"
     return {"root_hist": len(trees), "level_pass": lv, "split_pass": fb,
             "level_seg_hist": lv if sep else 0, "seg_hist": fb if sep else 0,
-            scan: len(trees) + lv + fb}, stats
+            scan: len(trees) + lv + fb,
+            "consolidate": sum(has_odd_leaf(t) for t in trees)}, stats
 
 
 WALK_ROWS = 1_000_000     # rows the numpy walk checks (it walks ~1M rows/s)
@@ -1043,6 +1176,10 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
                              "all %s" % (path, bad, counts))
     log("train %s: launches %s (trees %d, splits %d)"
         % (path, counts, len(trees), sum(splits)))
+    if bst._booster.use_persist:
+        sec = bst._booster.tree_learner._persist_gr.second
+        log("train %s: the second payload buffer [%d, %d] int32, %d bytes"
+            % (path, sec.shape[0], sec.shape[1], sec.numel() * 4))
     if path in ("level", "bundled"):
         md = PATHS[path][0]["max_depth"]
         if any(not 0 < a <= md for a, _ in stats):
@@ -1114,16 +1251,23 @@ PROFILED = {
               ("level_seg_hist", "payload_ordered_partial<LevelSegHist"),
               ("seg_hist", "payload_ordered_partial<SegHist")),
     "bundled": (("root_hist", "payload_ordered_partial<RootHist"),
-                ("level_pass", "payload_hist_multi_partial"),
-                ("split_pass", "payload_hist_partial")),
+                ("level_pass", "payload_ordered_partial<LevelPassHist"),
+                ("split_pass", "payload_ordered_partial<SplitPassHist")),
     "v1": (("hist_window", "hist_window_partial"),),
 }
 
 
+# the partition's kernels: count, scan and scatter of split_pass and
+# level_pass, and the end-of-tree consolidation
+PARTITION_STAGES = ("split_count", "split_scan", "split_scatter",
+                    "level_count", "level_scan", "level_scatter",
+                    "consolidate_copy")
+
+
 def seg_hist_call_mix(bst):
     """One more per-split iteration with every seg_hist call's (start,
-    length) recorded, then each call timed again, alone, on the grower's
-    payload as that iteration left it (each child's lanes are the same
+    length) recorded, then each call timed again, alone, on the buffer it
+    read, as that iteration left it (each child's lanes hold the same
     rows, in leaf order): seg_hist against one index_add_ over the same
     lanes, both on the card's clock behind a short sleep kernel, and the
     call's bound. Logged in all and by the teams per group the kernel
@@ -1214,6 +1358,15 @@ def phase_profile(bst, card, path):
            " + ".join(names), 1 - busy / wall_ms, card))
     for ms, n, key in rows[:12]:
         log("profile %s:   %9.2f ms  %6d calls  %s" % (path, ms, n, key[:90]))
+    log("profile %s: partition stages: %s" % (path, ", ".join(
+        "%s %.2f ms in %d calls" % (
+            k, sum(ms for ms, _, key in rows
+                   if key.removeprefix("void ").startswith(k + "(")),
+            sum(n for _, n, key in rows
+                if key.removeprefix("void ").startswith(k + "(")))
+        for k in PARTITION_STAGES)))
+    if any("copy_back" in key for _, _, key in rows):
+        raise AssertionError("profile %s: a copy-back kernel ran" % path)
     log("profile %s: histogram partials by wrapper: %s" % (path, ", ".join(
         "%s %.2f ms in %d calls" % (
             w, sum(ms for ms, _, key in rows
@@ -1375,6 +1528,8 @@ def main() -> int:
         for rec in kernels:
             rec["launches"] = runs[serves.get(rec["name"], "persist")][
                 rec["name"]]
+            if "consolidate_launches" in rec:
+                rec["consolidate_launches"] = runs["persist"]["consolidate"]
     del X, y, ds, inner
     if not args.skip_parity:
         data = {"higgs": make_higgs_like(args.parity_rows, seed=11),

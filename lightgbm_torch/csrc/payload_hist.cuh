@@ -1,9 +1,13 @@
 // payload_hist.cuh: the contract of the payload histograms, the segment
 // table of the many-segment form and the reduces that add row blocks in
-// order (every payload histogram kernel), and the ownership routine that
-// only the in-pass histograms of split_pass.cu and level_pass.cu still
-// use. root_hist.cu, seg_hist.cu and level_seg_hist.cu build their
-// partials with payload_ordered.cuh (ordered_hist.cuh's counting sort).
+// order (every payload histogram kernel), and the ownership routine, which
+// is now the witness only. Every payload histogram on the grower's path
+// (root_hist.cu, seg_hist.cu, level_seg_hist.cu and the in-pass histograms
+// of split_pass.cu and level_pass.cu) builds its partials with
+// payload_ordered.cuh (ordered_hist.cuh's counting sort). The ownership
+// routine runs only through ownership_hist_launch (split_pass.cu) and
+// ownership_multi_launch (level_pass.cu), which chip_smoke.py and
+// tests/test_torch_hist_cuda.py hold the counting-sort kernels against.
 //
 // The payload is the persistent grower's [WPA, NP] int32 matrix
 // (lightgbm_torch/ops/payload.py): row r of lane i at pay[r * NP + i]. Group
@@ -162,8 +166,8 @@ static inline int payload_hist_run(const void* pay, long long np_,
   return payload_hist_finish(partial, nblocks, G, out, nullptr, nullptr, s);
 }
 
-// ---- many segments in one launch (level_pass.cu; the table and the reduce
-// also level_seg_hist.cu) ----------------------------------------------------
+// ---- many segments in one launch (the table and the reduce:
+// level_seg_hist.cu and level_pass.cu; the partial kernel: the witness) -----
 //
 // seg is [S, PH_SEG] int64 per segment: start lane, length, rows per block
 // and block count (ops/histogram.py:row_blocks of the length, so each

@@ -1,4 +1,5 @@
-// split_common.cuh: the split decision of one payload lane, shared by
+// split_common.cuh: the split decision of one payload lane, the stable
+// destination of a lane and the scan of the tile counts, shared by
 // split_pass.cu and level_pass.cu.
 //
 // A split's scalars are the S_* slots of lightgbm_tpu/ops/pallas_grow.py:
@@ -66,4 +67,30 @@ static __device__ int sp_scan_tiles(const int* __restrict__ tile_left,
     __syncthreads();
   }
   return *carry_s;
+}
+
+// The destination, relative to the segment's start, of this thread's lane
+// in the stable partition: left lanes first, then right ones, each side in
+// lane order. `off` is the tile's exclusive left offset (the left lanes of
+// the segment's earlier tiles), `base` the tile's first lane in the
+// segment. Every earlier tile of the segment is full, so they hold
+// (base - off) right lanes. Called by every thread of the block (ballots
+// and barriers); wl is the block's shared int[SP_WARPS].
+static __device__ __forceinline__ long long sp_destination(
+    bool gl, int* wl, long long off, long long base, long long n_left) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned bal = __ballot_sync(0xffffffffu, gl);
+  if (lane == 0) wl[warp] = __popc(bal);
+  __syncthreads();
+  if (t == 0) {
+    int c = 0;
+    for (int w = 0; w < SP_WARPS; ++w) {
+      const int x = wl[w];
+      wl[w] = c;
+      c += x;
+    }
+  }
+  __syncthreads();
+  const long long left_before = wl[warp] + __popc(bal & ((1u << lane) - 1u));
+  return gl ? off + left_before : n_left + (base - off) + (t - left_before);
 }

@@ -8,11 +8,12 @@ per-row gather or scatter runs between iterations:
 
   * the root: one ``root_hist`` launch (histogram + grad/hess totals) and
     one ``scan_pair`` launch (the root's best split);
-  * per split: one ``split_pass`` launch partitions the leaf's segment in
-    place and returns the exact n_left; the smaller child's histogram comes
-    from ``seg_hist`` over its segment (G > SEG_HIST_MIN_GROUPS) or from
-    ``split_pass`` itself (G <= SEG_HIST_MIN_GROUPS); the larger child is
-    the parent minus it; one ``scan_pair`` launch scans both children;
+  * per split: one ``split_pass`` launch partitions the leaf's segment
+    into the other payload buffer (below) and returns the exact n_left; the
+    smaller child's histogram comes from ``seg_hist`` over its segment
+    (G > SEG_HIST_MIN_GROUPS) or from ``split_pass`` itself
+    (G <= SEG_HIST_MIN_GROUPS); the larger child is the parent minus it; one
+    ``scan_pair`` launch scans both children;
   * histograms stay in the padded [G * 256] group-plane layout end to end;
     feature f's window sits at group_of[f] * 256 + ls[f] (``pad_meta`` at
     grow_persist.py:873-882);
@@ -20,6 +21,21 @@ per-row gather or scatter runs between iterations:
     the label and score rows (:func:`PersistGrower.fill_grad`), a tree's
     outputs are added to its leaves' segments (:meth:`apply_scores`), and
     scores return to row order only when read (:meth:`finalize_scores`).
+
+Two payload buffers. The TPU kernels partition a segment in place; the
+port's partition kernels read a segment from one buffer and write both
+children to the other at the same lanes, with no scratch and no copy back.
+Buffer 0 is the payload itself (the carry); buffer 1 is a second int32
+matrix of the payload's ``wp_live`` moving rows and its lane stride,
+allocated once per grower (``wp_live * NP * 4`` bytes; rows past
+``wp_live`` never move). A leaf at depth d has been partitioned d times,
+so its segment lives in buffer d % 2: a split reads buffer depth % 2 and
+writes buffer 1 - depth % 2, and the histograms of the children read the
+buffer they were written to. At the end of :meth:`PersistGrower.grow` one
+``consolidate`` launch copies every odd-depth leaf's segment back into
+buffer 0, so the payload is leaf-partitioned exactly as an in-place stable
+partition would leave it, and ``apply_scores``, ``fill_grad``,
+``finalize_scores`` and the next tree's ``root_hist`` see one payload.
 
 The level phase (make_persist_grower's level program, :1295-1527) runs
 first where :func:`can_level_grow` holds (``max_depth`` in [1, 16]): while
@@ -60,11 +76,12 @@ from .grow import TreeArrays, _empty_arrays, assemble, scan_children
 from .payload import PersistAssets, payload_weight_row
 from .payload_kernels import (HIST_W, N_SCALARS, S_DB, S_DL, S_LE, S_LS,
                               S_MASK, S_MF, S_MT, S_NB, S_NCH, S_NL, S_S0,
-                              S_SH, S_SMALL_L, S_THR, S_WG, level_children,
-                              level_pass, level_seg_hist, plan_tensor,
-                              root_hist, seg_hist, split_pass)
+                              S_SH, S_SMALL_L, S_THR, S_WG, consolidate,
+                              level_children, level_pass, level_seg_hist,
+                              plan_tensor, root_hist, seg_hist, split_pass)
 from .scan import ScanLayout, pair_scalars
 from .split import K_MIN_SCORE, SplitCandidate, leaf_output_unconstrained
+from ..utils.log import LightGBMError
 
 F32 = np.float32
 
@@ -82,6 +99,22 @@ def can_level_grow(gc) -> bool:
     max_depth to size the level's slots, and trees of at least 4 leaves."""
     return 1 <= int(gc.max_depth) <= LEVEL_MAX_DEPTH \
         and int(gc.num_leaves) >= 4
+
+
+def level_buffers(bufs, depths):
+    """(src, dst) of a level program whose slots are at `depths`: the
+    buffer of their depth's parity and the other one. Every slot of a level
+    program has one depth (the no-bind certificate admits every
+    positive-gain leaf of the frontier, and a leaf that is not split never
+    gains again); a mixed table raises rather than choosing a buffer per
+    slot."""
+    depths = np.asarray(depths)
+    if len(depths) == 0 or np.any(depths != depths[0]):
+        raise LightGBMError("level program: slots at depths %s; all slots "
+                            "of a level must share one depth (one source "
+                            "buffer)" % sorted(set(depths.tolist())))
+    p = int(depths[0]) % 2
+    return bufs[p], bufs[1 - p]
 
 
 class LeafState(NamedTuple):
@@ -129,6 +162,10 @@ class PersistGrower:
         self.s_maxl = min(1 << max(int(gc.max_depth) - 1, 0),
                           gc.num_leaves - 1)
         self.grow_stats = []
+        # buffer 1 of the depth-parity partition: the wp_live moving rows
+        # at the payload's lane stride
+        self.second = torch.zeros((self.wp_live, assets.geometry[1]),
+                                  dtype=torch.int32, device=self.device)
 
     # ---- payload <-> row order ---------------------------------------------
     def _f32_row(self, pay, r):
@@ -235,12 +272,16 @@ class PersistGrower:
                         self.gc.max_depth)
 
     def grow(self, pay, feature_mask):
-        """Grow one tree on the payload (partitioned in place). Returns
-        (LeafState, split records as a dict of [L-1] arrays, num_leaves)."""
+        """Grow one tree on the payload. The splits move segments between
+        the payload and the second buffer by depth parity; the last step
+        brings the odd-depth leaves back, so the payload ends partitioned
+        by leaf. Returns (LeafState, split records as a dict of [L-1]
+        arrays, num_leaves)."""
         gc, params, meta = self.gc, self.params, self.meta
         L, n, G, nbw = gc.num_leaves, self.n, self.G, self.nbw
         md = int(gc.max_depth)
         dev = pay.device
+        bufs = (pay, self.second)
         l2 = F32(params.lambda_l2)
         tree = {k: v for k, v in _empty_arrays(L).items()
                 if not k.startswith("leaf_")}             # split records
@@ -331,10 +372,11 @@ class PersistGrower:
                                            int(st.nrows[l]), sl) + [0]
                              for l, c, sl in zip(slots, cands, small_l)],
                             np.int64)
-            n_lefts, small = level_pass(pay, scal, self.plan, nbw,
+            src, dst = level_buffers(bufs, st.depth[slots])
+            n_lefts, small = level_pass(src, dst, scal, self.plan, nbw,
                                         self.wp_live, self.inpass_hist)
             if small is None:
-                small = level_seg_hist(pay, self.plan, nbw,
+                small = level_seg_hist(dst, self.plan, nbw,
                                        level_children(scal, n_lefts))
             rows = torch.as_tensor(slots, device=dev)
             new = torch.arange(s, s + cntp, device=dev)
@@ -370,10 +412,12 @@ class PersistGrower:
             s0, n_l = int(st.start[l]), int(st.nrows[l])
             smaller_is_left = cand.left_count <= cand.right_count
             scal = self._scalars(cand, s0, n_l, smaller_is_left)
-            n_left, small = split_pass(pay, scal, self.plan, nbw,
+            p = int(st.depth[l]) % 2
+            dst = bufs[1 - p]
+            n_left, small = split_pass(bufs[p], dst, scal, self.plan, nbw,
                                        self.wp_live, self.inpass_hist)
             if small is None:
-                small = seg_hist(pay, self.plan, nbw,
+                small = seg_hist(dst, self.plan, nbw,
                                  s0 if smaller_is_left else s0 + n_left,
                                  n_left if smaller_is_left else n_l - n_left)
             big_g, big_h = gh[l] - small[0], hh[l] - small[1]
@@ -391,6 +435,10 @@ class PersistGrower:
             best[l], best[s] = cand_l, cand_r
             best_gain[l], best_gain[s] = cand_l.gain, cand_r.gain
             s += 1
+        odd = [(int(st.start[k]), int(st.nrows[k])) for k in range(s)
+               if st.depth[k] % 2 and st.nrows[k] > 0]
+        if odd:
+            consolidate(self.second, pay, odd, self.wp_live)
         self.grow_stats.append((levels, s - s_level))
         return st, tree, s
 

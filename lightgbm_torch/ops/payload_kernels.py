@@ -9,15 +9,19 @@ its plain PyTorch version:
   * :func:`root_hist` (``make_root_hist``:944 -> ``csrc/root_hist.cu``):
     the histogram of lanes [0, n) and the grad/hess totals;
   * :func:`split_pass` (``make_split_pass``:292 -> ``csrc/split_pass.cu``):
-    the stable partition of one leaf's segment, its n_left and, where the
-    grower asks for it, the smaller child's histogram;
+    the stable partition of one leaf's segment from one payload buffer into
+    the other, its n_left and, where the grower asks for it, the smaller
+    child's histogram;
   * :func:`seg_hist` (``make_seg_hist``:866 -> ``csrc/seg_hist.cu``): the
     histogram of one contiguous segment;
   * :func:`level_pass` (``make_level_pass``:543 -> ``csrc/level_pass.cu``):
     split_pass for every splitting leaf of a tree level at once, each slot's
     scalars one row of an [S, 16] matrix;
   * :func:`level_seg_hist` (``make_level_seg_hist``:785 ->
-    ``csrc/level_seg_hist.cu``): seg_hist of S segments at once.
+    ``csrc/level_seg_hist.cu``): seg_hist of S segments at once;
+  * :func:`consolidate` (in ``csrc/split_pass.cu``; no TPU counterpart, the
+    TPU kernels partition in place): the copy of the segments that a tree
+    left in the second buffer back into the payload.
 
 The payload is the [WPA, NP] int32 matrix of ops/payload.py. Histograms are
 two f32 planes of [G * 256]: group g's bin b at g * 256 + b, the layout of
@@ -30,9 +34,12 @@ grower's ``hist_window`` histogram of the same rows.
 
 Each wrapper launches its CUDA kernel for a payload on the card and takes
 the plain version for a payload on the CPU; nothing else. A tensor
-elsewhere raises, and a failed build or launch raises. ``split_pass``
-updates the payload in place on both devices (the TPU kernel aliases its
-payload input to its output the same way).
+elsewhere raises, and a failed build or launch raises. ``split_pass`` and
+``level_pass`` read their segments from one buffer (``src``) and write the
+partitioned segments to the other (``dst``) at the same lanes; ``src`` is
+not written. The grower keeps the two buffers (ops/grow_persist.py: a leaf
+at depth d lives in buffer d % 2). The TPU kernels partition in place
+instead, aliasing their payload input to their output.
 """
 from __future__ import annotations
 
@@ -127,24 +134,33 @@ def _child(scal, n_left: int):
     return s0 + n_left, n_l - n_left
 
 
-def split_pass_plain(pay: torch.Tensor, scal, plan: torch.Tensor, nbw: int,
-                     wp_live: int, with_hist: bool):
-    """Partition the segment of `scal` in place (rows < wp_live, left lanes
-    first, each side in its old order) in plain PyTorch. Returns (n_left,
-    the smaller child's (grad, hess) planes or None)."""
+def split_pass_plain(src: torch.Tensor, dst: torch.Tensor, scal,
+                     plan: torch.Tensor, nbw: int, wp_live: int,
+                     with_hist: bool):
+    """Partition the segment of `scal` from `src` into `dst` at the same
+    lanes (rows < wp_live, left lanes first, each side in its old order) in
+    plain PyTorch; `src` is not written. Returns (n_left, the smaller
+    child's (grad, hess) planes in `dst` or None)."""
     s0, n_l = scal[S_S0], scal[S_NL]
     n_left = 0
     if n_l > 0:
-        go_left = go_left_plain(pay[scal[S_WG], s0:s0 + n_l], scal)
+        go_left = go_left_plain(src[scal[S_WG], s0:s0 + n_l], scal)
         left = torch.nonzero(go_left).squeeze(1)
         order = torch.cat([left, torch.nonzero(~go_left).squeeze(1)])
-        seg = pay[:wp_live, s0:s0 + n_l]
-        pay[:wp_live, s0:s0 + n_l] = seg[:, order]
+        dst[:wp_live, s0:s0 + n_l] = src[:wp_live, s0:s0 + n_l][:, order]
         n_left = int(left.numel())
     hist = None
     if with_hist:
-        hist = seg_hist_plain(pay, plan, nbw, *_child(scal, n_left))
+        hist = seg_hist_plain(dst, plan, nbw, *_child(scal, n_left))
     return n_left, hist
+
+
+def consolidate_plain(src: torch.Tensor, dst: torch.Tensor, segs,
+                      wp_live: int) -> None:
+    """Copy rows < wp_live of every (start, length) segment of `segs` from
+    `src` to `dst`, in plain PyTorch."""
+    for st, ln in segs:
+        dst[:wp_live, st:st + ln] = src[:wp_live, st:st + ln]
 
 
 # ---- wrappers -------------------------------------------------------------
@@ -170,6 +186,31 @@ def _check(name, pay, plan, nbw, lanes):
                             % (name, start, start + length, pay.shape[1]))
     if pay.device.type not in ("cpu", "cuda"):
         raise LightGBMError("%s: no kernel for device %s" % (name, pay.device))
+
+
+def _check_pair(name, src, dst, wp_live):
+    """The two buffers of a partition: contiguous 2-D int32, the same
+    device and lane stride, at least wp_live rows each, and not the same
+    memory."""
+    for what, t in (("src", src), ("dst", dst)):
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+            raise LightGBMError("%s: %s must be a contiguous 2-D int32 "
+                                "tensor, got %s %s" % (name, what,
+                                                       tuple(t.shape),
+                                                       t.dtype))
+    if dst.device != src.device or dst.shape[1] != src.shape[1]:
+        raise LightGBMError("%s: src %s on %s and dst %s on %s differ in "
+                            "device or lanes" % (name, tuple(src.shape),
+                                                 src.device, tuple(dst.shape),
+                                                 dst.device))
+    if not wp_live <= min(src.shape[0], dst.shape[0]):
+        raise LightGBMError("%s: wp_live=%d rows, src has %d and dst %d"
+                            % (name, wp_live, src.shape[0], dst.shape[0]))
+    if src.device.type != "meta" and \
+            src.untyped_storage().data_ptr() == \
+            dst.untyped_storage().data_ptr():
+        raise LightGBMError("%s: src and dst share their memory; the "
+                            "partition writes the other buffer" % name)
 
 
 def _void(t):
@@ -259,56 +300,57 @@ def root_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, n: int):
 root_hist.launches = 0
 
 
-def _launch_split(pay, scal, wp_live):
-    """Queue the partition kernels of a non-empty segment on the card;
-    returns n_left as a [1] int32 tensor on the card, without waiting."""
+def _launch_split(src, dst, scal, wp_live):
+    """Queue the partition kernels of a non-empty segment from `src` into
+    `dst` on the card; returns n_left as a [1] int32 tensor on the card,
+    without waiting."""
     from .build import load
     fn = load("split_pass").split_pass_launch
-    fn.argtypes = [_P, _LL, _I, _P, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _LL, _I, _P, _P, _P, _P, _P]
     fn.restype = _I
-    n_l = scal[S_NL]
-    ntiles = -(-n_l // 1024)
-    tiles = torch.empty((2, ntiles), dtype=torch.int32, device=pay.device)
-    cnt = torch.empty(1, dtype=torch.int32, device=pay.device)
-    scratch = torch.empty((wp_live, n_l), dtype=torch.int32,
-                          device=pay.device)
+    ntiles = -(-scal[S_NL] // 1024)
+    tiles = torch.empty((2, ntiles), dtype=torch.int32, device=src.device)
+    cnt = torch.empty(1, dtype=torch.int32, device=src.device)
     host = (ctypes.c_int * N_SCALARS)(*scal)
-    err = fn(_void(pay), pay.shape[1], wp_live,
+    err = fn(_void(src), _void(dst), src.shape[1], wp_live,
              ctypes.cast(host, ctypes.c_void_p), _void(tiles[0]),
-             _void(tiles[1]), _void(cnt), _void(scratch), _stream(pay))
+             _void(tiles[1]), _void(cnt), _stream(src))
     if err != 0:
         raise LightGBMError("split_pass kernel launch failed: CUDA error %d"
                             % err)
     return cnt
 
 
-def split_pass(pay: torch.Tensor, scal, plan: torch.Tensor, nbw: int,
-               wp_live: int, with_hist: bool):
-    """Partition one leaf's segment in place: the CUDA kernel for a payload
-    on the card, the plain version on the CPU. `scal` is the host sequence
-    of the N_SCALARS slots. Returns (n_left, the smaller child's (grad,
-    hess) planes when `with_hist`, else None). Reading n_left back waits
-    for the card: one host sync per split."""
+def split_pass(src: torch.Tensor, dst: torch.Tensor, scal,
+               plan: torch.Tensor, nbw: int, wp_live: int, with_hist: bool):
+    """Partition one leaf's segment from `src` into `dst` (the same lanes,
+    rows < wp_live; `src` is not written): the CUDA kernel for a payload on
+    the card, the plain version on the CPU. `scal` is the host sequence of
+    the N_SCALARS slots. Returns (n_left, the smaller child's (grad, hess)
+    planes, from `dst`, when `with_hist`, else None). Reading n_left back
+    waits for the card: one host sync per split."""
     scal = [int(v) for v in scal]
     if len(scal) != N_SCALARS:
         raise LightGBMError("split_pass: %d scalars, expected %d"
                             % (len(scal), N_SCALARS))
     nbw, wp_live = int(nbw), int(wp_live)
-    _check("split_pass", pay, plan, nbw, (scal[S_S0], scal[S_NL]))
-    if not nbw + 4 <= wp_live <= pay.shape[0]:
-        raise LightGBMError("split_pass: wp_live=%d outside [%d, %d]"
-                            % (wp_live, nbw + 4, pay.shape[0]))
+    _check("split_pass", src, plan, nbw, (scal[S_S0], scal[S_NL]))
+    if wp_live < nbw + 4:
+        raise LightGBMError("split_pass: wp_live=%d leaves the grad/hess "
+                            "rows behind (nbw + 4 = %d)" % (wp_live, nbw + 4))
+    _check_pair("split_pass", src, dst, wp_live)
     if not 0 <= scal[S_WG] < nbw:
         raise LightGBMError("split_pass: word row %d is not a bin word"
                             % scal[S_WG])
-    if pay.device.type == "cpu":
-        return split_pass_plain(pay, scal, plan, nbw, wp_live, with_hist)
+    if src.device.type == "cpu":
+        return split_pass_plain(src, dst, scal, plan, nbw, wp_live,
+                                with_hist)
     n_left = 0
     if scal[S_NL] > 0:
-        n_left = int(_launch_split(pay, scal, wp_live).item())
+        n_left = int(_launch_split(src, dst, scal, wp_live).item())
     hist = None
     if with_hist:
-        hist = _launch_hist("split_pass", "split_pass_hist_launch", pay, plan,
+        hist = _launch_hist("split_pass", "split_pass_hist_launch", dst, plan,
                             nbw, *_child(scal, n_left))
     if scal[S_NL] > 0 or with_hist:
         split_pass.launches += 1
@@ -316,6 +358,65 @@ def split_pass(pay: torch.Tensor, scal, plan: torch.Tensor, nbw: int,
 
 
 split_pass.launches = 0
+
+
+def _segment_tables(segs, device):
+    """The device tables of a consolidate launch: the int64 [K, 3] table of
+    split_pass.cu (start, length, first tile of 1024 lanes) and the segment
+    of every tile."""
+    ln = np.array([l_ for _, l_ in segs], np.int64)
+    ntiles = -(-ln // 1024)
+    tab = np.stack([np.array([st for st, _ in segs], np.int64), ln,
+                    np.cumsum(ntiles) - ntiles], axis=1)
+    sot = np.repeat(np.arange(len(segs), dtype=np.int32), ntiles)
+    return (torch.as_tensor(tab, device=device),
+            torch.as_tensor(sot, device=device))
+
+
+def _launch_consolidate(src, dst, wp_live, tables):
+    """Queue the copy of the segments of `tables` (:func:`_segment_tables`,
+    at least one tile) from `src` to `dst` on the card."""
+    from .build import load
+    fn = load("split_pass").consolidate_launch
+    fn.argtypes = [_P, _P, _LL, _I, _P, _P, _I, _P]
+    fn.restype = _I
+    tab, sot = tables
+    err = fn(_void(src), _void(dst), src.shape[1], wp_live, _void(tab),
+             _void(sot), len(sot), _stream(src))
+    if err != 0:
+        raise LightGBMError("consolidate kernel launch failed: CUDA error %d"
+                            % err)
+
+
+def consolidate(src: torch.Tensor, dst: torch.Tensor, segs,
+                wp_live: int) -> None:
+    """Copy rows < wp_live of the disjoint (start, length) segments `segs`
+    from `src` to `dst`: one launch of the CUDA kernel for buffers on the
+    card, the plain version on the CPU. The grower's end-of-tree step: the
+    odd-depth leaves' segments from the second buffer into the payload."""
+    segs = [(int(st), int(ln)) for st, ln in segs]
+    wp_live = int(wp_live)
+    _check_pair("consolidate", src, dst, wp_live)
+    if src.device.type not in ("cpu", "cuda"):
+        raise LightGBMError("consolidate: no kernel for device %s"
+                            % src.device)
+    ends = sorted(segs)
+    for (st, ln), nxt in zip(ends, ends[1:] + [(src.shape[1], 0)]):
+        if st < 0 or ln < 0 or st + ln > nxt[0]:
+            raise LightGBMError("consolidate: segment (%d, %d) overlaps "
+                                "another or leaves the %d lanes"
+                                % (st, ln, src.shape[1]))
+    if src.device.type == "cpu":
+        consolidate_plain(src, dst, segs, wp_live)
+        return
+    tables = _segment_tables(segs, src.device)
+    if len(tables[1]) == 0:
+        return                            # no lanes: nothing to launch
+    _launch_consolidate(src, dst, wp_live, tables)
+    consolidate.launches += 1
+
+
+consolidate.launches = 0
 
 
 def level_seg_hist_plain(pay: torch.Tensor, plan: torch.Tensor, nbw: int,
@@ -327,16 +428,17 @@ def level_seg_hist_plain(pay: torch.Tensor, plan: torch.Tensor, nbw: int,
             torch.stack([p[1] for p in planes]))
 
 
-def level_pass_plain(pay: torch.Tensor, scal_mat, plan: torch.Tensor,
-                     nbw: int, wp_live: int, with_hist: bool):
-    """split_pass_plain over the rows of `scal_mat` ([S, LEVEL_COLS], one
-    slot each, disjoint segments), in place. Returns (n_left [S] int64
-    numpy, the smaller children's (grad, hess) planes [S, G * 256] or
-    None)."""
+def level_pass_plain(src: torch.Tensor, dst: torch.Tensor, scal_mat,
+                     plan: torch.Tensor, nbw: int, wp_live: int,
+                     with_hist: bool):
+    """split_pass_plain from `src` into `dst` over the rows of `scal_mat`
+    ([S, LEVEL_COLS], one slot each, disjoint segments). Returns (n_left [S]
+    int64 numpy, the smaller children's (grad, hess) planes [S, G * 256]
+    or None)."""
     n_left = np.zeros(len(scal_mat), np.int64)
     hists = []
     for j, row in enumerate(np.asarray(scal_mat).tolist()):
-        n_left[j], h = split_pass_plain(pay, row[:N_SCALARS], plan, nbw,
+        n_left[j], h = split_pass_plain(src, dst, row[:N_SCALARS], plan, nbw,
                                         wp_live, with_hist)
         hists.append(h)
     if not with_hist:
@@ -412,20 +514,21 @@ def level_seg_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, segs):
 level_seg_hist.launches = 0
 
 
-def _check_level(pay, scal, plan, nbw, wp_live):
+def _check_level(src, dst, scal, plan, nbw, wp_live):
     if scal.ndim != 2 or scal.shape[1] != LEVEL_COLS or len(scal) < 1:
         raise LightGBMError("level_pass: the scalars must be an [S, %d] "
                             "matrix with S >= 1, got %s"
                             % (LEVEL_COLS, scal.shape))
-    if not nbw + 4 <= wp_live <= pay.shape[0]:
-        raise LightGBMError("level_pass: wp_live=%d outside [%d, %d]"
-                            % (wp_live, nbw + 4, pay.shape[0]))
+    if wp_live < nbw + 4:
+        raise LightGBMError("level_pass: wp_live=%d leaves the grad/hess "
+                            "rows behind (nbw + 4 = %d)" % (wp_live, nbw + 4))
     for row in scal:
-        _check("level_pass", pay, plan, nbw, (int(row[S_S0]),
+        _check("level_pass", src, plan, nbw, (int(row[S_S0]),
                                               int(row[S_NL])))
         if not 0 <= row[S_WG] < nbw:
             raise LightGBMError("level_pass: word row %d is not a bin word"
                                 % row[S_WG])
+    _check_pair("level_pass", src, dst, wp_live)
     order = np.argsort(scal[:, S_S0], kind="stable")
     s0, nl = scal[order, S_S0], scal[order, S_NL]
     if np.any(s0[1:] < s0[:-1] + nl[:-1]):
@@ -434,64 +537,64 @@ def _check_level(pay, scal, plan, nbw, wp_live):
 
 def _level_tables(scal, device):
     """The device tables of a level_pass launch from the host [S,
-    LEVEL_COLS] matrix `scal`: the int32 scalars, the int64 [S, 3] slot
-    table of level_pass.cu (first tile, tile count, first scratch lane) and
-    the slot of every 1024-lane tile."""
-    n_l = scal[:, S_NL]
-    ntiles = -(-n_l // 1024)
-    tab = np.stack([np.cumsum(ntiles) - ntiles, ntiles,
-                    np.cumsum(n_l) - n_l], axis=1).astype(np.int64)
+    LEVEL_COLS] matrix `scal`: the int32 scalars, the int64 [S, 2] slot
+    table of level_pass.cu (first tile, tile count) and the slot of every
+    1024-lane tile."""
+    ntiles = -(-scal[:, S_NL] // 1024)
+    tab = np.stack([np.cumsum(ntiles) - ntiles, ntiles],
+                   axis=1).astype(np.int64)
     slot_of_tile = np.repeat(np.arange(len(scal), dtype=np.int32), ntiles)
     return (torch.as_tensor(scal.astype(np.int32), device=device),
             torch.as_tensor(tab, device=device),
-            torch.as_tensor(slot_of_tile, device=device), int(n_l.sum()))
+            torch.as_tensor(slot_of_tile, device=device))
 
 
-def _launch_level(pay, wp_live, tables):
+def _launch_level(src, dst, wp_live, tables):
     """Queue the partition kernels of the slots of `tables`
-    (:func:`_level_tables`) on the card; returns n_left as an [S] int32
-    tensor on the card, without waiting."""
+    (:func:`_level_tables`) from `src` into `dst` on the card; returns
+    n_left as an [S] int32 tensor on the card, without waiting."""
     from .build import load
     fn = load("level_pass").level_pass_launch
-    fn.argtypes = [_P, _LL, _I, _P, _P, _I, _P, _I, _LL, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _LL, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P]
     fn.restype = _I
-    scal_d, tab_d, sot_d, total = tables
-    S, T, dev = len(scal_d), len(sot_d), pay.device
+    scal_d, tab_d, sot_d = tables
+    S, T, dev = len(scal_d), len(sot_d), src.device
     tiles = torch.empty((2, max(T, 1)), dtype=torch.int32, device=dev)
     n_left_d = torch.empty(S, dtype=torch.int32, device=dev)
-    scratch = torch.empty((wp_live, max(total, 1)), dtype=torch.int32,
-                          device=dev)
-    err = fn(_void(pay), pay.shape[1], wp_live, _void(scal_d), _void(tab_d),
-             S, _void(sot_d), T, total, _void(tiles[0]), _void(tiles[1]),
-             _void(n_left_d), _void(scratch), _stream(pay))
+    err = fn(_void(src), _void(dst), src.shape[1], wp_live, _void(scal_d),
+             _void(tab_d), S, _void(sot_d), T, _void(tiles[0]),
+             _void(tiles[1]), _void(n_left_d), _stream(src))
     if err != 0:
         raise LightGBMError("level_pass kernel launch failed: CUDA error %d"
                             % err)
     return n_left_d
 
 
-def level_pass(pay: torch.Tensor, scal_mat, plan: torch.Tensor, nbw: int,
-               wp_live: int, with_hist: bool):
-    """Partition the segments of every slot of a tree level in place: the
-    CUDA kernel for a payload on the card, the plain version on the CPU.
+def level_pass(src: torch.Tensor, dst: torch.Tensor, scal_mat,
+               plan: torch.Tensor, nbw: int, wp_live: int, with_hist: bool):
+    """Partition the segments of every slot of a tree level from `src` into
+    `dst` (the same lanes, rows < wp_live; `src` is not written): the CUDA
+    kernel for a payload on the card, the plain version on the CPU.
     `scal_mat` is the host [S, LEVEL_COLS] matrix of the slots' S_* slots;
     their segments must be disjoint. Returns (n_left [S] int64 numpy, the
-    smaller children's (grad, hess) planes [S, G * 256] when `with_hist`,
-    else None). The whole sequence is one launch of level_pass; reading
-    n_left back is its one host sync."""
+    smaller children's (grad, hess) planes [S, G * 256], from `dst`, when
+    `with_hist`, else None). The whole sequence is one launch of
+    level_pass; reading n_left back is its one host sync."""
     scal = np.asarray(scal_mat, np.int64)
     nbw, wp_live = int(nbw), int(wp_live)
-    _check_level(pay, scal, plan, nbw, wp_live)
-    if pay.device.type == "cpu":
-        return level_pass_plain(pay, scal, plan, nbw, wp_live, with_hist)
-    n_left = _launch_level(pay, wp_live, _level_tables(scal, pay.device)) \
+    _check_level(src, dst, scal, plan, nbw, wp_live)
+    if src.device.type == "cpu":
+        return level_pass_plain(src, dst, scal, plan, nbw, wp_live,
+                                with_hist)
+    n_left = _launch_level(src, dst, wp_live,
+                           _level_tables(scal, src.device)) \
         .cpu().numpy().astype(np.int64)
     hist = None
     if with_hist:
         hist = _launch_multi_hist(
-            "level_pass", "level_pass_hist_launch", pay, plan, nbw,
+            "level_pass", "level_pass_hist_launch", dst, plan, nbw,
             _multi_hist_tables(level_children(scal, n_left), plan.shape[0],
-                               pay.device))
+                               dst.device))
     level_pass.launches += 1
     return n_left, hist
 

@@ -15,9 +15,9 @@ lengths of one lane, a tile and a row block either side, 3 and 19 row
 blocks, zero-length segments, and at 300k rows; two launches must agree.
 root_hist, seg_hist and level_seg_hist share one routine
 (csrc/payload_ordered.cuh), so each is also held equal to a witness that
-does not: the in-pass histogram launchers of split_pass and level_pass,
-which run payload_hist.cuh's ownership routine, an independent
-implementation of the same contract.
+does not: payload_hist.cuh's ownership routine (the witness launchers
+``ownership_hist_launch`` of split_pass.cu and ``ownership_multi_launch``
+of level_pass.cu), an independent implementation of the same contract.
 """
 import numpy as np
 import pytest
@@ -104,9 +104,9 @@ def test_root_hist_kernel_matches_plain(kind, rows, widths):
 
 
 def _ownership(pay, plan, nbw, start, length):
-    """split_pass's in-pass launcher over the lanes: the ownership
-    routine's histogram, the witness of the counting-sort kernels."""
-    return _launch_hist("split_pass", "split_pass_hist_launch", pay, plan,
+    """The ownership routine's histogram of the lanes (split_pass.cu's
+    witness launcher), the witness of the counting-sort kernels."""
+    return _launch_hist("split_pass", "ownership_hist_launch", pay, plan,
                         nbw, start, length)
 
 
@@ -167,7 +167,7 @@ LEVEL_SEGS = {
                                          ("heavy", WIDTHS)])
 def test_level_seg_hist_kernel_matches_plain(kind, widths, table):
     """Every segment of the table bit for bit against the plain version on
-    the CPU and the ownership witness (level_pass's in-pass launcher); two
+    the CPU and the ownership witness (level_pass.cu's witness launcher); two
     launches agree."""
     _card()
     rows = 300_000
@@ -179,7 +179,7 @@ def test_level_seg_hist_kernel_matches_plain(kind, widths, table):
     pay_d, plan_d = pay.cuda(), plan.cuda()
     k1 = level_seg_hist(pay_d, plan_d, nbw, segs)
     k2 = level_seg_hist(pay_d, plan_d, nbw, segs)
-    own = _launch_multi_hist("level_pass", "level_pass_hist_launch", pay_d,
+    own = _launch_multi_hist("level_pass", "ownership_multi_launch", pay_d,
                              plan_d, nbw, _multi_hist_tables(
                                  segs, len(widths), pay_d.device))
     torch.cuda.synchronize()

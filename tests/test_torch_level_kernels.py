@@ -4,13 +4,14 @@ The payload is tests/test_torch_payload_kernels.py's (3000 rows, built by
 the JAX package with C = CR = 512, so the TPU kernels run several chunks),
 with up to 8 slots whose segments start off a multiple of 128.
 
-  * ``level_pass_plain`` is a loop of ``split_pass_plain`` over the slots:
-    payload, n_left and the smaller children's histograms equal bit for bit.
-    Against the Pallas kernel (``make_level_pass``, interpret mode), which
-    writes each child back through a two-ended FIFO: n_left equal, each
-    child the same multiset of columns, every lane outside the segments
-    untouched, and histograms within that file's bound (2 * count * eps32
-    + 2^-17 for the MXU's bf16 hi/lo split, times sum|v|).
+  * ``level_pass_plain`` is a loop of ``split_pass_plain`` over the slots,
+    each from ``src`` into ``dst``: destination, n_left and the smaller
+    children's histograms equal bit for bit, ``src`` untouched. Against the
+    Pallas kernel (``make_level_pass``, interpret mode), which writes each
+    child back in place through a two-ended FIFO: n_left equal, each child
+    the same multiset of columns, every lane outside the segments untouched,
+    and histograms within that file's bound (2 * count * eps32 + 2^-17 for
+    the MXU's bf16 hi/lo split, times sum|v|).
   * ``level_seg_hist_plain`` is a loop of ``seg_hist_plain`` (bit for bit)
     and matches ``make_level_seg_hist`` in interpret mode within the same
     bound; a zero-length segment gives zeros (the TPU kernel leaves it
@@ -53,17 +54,19 @@ def test_level_pass_plain_is_a_split_pass_loop(setup, S, with_hist):
     WPA, NP, G, plan, nbw, n, C, CR = _geom(pa)
     plan_t = pk.plan_tensor(plan, "cpu")
     scal = _scal_mat(ds, pa, SLOTS[S])
-    mine = _port(pay)
-    n_left, hist = pk.level_pass(mine, scal, plan_t, nbw, nbw + 5, with_hist)
+    src, mine = _port(pay), _port(pay)
+    n_left, hist = pk.level_pass(src, mine, scal, plan_t, nbw, nbw + 5,
+                                 with_hist)
     ref = _port(pay)
     for j, row in enumerate(scal.tolist()):
-        nl, h = pk.split_pass_plain(ref, row[:pk.N_SCALARS], plan_t, nbw,
-                                    nbw + 5, with_hist)
+        nl, h = pk.split_pass_plain(src, ref, row[:pk.N_SCALARS], plan_t,
+                                    nbw, nbw + 5, with_hist)
         assert n_left[j] == nl and 0 < nl < row[pk.S_NL]
         if with_hist:
             assert torch.equal(hist[0][j], h[0])
             assert torch.equal(hist[1][j], h[1])
     assert torch.equal(mine, ref)
+    assert torch.equal(src, _port(pay))
     assert (hist is None) != with_hist
 
 
@@ -93,11 +96,13 @@ def test_level_pass_plain_matches_pallas_kernel(setup, S):
                             so, base, grid)
     kpay = np.asarray(kpay)
     kg, kh = (np.asarray(a) for a in jax.vmap(jpg._unpack_hist)(khist))
-    tp = _port(pay)
-    n_left, (gh, hh) = pk.level_pass(tp, scal, pk.plan_tensor(plan, "cpu"),
-                                     nbw, nbw + 5, True)
+    tp, dst = _port(pay), _port(pay)
+    n_left, (gh, hh) = pk.level_pass(tp, dst, scal,
+                                     pk.plan_tensor(plan, "cpu"), nbw,
+                                     nbw + 5, True)
     np.testing.assert_array_equal(n_left, np.asarray(knl))
-    mine = tp.numpy().view(np.uint32)
+    assert torch.equal(tp, _port(pay))
+    mine = dst.numpy().view(np.uint32)
     outside = np.ones(NP, bool)
     for s0, nl in scal[:, [pk.S_S0, pk.S_NL]]:
         outside[s0:s0 + nl] = False
@@ -158,19 +163,20 @@ def test_level_wrappers_refuse_bad_input(setup):
     ds, ja, pa, pay = setup
     WPA, NP, G, plan, nbw, n, C, CR = _geom(pa)
     tp, plan_t = _port(pay), pk.plan_tensor(plan, "cpu")
+    dst = tp.clone()
     scal = _scal_mat(ds, pa, SLOTS[3])
     with pytest.raises(LightGBMError, match=r"\[S, 16\]"):
-        pk.level_pass(tp, scal[:, :15], plan_t, nbw, nbw + 5, False)
+        pk.level_pass(tp, dst, scal[:, :15], plan_t, nbw, nbw + 5, False)
     overlap = scal.copy()
     overlap[1, pk.S_S0] = overlap[0, pk.S_S0] + 10
     with pytest.raises(LightGBMError, match="overlap"):
-        pk.level_pass(tp, overlap, plan_t, nbw, nbw + 5, False)
+        pk.level_pass(tp, dst, overlap, plan_t, nbw, nbw + 5, False)
     bad = scal.copy()
     bad[2, pk.S_WG] = nbw
     with pytest.raises(LightGBMError, match="bin word"):
-        pk.level_pass(tp, bad, plan_t, nbw, nbw + 5, False)
+        pk.level_pass(tp, dst, bad, plan_t, nbw, nbw + 5, False)
     with pytest.raises(LightGBMError, match="wp_live"):
-        pk.level_pass(tp, scal, plan_t, nbw, WPA + 1, False)
+        pk.level_pass(tp, dst, scal, plan_t, nbw, WPA + 1, False)
     with pytest.raises(LightGBMError, match="outside"):
         pk.level_seg_hist(tp, plan_t, nbw, [(0, 10), (NP - 5, 10)])
     with pytest.raises(LightGBMError, match="no segments"):
@@ -178,8 +184,8 @@ def test_level_wrappers_refuse_bad_input(setup):
     with pytest.raises(LightGBMError, match="no kernel for device meta"):
         pk.level_seg_hist(tp.to("meta"), plan_t.to("meta"), nbw, SEGS)
     with pytest.raises(LightGBMError, match="no kernel for device meta"):
-        pk.level_pass(tp.to("meta"), scal, plan_t.to("meta"), nbw, nbw + 5,
-                      False)
+        pk.level_pass(tp.to("meta"), dst.to("meta"), scal, plan_t.to("meta"),
+                      nbw, nbw + 5, False)
 
 
 @pytest.mark.cuda
@@ -195,9 +201,12 @@ def test_cuda_level_kernels_match_plain_versions(setup):
         assert torch.equal(a, b.cpu())
     for S in sorted(SLOTS):
         scal = _scal_mat(ds, pa, SLOTS[S])
-        na, ha = pk.level_pass(cpu, scal, plan_c, nbw, nbw + 5, True)
-        nb_, hb = pk.level_pass(dev, scal, plan_d, nbw, nbw + 5, True)
+        cpu_dst, dev_dst = cpu.clone(), dev.clone()
+        na, ha = pk.level_pass(cpu, cpu_dst, scal, plan_c, nbw, nbw + 5, True)
+        nb_, hb = pk.level_pass(dev, dev_dst, scal, plan_d, nbw, nbw + 5,
+                                True)
         np.testing.assert_array_equal(na, nb_)
+        assert torch.equal(cpu_dst, dev_dst.cpu())
         assert torch.equal(cpu, dev.cpu())
         assert torch.equal(ha[0], hb[0].cpu())
         assert torch.equal(ha[1], hb[1].cpu())

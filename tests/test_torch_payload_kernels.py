@@ -6,13 +6,15 @@ the same f32 gradients and hessians written into rows nbw + 2 and nbw + 3.
 The payload has 3000 rows and is built with C = CR = 512, so the TPU
 kernels run several chunks; segments start off a multiple of 128.
 
-  * ``split_pass_plain`` keeps both children in their old order, as
-    ``make_xla_split_pass`` does: the payload is equal bit for bit and
-    n_left is equal. The Pallas kernel (``make_split_pass``, interpret
-    mode) writes each child back through a two-ended FIFO, so against it
-    n_left is equal, each child is the same multiset of columns (compared
-    after sorting by the row-id row) and every lane outside the segment is
-    untouched.
+  * ``split_pass_plain`` reads the segment from one buffer (``src``) and
+    writes it partitioned into another (``dst``, here a copy of the
+    payload), keeping both children in their old order, as
+    ``make_xla_split_pass`` does in place: ``dst`` is equal to the oracle's
+    payload bit for bit, n_left is equal and ``src`` is untouched. The
+    Pallas kernel (``make_split_pass``, interpret mode) writes each child
+    back through a two-ended FIFO, so against it n_left is equal, each
+    child is the same multiset of columns (compared after sorting by the
+    row-id row) and every lane outside the segment is untouched.
   * Histograms are f32 sums in another order than the references': the XLA
     oracles sum in f64, so a bin of c rows is held to 2 * c * eps32 *
     sum|v| of them (the recursive-summation bound of an f32 sum against the
@@ -137,21 +139,21 @@ def test_split_pass_plain_matches_xla_oracle(setup, case, with_hist):
     scal = _scalars(pa, f, s0, n_l, thr, dl, small_l, **over)
     ref = jgp.make_xla_split_pass(WPA, NP, G, plan, nbw)
     rpay, (rg, rh), rnl = ref(jnp.asarray(pay), jnp.asarray(scal, jnp.int32))
-    tp = _port(pay)
-    n_left, hist = pk.split_pass(tp, scal, pk.plan_tensor(plan, "cpu"), nbw,
-                                 nbw + 5,
-                                 with_hist)
+    tp, dst = _port(pay), _port(pay)
+    n_left, hist = pk.split_pass(tp, dst, scal, pk.plan_tensor(plan, "cpu"),
+                                 nbw, nbw + 5, with_hist)
     assert n_left == int(rnl)
     assert 0 < n_left < n_l or n_l == 0
-    np.testing.assert_array_equal(tp.numpy().view(np.uint32),
+    np.testing.assert_array_equal(dst.numpy().view(np.uint32),
                                   np.asarray(rpay))
+    assert torch.equal(tp, _port(pay))
     if not with_hist:
         assert hist is None
         return
     # the oracle histograms the smaller child before the partition
     start = s0 if small_l else s0 + n_left
     length = n_left if small_l else n_l - n_left
-    bg, bh = _hist_bound(tp.numpy().view(np.uint32), nbw, plan, start,
+    bg, bh = _hist_bound(dst.numpy().view(np.uint32), nbw, plan, start,
                          length)
     assert np.all(np.abs(hist[0].numpy() - np.asarray(rg)) <= bg)
     assert np.all(np.abs(hist[1].numpy() - np.asarray(rh)) <= bh)
@@ -173,11 +175,12 @@ def test_split_pass_plain_matches_pallas_kernel(setup, case):
                                wp_live=nbw + 5, _skip_hist=bool(no_hist))
     kpay, (kg, kh), knl = kern(jnp.asarray(pay), jnp.asarray(scal, jnp.int32))
     kpay = np.asarray(kpay)
-    tp = _port(pay)
-    n_left, hist = pk.split_pass(tp, scal, pk.plan_tensor(plan, "cpu"), nbw,
-                                 nbw + 5, not no_hist)
+    tp, dst = _port(pay), _port(pay)
+    n_left, hist = pk.split_pass(tp, dst, scal, pk.plan_tensor(plan, "cpu"),
+                                 nbw, nbw + 5, not no_hist)
     assert n_left == (int(knl) if n_l else 0)
-    mine = tp.numpy().view(np.uint32)
+    assert torch.equal(tp, _port(pay))
+    mine = dst.numpy().view(np.uint32)
     outside = np.ones(NP, bool)
     outside[s0:s0 + n_l] = False
     np.testing.assert_array_equal(kpay[:, outside], mine[:, outside])
@@ -260,18 +263,18 @@ def test_wrappers_refuse_bad_input(setup):
     with pytest.raises(LightGBMError, match="outside"):
         pk.seg_hist(tp, plan_t, nbw, NP - 5, 10)
     with pytest.raises(LightGBMError, match="scalars"):
-        pk.split_pass(tp, [0] * 3, plan_t, nbw, nbw + 5, False)
+        pk.split_pass(tp, tp.clone(), [0] * 3, plan_t, nbw, nbw + 5, False)
     with pytest.raises(LightGBMError, match="bin word"):
-        pk.split_pass(tp, [0, 0, 10, nbw] + [0] * 11, plan_t, nbw, nbw + 5,
-                      False)
+        pk.split_pass(tp, tp.clone(), [0, 0, 10, nbw] + [0] * 11, plan_t,
+                      nbw, nbw + 5, False)
     meta = tp.to("meta")
     with pytest.raises(LightGBMError, match="no kernel for device meta"):
         pk.seg_hist(meta, plan_t.to("meta"), nbw, 0, 10)
     with pytest.raises(LightGBMError, match="no kernel for device meta"):
         pk.root_hist(meta, plan_t.to("meta"), nbw, n)
     with pytest.raises(LightGBMError, match="no kernel for device meta"):
-        pk.split_pass(meta, [0, 0, 10] + [0] * 12, plan_t.to("meta"), nbw,
-                      nbw + 5, False)
+        pk.split_pass(meta, meta.clone(), [0, 0, 10] + [0] * 12,
+                      plan_t.to("meta"), nbw, nbw + 5, False)
 
 
 @pytest.mark.cuda
@@ -292,9 +295,12 @@ def test_cuda_kernels_match_plain_versions(setup):
         f, s0, n_l, thr, dl, small_l, over = CASES[case]
         scal = _scalars(pa, _feature_of_group(ds, f), s0, n_l, thr, dl,
                         small_l, **over)
-        na, ha = pk.split_pass(cpu, scal, plan_c, nbw, nbw + 5, True)
-        nb_, hb = pk.split_pass(dev, scal, plan_d, nbw, nbw + 5, True)
+        cpu_dst, dev_dst = cpu.clone(), dev.clone()
+        na, ha = pk.split_pass(cpu, cpu_dst, scal, plan_c, nbw, nbw + 5, True)
+        nb_, hb = pk.split_pass(dev, dev_dst, scal, plan_d, nbw, nbw + 5,
+                                True)
         assert na == nb_
+        assert torch.equal(cpu_dst, dev_dst.cpu())
         assert torch.equal(cpu, dev.cpu())
         assert torch.equal(ha[0], hb[0].cpu())
         assert torch.equal(ha[1], hb[1].cpu())
