@@ -17,7 +17,16 @@ exits non-zero without printing a result:
               and level_seg_hist on the 10.5M lanes cut into 128 slots as
               at depth 8 (the level phase), scan_pair at B = 256 on the
               level's children. Each is held bit for bit against its plain
-              version on the CPU, and two launches must agree. The
+              version on the CPU, and two launches must agree. The scans
+              read the grower's histogram planes in place through the
+              children's rows (scan_pair also through the layout's gidx),
+              in a random order, and are also held equal to their gathered
+              form and, at the edge shapes (B = 1, 2, 256 at Wp = 32, 256,
+              1024; no valid lane; ties both ways; +inf gains; one-lane
+              windows; fix lanes), to their plain versions; the gathered
+              sequence (the torch gathers, then the kernel) and an empty
+              kernel (the launch floor) are timed beside them, and the
+              previous scan design's times printed. The
               partitions write the grower's other buffer (a second buffer
               of random words, or the payload): the source and every lane
               and row of the destination outside the segments must stay
@@ -56,7 +65,8 @@ exits non-zero without printing a result:
               of the largest score), and a model-text round trip;
   5. bundled  the Expo shape (make_expo_like: 8 dense + 640 one-hot
               columns, EFB-bundled into 18 groups; 2M rows), scan_blocks
-              against its plain version at B = 256 children, then the
+              against its plain version at B = 256 children read in place
+              from their [256, 18 * 256] planes, then the
               bundled train path (num_leaves=256, max_depth=8, 10
               iterations; scan_blocks, no scan_pair) with the same checks
               and 3 iterations with tpu_level_grow=off (split_pass's
@@ -74,7 +84,9 @@ kernels, the card's name and power limit, and the result line
 --skip-train, --skip-parity); the defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
-scan, scatter, consolidation; a copy-back kernel fails the run).
+scan, scatter, consolidation; a copy-back kernel fails the run), the split
+scan beside the torch index/gather kernels, and the count of device
+kernels and copies.
 """
 from __future__ import annotations
 
@@ -136,6 +148,36 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# per-call times of the scans' previous design (one block of Wp threads
+# per pair, serial prefix sums in shared memory) at the same shapes
+# (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+PREVIOUS_MS = {"scan_pair": 0.0125, "scan_pair B=256": 0.1383,
+          "scan_blocks": 0.2004}
+
+
+def launch_floor():
+    """One launch of an empty kernel (scan_pair.cu's empty_launch): the
+    least a kernel launch costs, timed beside the scans."""
+    import ctypes
+    import torch
+    from lightgbm_torch.ops.build import load
+    fn = load("scan_pair").empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if fn(torch.cuda.current_stream().cuda_stream) != 0:
+        raise AssertionError("the empty kernel did not launch")
+
+
+def scan_pair_bound(scal, gb, layout, out):
+    """scan_pair's bound: the children's gathered lanes, the layout's
+    masks, gidx and scalars read once, the output written once; about 40
+    operations per (child, feature, lane)."""
+    nbytes = (scal.numel() + 2 * gb.numel() + 4 * layout.keep_r.numel()
+              + layout.aux.numel() + out.numel()) * 4 \
+        + layout.gidx.numel() * 8
+    return bound_ms(nbytes, 40.0 * gb.numel())
 
 
 def phase_card() -> str:
@@ -280,6 +322,8 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
         torch.cuda.empty_cache()
 
     # ---- scan_pair at B=2 on real child histograms --------------------
+    # the two children sit at rows 5 and 2 of the grower's [L, TB] planes;
+    # the kernel reads them through rows and the layout's gidx
     layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
                         meta.default_bin, meta.penalty,
                         np.ones(gc.num_features, bool), gc.scan_width,
@@ -290,16 +334,26 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
     kids = [hist_window(bins, grad, hess, 0, half, W),
             hist_window(bins, grad, hess, half, R - half, W)]
     hists = torch.stack([k.reshape(G * W, 2)[src] for k in kids])  # [2,TB,2]
-    gb = hists[:, :, 0][:, layout.gidx].contiguous()
-    hb = hists[:, :, 1][:, layout.gidx].contiguous()
+    rows = torch.tensor([5, 2], device=dev)
+    gh = torch.zeros((8, gc.total_bins), device=dev)
+    hh = torch.zeros_like(gh)
+    gh[rows], hh[rows] = hists[:, :, 0], hists[:, :, 1]
     sums = hists.sum(dim=1) / G                     # every row in each group
     scal = torch.as_tensor(pair_scalars(
         sums[:, 0].cpu().numpy(), sums[:, 1].cpu().numpy(), [half, R - half],
         params.lambda_l2, params.min_gain_to_split, params.min_data_in_leaf,
         params.min_sum_hessian_in_leaf), device=dev)
-    args = (scal, gb, hb, layout.keep_r, layout.keep_f, layout.valid_r,
-            layout.valid_f, layout.aux)
-    k = scan_pair(*args)
+    masks = (layout.keep_r, layout.keep_f, layout.valid_r, layout.valid_f,
+             layout.aux)
+    maps = {"rows": rows, "gidx": layout.gidx}
+    k = scan_pair(scal, gh, hh, *masks, **maps)
+    _same("scan_pair B=2: two launches", k, scan_pair(scal, gh, hh, *masks,
+                                                      **maps))
+    gb = gh[rows][:, layout.gidx].contiguous()
+    hb = hh[rows][:, layout.gidx].contiguous()
+    args = (scal, gb, hb) + masks
+    _same("scan_pair B=2: the rows form vs the gathered form", k,
+          scan_pair(*args))
     p = scan_pair_plain(*args)
     torch.cuda.synchronize()
     k_np, p_np = k.cpu().numpy(), p.cpu().numpy()
@@ -325,17 +379,25 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
                             - p_np[:, 0, :F][fin]).max()) if fin.any() else 0.0
     err_s = float(np.nanmax(np.abs(np.where(np.isfinite(k_np), k_np, 0)
                                    - np.where(np.isfinite(p_cpu), p_cpu, 0))))
-    log("scan_pair B=2 F=%d Wp=%d: bit-identical to the plain version on the "
-        "CPU; vs the plain version on the card thresholds/directions/has "
-        "exact, %d finite gains within rtol 1e-5 (max abs err %.3g)"
-        % (F, layout.Wp, int(fin.sum()), err_card))
-    s_ms = device_ms(lambda: scan_pair(*args))
+    log("scan_pair B=2 F=%d Wp=%d, rows %s of [8, %d] planes through gidx: "
+        "two launches bit-identical, equal to the gathered form, "
+        "bit-identical to the plain version on the CPU; vs the plain version "
+        "on the card thresholds/directions/has exact, %d finite gains within "
+        "rtol 1e-5 (max abs err %.3g)" % (F, layout.Wp, rows.tolist(),
+                                          gc.total_bins, int(fin.sum()),
+                                          err_card))
+    s_ms = device_ms(lambda: scan_pair(scal, gh, hh, *masks, **maps))
+    old_ms = device_ms(lambda: scan_pair(
+        scal, gh[rows][:, layout.gidx], hh[rows][:, layout.gidx], *masks))
     s_plain = device_ms(lambda: scan_pair_plain(*args), reps=20)
-    in_bytes = sum(t.numel() * 4 for t in args) + k.numel() * 4
-    s_bound, s_by = bound_ms(in_bytes, 40.0 * gb.numel())
-    log("scan_pair, median time per call: kernel %.4f ms, plain "
-        "%.4f ms, no single PyTorch call computes it; bound %.6f ms (%s)"
-        % (s_ms, s_plain, s_bound, s_by))
+    floor_ms = device_ms(launch_floor)
+    s_bound, s_by = scan_pair_bound(scal, gb, layout, k)
+    log("scan_pair B=2, median time per call: kernel %.4f ms (previous "
+        "design: %.4f), the gathered sequence (four torch gathers, then the "
+        "kernel on the gathered planes) %.4f ms, plain %.4f ms, no single "
+        "PyTorch call computes it; launch floor (an empty kernel) %.4f ms; "
+        "bound %.6f ms (%s)" % (s_ms, PREVIOUS_MS["scan_pair"], old_ms,
+                                s_plain, floor_ms, s_bound, s_by))
     return [
         {"name": "hist_window", "route": "cuda",
          "source": "lightgbm_torch/csrc/hist_window.cu",
@@ -348,8 +410,70 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
          "replaces": "lightgbm_tpu/ops/pallas_scan.py:262",
          "launches": 0, "max_abs_err": err_s, "ms": s_ms,
          "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None},
+         "library_ms": None, "launch_floor_ms": floor_ms,
+         "gathers_and_kernel_ms": old_ms},
     ]
+
+
+def phase_scan_edges():
+    """scan_pair and scan_blocks against their plain versions on the CPU at
+    the edge shapes, bit for bit, in the rows form (planes read in place
+    through a random choice of rows): B = 1, 2 and 256 at Wp = 32, 256 and
+    1024; features with no valid lane (one bin, masked out of the tree);
+    exact ties in both directions (empty bins); +inf gains (l2 = 0 and
+    zero-hessian sides); per-child valid masks; one-lane and two-lane
+    windows, fix lanes, dense groups as wide as the plane and G < Gp; an
+    inf gain times a zero penalty. The inputs are the card tests' builders
+    (tests/test_torch_scan_rows.py)."""
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from test_torch_scan_rows import (block_case, pair_args, pair_case)
+    from lightgbm_torch.ops.block_scan import scan_blocks
+    from lightgbm_torch.ops.scan import scan_pair
+
+    def on(dev, t):
+        return t.to(dev) if torch.is_tensor(t) else t
+
+    def pair(c, dev):
+        return scan_pair(*[on(dev, a) for a in pair_args(c)],
+                         rows=on(dev, c["rows"]), gidx=on(dev, c["gidx"]))
+
+    def blocks(c, dev, do_fix):
+        return scan_blocks(*[on(dev, c[k]) for k in ("scal", "gh", "hh",
+                                                     "masks")],
+                           do_fix, on(dev, c["rows"]), c["G"])
+    cases = 0
+    inf = dict(l2=0.0, min_data=0, min_hess=0.0, zero_hess=0.3)
+    for Wp in (32, 256, 1024):
+        for B in (1, 2, 256):
+            c = pair_case(100 + B, B, Wp)
+            _same("scan_pair B=%d Wp=%d vs the CPU" % (B, Wp),
+                  pair(c, "cuda"), pair(c, "cpu"))
+            b = block_case(200 + B, B, Wp)
+            for do_fix in (True, False):
+                _same("scan_blocks B=%d Wp=%d do_fix=%s vs the CPU"
+                      % (B, Wp, do_fix), blocks(b, "cuda", do_fix),
+                      blocks(b, "cpu", do_fix))
+            cases += 3
+    for label, c in (("+inf gains", pair_case(7, 64, 256, **inf)),
+                     ("per-child valid masks",
+                      pair_case(7, 64, 256, batched=True))):
+        _same("scan_pair, %s, vs the CPU" % label, pair(c, "cuda"),
+              pair(c, "cpu"))
+        cases += 1
+    for label, c in (("+inf gains", block_case(9, 64, 256, **inf)),
+                     ("inf times a zero penalty",
+                      block_case(9, 64, 256, zero_pen=True, **inf))):
+        _same("scan_blocks, %s, vs the CPU" % label,
+              blocks(c, "cuda", c["do_fix"]), blocks(c, "cpu", c["do_fix"]))
+        cases += 1
+    torch.cuda.synchronize()
+    log("scan edges: scan_pair and scan_blocks bit-identical to their plain "
+        "versions on the CPU in %d cases (B = 1, 2, 256 at Wp = 32, 256, "
+        "1024; no valid lane, ties both ways, +inf gains, per-child valid "
+        "masks, one-lane windows, fix lanes, G < Gp, inf times a zero "
+        "penalty)" % cases)
 
 
 def _same(name, a, b):
@@ -535,8 +659,9 @@ SMALL_CHILDREN = (1024, 8192, 16384)
 
 def phase_payload_kernels(inner, meta, gc, params):
     """root_hist, seg_hist, split_pass, level_pass and level_seg_hist
-    against their plain versions at the persistent grower's HIGGS shapes;
-    returns their kernel records."""
+    against their plain versions at the persistent grower's HIGGS shapes,
+    and scan_pair at B = 256 on the level's children; returns (their kernel
+    records, scan_pair's numbers at B = 256)."""
     import torch
     from lightgbm_torch.ops import payload_kernels as pk
     from lightgbm_torch.ops.payload import build_assets
@@ -733,13 +858,13 @@ def phase_payload_kernels(inner, meta, gc, params):
               "library_ms": None, "inpass_hist_ms": hist_ms}
     records.append(sp_rec)
     records.append(seg_rec)
-    level_recs, cons = phase_level_kernels(pay, cpu, second0, assets, inner,
-                                           meta, gc, params)
+    level_recs, cons, scan_b256 = phase_level_kernels(
+        pay, cpu, second0, assets, inner, meta, gc, params)
     sp_rec.update(cons)
     records += level_recs
     del pay, cpu, host, assets, second0
     torch.cuda.empty_cache()
-    return records
+    return records, scan_b256
 
 
 def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
@@ -749,7 +874,8 @@ def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
     level written into a copy of the second buffer `second0`; the
     consolidation of half of the slots back into the payload; and scan_pair
     at B = 256 on the level's children. Returns (the two kernel records,
-    the consolidation's numbers for split_pass's record)."""
+    the consolidation's numbers for split_pass's record, scan_pair's
+    numbers at B = 256 for its record)."""
     import torch
     from lightgbm_torch.ops import payload_kernels as pk
     from lightgbm_torch.ops.scan import (ScanLayout, pair_scalars, scan_pair,
@@ -910,32 +1036,48 @@ def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
                   ls_split, ls_lib, ls_bound, ls_by))
 
     # ---- scan_pair at B = 256: both children of every slot -------------------
+    # the level's 256 children are the rows of [256, G * 256] planes, read in
+    # a random order through rows and the layout's gidx
     both = [c for (s0, n_l), nl in zip(slots, p_left)
             for c in ((s0, int(nl)), (s0 + int(nl), n_l - int(nl)))]
     gh, hh = pk.level_seg_hist(part, plan_d, nbw, both)
     sg, sh, cnt = segment_sums(part, nbw, both)
+    order = rng.permutation(len(both))
     group_of, ls, nb = assets.efb[0], assets.efb[1], assets.efb[2]
     start = group_of.astype(np.int64) * 256 + ls
     layout = ScanLayout(start, start + nb, meta.missing_type,
                         meta.default_bin, meta.penalty, np.ones(F, bool),
                         gc.scan_width, G * 256, dev)
     sc = torch.as_tensor(pair_scalars(
-        sg, sh, cnt, params.lambda_l2, params.min_gain_to_split,
-        params.min_data_in_leaf, params.min_sum_hessian_in_leaf), device=dev)
-    args = (sc, gh[:, layout.gidx].contiguous(),
-            hh[:, layout.gidx].contiguous(), layout.keep_r, layout.keep_f,
-            layout.valid_r, layout.valid_f, layout.aux)
-    k = scan_pair(*args)
-    _same("scan_pair B=%d: two launches" % len(both), k, scan_pair(*args))
+        sg[order], sh[order], cnt[order], params.lambda_l2,
+        params.min_gain_to_split, params.min_data_in_leaf,
+        params.min_sum_hessian_in_leaf), device=dev)
+    masks = (layout.keep_r, layout.keep_f, layout.valid_r, layout.valid_f,
+             layout.aux)
+    maps = {"rows": torch.as_tensor(order, device=dev), "gidx": layout.gidx}
+    k = scan_pair(sc, gh, hh, *masks, **maps)
+    _same("scan_pair B=%d: two launches" % len(both), k,
+          scan_pair(sc, gh, hh, *masks, **maps))
     _same("scan_pair B=%d vs the plain version on the CPU" % len(both), k,
-          scan_pair_plain(*[a.cpu() for a in args]))
-    sp_ms = device_ms(lambda: scan_pair(*args))
-    sp_bound, _ = bound_ms(sum(a.numel() * 4 for a in args) + k.numel() * 4,
-                           40.0 * args[1].numel())
-    log("scan_pair B=%d F=%d Wp=%d (the level's children): bit-identical to "
-        "the plain version on the CPU; median time per call %.4f ms, bound "
-        "%.6f ms" % (len(both), F, layout.Wp, sp_ms, sp_bound))
-    del part, sub, gh, hh, args, k
+          scan_pair(sc.cpu(), gh.cpu(), hh.cpu(), *[m.cpu() for m in masks],
+                    **{n: v.cpu() for n, v in maps.items()}))
+    sp_ms = device_ms(lambda: scan_pair(sc, gh, hh, *masks, **maps))
+    rows_d = maps["rows"]
+    sp_old = device_ms(lambda: scan_pair(sc, gh[rows_d][:, layout.gidx],
+                                         hh[rows_d][:, layout.gidx], *masks))
+    gb = gh[rows_d][:, layout.gidx]
+    sp_bound, _ = scan_pair_bound(sc, gb, layout, k)
+    log("scan_pair B=%d F=%d Wp=%d (the level's children, rows in a random "
+        "order of [%d, %d] planes): two launches bit-identical, "
+        "bit-identical to the plain version on the CPU; median time per "
+        "call %.4f ms (previous design: %.4f), the gathered sequence (four "
+        "torch gathers, then the kernel on the gathered planes) %.4f ms; "
+        "bound %.6f ms"
+        % (len(both), F, layout.Wp, len(both), G * 256, sp_ms,
+           PREVIOUS_MS["scan_pair B=256"], sp_old, sp_bound))
+    scan_b256 = {"b256_ms": sp_ms, "b256_bound_ms": sp_bound,
+                 "b256_gathers_and_kernel_ms": sp_old}
+    del part, sub, gh, hh, gb, k
     torch.cuda.empty_cache()
     return [
         {"name": "level_pass", "route": "cuda",
@@ -950,7 +1092,7 @@ def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
          "launches": 0, "max_abs_err": err_seg, "ms": ls_ms,
          "plain_ms": ls_plain, "bound_ms": ls_bound, "bound_by": ls_by,
          "library_ms": ls_lib},
-    ], cons
+    ], cons, scan_b256
 
 
 def logloss(y, raw):
@@ -964,9 +1106,11 @@ def logloss(y, raw):
 def phase_block_kernels(inner, meta, gc, params):
     """scan_blocks against its plain version at the bundled path's shape:
     B = 256 children (the 256 segments of the Expo payload cut as a tree
-    level's children), their [G, 256] group planes padded to [Gp, Wp], the
-    dataset's mask stack; and the time of scan_pair over the same planes
-    gathered into per-feature windows. Returns the kernel record."""
+    level's children), read in a random order from their [256, G * 256]
+    group planes in place, with the dataset's mask stack; the gathered
+    sequence (the rows gathered and padded to [Gp, Wp], then the kernel)
+    and scan_pair over the same planes gathered into per-feature windows
+    timed beside it. Returns the kernel record."""
     import torch
     import torch.nn.functional as F_
     from lightgbm_torch.ops import payload_kernels as pk
@@ -991,27 +1135,41 @@ def phase_block_kernels(inner, meta, gc, params):
     segs = random_segments(rng, n, B)
     gh, hh = pk.level_seg_hist(pay, plan_d, nbw, segs)
     sg, sh, cnt = segment_sums(pay, nbw, segs)
-    scal8 = pair_scalars(sg, sh, cnt, params.lambda_l2,
+    order = rng.permutation(B)
+    scal8 = pair_scalars(sg[order], sh[order], cnt[order], params.lambda_l2,
                          params.min_gain_to_split, params.min_data_in_leaf,
                          params.min_sum_hessian_in_leaf)
-    scal = torch.as_tensor(np.concatenate([scal8, sh[:, None]], axis=1),
+    scal = torch.as_tensor(np.concatenate([scal8, sh[order, None]], axis=1),
                            device=dev)
     blk = BlockScanLayout(assets.efb, meta.penalty, G, dev)
     masks = blk.tree_masks(np.ones(inner.num_features, bool))
-    pad = (0, blk.Wp - 256, 0, blk.Gp - G)
-    gb = F_.pad(gh.reshape(B, G, 256), pad)
-    hb = F_.pad(hh.reshape(B, G, 256), pad)
-    args = (scal, gb, hb, masks, blk.do_fix)
+    rows = torch.as_tensor(order, device=dev)
+    args = (scal, gh, hh, masks, blk.do_fix, rows, G)
     k1 = scan_blocks(*args)
     k2 = scan_blocks(*args)
     torch.cuda.synchronize()
     _same("scan_blocks: two launches", k1, k2)
     err = _same("scan_blocks vs the plain version on the CPU", k1,
-                scan_blocks(*[a.cpu() for a in args[:4]], blk.do_fix))
+                scan_blocks(*[a.cpu() if torch.is_tensor(a) else a
+                              for a in args]))
+    pad = (0, blk.Wp - 256, 0, blk.Gp - G)
+
+    def gathered():
+        return (F_.pad(gh[rows].reshape(B, G, 256), pad),
+                F_.pad(hh[rows].reshape(B, G, 256), pad))
+    gb, hb = gathered()
+    _same("scan_blocks: the rows form vs the gathered form", k1,
+          scan_blocks(scal, gb, hb, masks, blk.do_fix))
     fin = torch.isfinite(k1[:, 0]).sum().item()
     ms = device_ms(lambda: scan_blocks(*args))
-    plain_ms = device_ms(lambda: scan_blocks_plain(*args), reps=3, warmup=1)
-    nbytes = sum(a.numel() * 4 for a in args[:4]) + k1.numel() * 4
+    old_ms = device_ms(lambda: scan_blocks(scal, *gathered(), masks,
+                                           blk.do_fix))
+    plain_ms = device_ms(lambda: scan_blocks_plain(scal, gb, hb, masks,
+                                                   blk.do_fix),
+                         reps=3, warmup=1)
+    floor_ms = device_ms(launch_floor)
+    nbytes = (scal.numel() + 2 * B * G * 256 + masks.numel()
+              + k1.numel()) * 4 + B * 8
     b_ms, b_by = bound_ms(nbytes, 40.0 * gb.numel())
     # scan_pair over the same planes gathered into per-feature windows
     start = assets.efb[0].astype(np.int64) * 256 + assets.efb[1]
@@ -1019,20 +1177,22 @@ def phase_block_kernels(inner, meta, gc, params):
                         meta.default_bin, meta.penalty,
                         np.ones(inner.num_features, bool), gc.scan_width,
                         G * 256, dev)
-    pargs = (torch.as_tensor(scal8, device=dev),
-             gh[:, layout.gidx].contiguous(), hh[:, layout.gidx].contiguous(),
-             layout.keep_r, layout.keep_f, layout.valid_r, layout.valid_f,
-             layout.aux)
-    pair_ms = device_ms(lambda: scan_pair(*pargs))
-    log("scan_blocks B=%d G=%d (Gp=%d) Wp=%d, %d features, do_fix=%s: two "
-        "launches bit-identical, bit-identical to the plain version on the "
-        "CPU (%d groups with a split); median time per call: kernel %.4f "
-        "ms, plain %.4f ms, no single PyTorch call computes it; bound "
-        "%.6f ms (%s); scan_pair over the %d gathered per-feature windows "
-        "(Fp=%d, Wp=%d) %.4f ms" % (B, G, blk.Gp, blk.Wp,
-                                    inner.num_features, blk.do_fix, fin, ms,
-                                    plain_ms, b_ms, b_by, inner.num_features,
-                                    layout.Fp, layout.Wp, pair_ms))
+    pargs = (torch.as_tensor(scal8, device=dev), gh, hh, layout.keep_r,
+             layout.keep_f, layout.valid_r, layout.valid_f, layout.aux)
+    pair_ms = device_ms(lambda: scan_pair(*pargs, rows=rows,
+                                          gidx=layout.gidx))
+    log("scan_blocks B=%d G=%d (Gp=%d) Wp=%d, %d features, do_fix=%s, rows "
+        "in a random order of [%d, %d] planes: two launches bit-identical, "
+        "equal to the gathered form, bit-identical to the plain version on "
+        "the CPU (%d groups with a split); median time per call: kernel "
+        "%.4f ms (previous design: %.4f), the gathered sequence (rows "
+        "gathered and padded, then the kernel) %.4f ms, plain %.4f ms, no "
+        "single PyTorch call computes it; launch floor %.4f ms; bound %.6f "
+        "ms (%s); scan_pair over the %d per-feature windows (Fp=%d, Wp=%d) "
+        "%.4f ms"
+        % (B, G, blk.Gp, blk.Wp, inner.num_features, blk.do_fix, B, G * 256,
+           fin, ms, PREVIOUS_MS["scan_blocks"], old_ms, plain_ms, floor_ms,
+           b_ms, b_by, inner.num_features, layout.Fp, layout.Wp, pair_ms))
     del pay, host, assets, gh, hh, gb, hb, args, pargs
     torch.cuda.empty_cache()
     return {"name": "scan_blocks", "route": "cuda",
@@ -1040,7 +1200,8 @@ def phase_block_kernels(inner, meta, gc, params):
             "replaces": "lightgbm_tpu/ops/pallas_scan.py:525",
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None, "launch_floor_ms": floor_ms,
+            "gathers_and_kernel_ms": old_ms}
 
 
 # name: (parameters beyond COMMON, kernels the path launches, kernels it
@@ -1356,6 +1517,8 @@ def phase_profile(bst, card, path):
         % (path, wall_ms, busy, seen, "/".join(kernels),
            sum(wrappers[k].launches for k in names) - before,
            " + ".join(names), 1 - busy / wall_ms, card))
+    log("profile %s: %d device kernels and copies in the profiled "
+        "iteration" % (path, sum(n for _, n, _ in rows)))
     for ms, n, key in rows[:12]:
         log("profile %s:   %9.2f ms  %6d calls  %s" % (path, ms, n, key[:90]))
     log("profile %s: partition stages: %s" % (path, ", ".join(
@@ -1365,6 +1528,17 @@ def phase_profile(bst, card, path):
             sum(n for _, n, key in rows
                 if key.removeprefix("void ").startswith(k + "(")))
         for k in PARTITION_STAGES)))
+    scan = "scan_blocks_kernel" if path == "bundled" else "scan_pair_kernel"
+    gathers = [(ms, n) for ms, n, key in rows
+               if "index" in key.lower() or "gather" in key.lower()]
+    log("profile %s: the split scan %s %.2f ms in %d calls; torch index/"
+        "gather kernels (none of them the scan's operands) %.2f ms in %d "
+        "calls" % (path, scan, sum(ms for ms, _, key in rows
+                                   if key.removeprefix("void ").startswith(
+                                       scan)),
+                   sum(n for _, n, key in rows
+                       if key.removeprefix("void ").startswith(scan)),
+                   sum(ms for ms, _ in gathers), sum(n for _, n in gathers)))
     if any("copy_back" in key for _, _, key in rows):
         raise AssertionError("profile %s: a copy-back kernel ran" % path)
     log("profile %s: histogram partials by wrapper: %s" % (path, ", ".join(
@@ -1493,7 +1667,11 @@ def main() -> int:
     meta, gc = feature_meta(inner), grow_config(cfg, inner)
     split_params = SplitParams.from_config(cfg)
     kernels = phase_kernels(inner.binned, meta, gc, split_params)
-    kernels += phase_payload_kernels(inner, meta, gc, split_params)
+    phase_scan_edges()
+    payload_recs, scan_b256 = phase_payload_kernels(inner, meta, gc,
+                                                    split_params)
+    kernels[1].update(scan_b256)                    # scan_pair's record
+    kernels += payload_recs
     runs = {}
     if not args.skip_train:
         runs["persist"] = phase_train(lgb, X, y, ds, args.iters, card,

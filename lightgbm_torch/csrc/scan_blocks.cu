@@ -2,15 +2,17 @@
 // group planes, for EFB-bundled data.
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/pallas_scan.py:scan_blocks
-// (_scan_blocks_kernel at :372, pallas_call at :543). The TPU kernel takes
-// whole-block prefix sums as triangular matmuls on the MXU and recovers each
-// feature's window sums with segmented nearest-seed fills (log2(W) lane
-// rolls); FixHistogram runs inside it.
+// (:525, kernel _scan_blocks_kernel at :372, pallas_call at :543). The TPU
+// kernel takes whole-block prefix sums as triangular matmuls on the MXU and
+// recovers each feature's window sums with segmented nearest-seed fills
+// (log2(W) lane rolls); FixHistogram runs inside it.
 //
-// Contract (ops/block_scan.py:scan_blocks_plain is the same function in
-// plain PyTorch, bit for bit on the CPU):
+// Contract (ops/block_scan.py:scan_blocks_plain on the padded gathered
+// planes is the same function in plain PyTorch, bit for bit on the CPU):
 //   scal  [B, 9] f32: scan_pair's eight scalars and the raw hessian sum
-//   gb, hb [B, Gp, Wp] f32 group planes
+//   gh, hh [R, G * W] f32 group planes (W <= Wp, G <= Gp); child c reads
+//         row rows[c] (rows [B] i64; NULL reads row c), and lanes of a
+//         group g >= G or a lane w >= W read as 0
 //   masks [8, Gp, Wp] f32, the BM_* rows (keep_r, keep_f, valid_r, valid_f,
 //         window first lane, window last lane, fix lane, penalty)
 //   out   [B, 8, Gp] f32: penalized gain, absolute lane, use_forward, left
@@ -21,192 +23,344 @@
 //
 // What bounds it on an H100: latency. At the Expo shape (B = 256 children,
 // Gp = 24, Wp = 256) it reads 2 * 256 * 24 * 256 * 4 bytes of planes, about
-// 12.6 MB, a few microseconds of the card's bandwidth; each block runs a
-// Wp-step dependent chain of f64 adds per prefix sum.
+// 12.6 MB, a few microseconds of the card's bandwidth. The dependent chains
+// are each window's f64 prefix sums: as long as a dense group's 255 lanes,
+// one or two lanes in a one-hot bundle (Expo: 640 one-hot features in 10
+// of its 18 groups).
 //
-// Design. One block per (group, child), one thread per lane. The prefix
-// sums are sequential f64 sums in shared memory, one thread per quantity,
-// restarted at each window's first lane and rounded to f32 at every lane:
-// the order of scan_pair.cu, so a singleton group gives scan_pair's sums bit
-// for bit, and no segmented fill is needed. Each thread then evaluates both
-// directions at its lane, and block reductions pick the best lane with the
-// reference's tie rules (REVERSE: highest lane; forward: lowest; forward
-// only on a strictly greater gain). Compiled with -fmad=false, so every
-// product and sum rounds as in the plain version.
-#include "block_reduce.cuh"
+// Design. K warps per (group, child) as in scan_pair.cu: one at the
+// level's B = 256 (6144 warps, no block barrier), up to eight at a small
+// batch. The warps read the child's plane row through rows themselves (no
+// padded copy), a thread issuing its loads for up to 8 of its lanes at once:
+// one ballot per 32 lanes of the window-first, window-last and fix masks
+// gives each lane its window end (the first last lane at or after it,
+// __ffs) and the list of windows, in parallel. Each
+// chain then runs from its window's first lane to its last, one thread per
+// (window, quantity): FixHistogram's two sums (only windows with a fix
+// lane; only the f32 total at the last lane is kept), then the six prefix
+// sums of scan_pair (scan_common.cuh:chain_prefix, a register f64 chain).
+// The windows of a group run at once on the pair's threads; a dense
+// (singleton) group is one window as wide as the group, whose six chains run
+// in lockstep on lanes 0-5 as in scan_pair. Restarting the sum at each
+// window's first lane is what the plain version does, so the bits are the
+// same; lanes outside every window are never chosen (their valid masks are
+// 0) and are left as staged. Each thread evaluates both directions at its
+// Wp / 32 / K lanes; the penalty is applied before the key, and one warp
+// reduction of scan_pair's packed key per direction (plus one cross-warp
+// stage when K > 1) picks the lane
+// (REVERSE: the highest lane of the best penalized gain; forward: the
+// lowest; forward only on a strictly greater gain). A penalized gain is
+// NaN only as inf * 0 (l2 = 0 and a zero penalty); then the plain version's
+// maximum is NaN and no lane equals it, so the direction has no split: the
+// kernel gives such a lane a key above every other (SCAN_POISON) and reads
+// a poisoned maximum as no split. Compiled with -fmad=false.
+#include "scan_common.cuh"
 
 enum {
   BM_KEEP_R = 0, BM_KEEP_F, BM_VALID_R, BM_VALID_F, BM_SEED_S, BM_SEED_E,
   BM_FIX, BM_PEN
 };
 
-// In-place windowed prefix of p[0, Wp): a sequential f64 sum restarted at
-// the lanes where start[i] is set, rounded to f32 at every lane.
-__device__ void windowed_prefix(float* p, const unsigned char* start,
-                                int Wp) {
-  double acc = 0.0;
-  for (int i = 0; i < Wp; ++i) {
-    if (start[i]) acc = 0.0;
-    acc += (double)p[i];
-    p[i] = (float)acc;
-  }
+// Bytes of shared memory one pair takes at Wp lanes: the six f64 rows, the
+// two raw f32 rows, three ballot words per 32 lanes and the window list,
+// rounded up to 16 so that the next pair's rows stay aligned.
+static __host__ __device__ int blocks_pair_smem(int Wp) {
+  const int bytes = SCAN_ROWS * row_stride(Wp) * 8 + 2 * Wp * 4 +
+                    3 * (Wp / 32) * 4 + 2 * Wp * 2;
+  return (bytes + 15) & ~15;
+}
+
+// A direction whose best penalized gain is NaN: above every real key, so
+// it survives the maximum, and read back as "no split".
+#define SCAN_POISON 0xffffffffffffffffull
+
+// The last lane of the window holding lane w: the first set bit at or after
+// w of the window-last ballots, Wp - 1 past the last one (the plain
+// version's _window_end).
+static __device__ __forceinline__ int window_end(const unsigned* ends,
+                                                 int nwords, int w) {
+  int k = w >> 5;
+  unsigned m = ends[k] & (SCAN_FULL << (w & 31));
+  while (!m && ++k < nwords) m = ends[k];
+  return m ? (k << 5) + __ffs(m) - 1 : (nwords << 5) - 1;
+}
+
+// The bits of ballot word k (lanes 32k to 32k + 31) inside lanes [a, e].
+static __device__ __forceinline__ unsigned window_bits(unsigned bits, int k,
+                                                       int a, int e) {
+  if (k == (a >> 5)) bits &= SCAN_FULL << (a & 31);
+  if (k == (e >> 5)) bits &= (2u << (e & 31)) - 1u;   // 0 - 1 at e & 31 = 31
+  return bits;
 }
 
 __global__ void scan_blocks_kernel(const float* __restrict__ scal,
-                                   const float* __restrict__ gb,
-                                   const float* __restrict__ hb,
+                                   const float* __restrict__ gh,
+                                   const float* __restrict__ hh,
+                                   const long long* __restrict__ rows,
+                                   int G, int W,
                                    const float* __restrict__ masks,
-                                   int do_fix, int Gp, int Wp,
+                                   int do_fix, int B, int Gp, int Wp, int K,
                                    float* __restrict__ out) {
-  __shared__ float pre[6 * SP_MAX_LANES];
-  __shared__ unsigned char start[SP_MAX_LANES];
-  __shared__ unsigned char last[SP_MAX_LANES];
-  __shared__ int wend[SP_MAX_LANES];
-  __shared__ float red[SP_MAX_WARPS];
-  __shared__ float at_t[6];
-
-  const int g = blockIdx.x;
-  const int c = blockIdx.y;
-  const int w = threadIdx.x;
-  const int lane = w & 31;
-  const int warp = w >> 5;
-  const int nwarps = blockDim.x >> 5;
+  extern __shared__ double scan_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  // K = 1: warp `warp` of the block owns its pair; K > 1: the block's K
+  // warps share one pair, warp kw taking the 32-lane chunks kw, kw + K, ...
+  const int slot = K == 1 ? warp : 0;
+  const int kw = K == 1 ? 0 : warp;
+  const int pair = K == 1 ? blockIdx.x * nw + warp : blockIdx.x;
+  if (pair >= B * Gp) return;            // the whole warp: no block barrier
+  const int g = pair % Gp;
+  const int c = pair / Gp;
+  const int stride = row_stride(Wp);
+  const int nwords = Wp >> 5;
+  const int tid = kw * 32 + lane;        // thread of the pair, of 32 K
+  unsigned char* base = reinterpret_cast<unsigned char*>(scan_smem) +
+                        (size_t)slot * blocks_pair_smem(Wp);
+  double* R = reinterpret_cast<double*>(base);
+  float* raw = reinterpret_cast<float*>(R + SCAN_ROWS * stride);
+  unsigned* starts = reinterpret_cast<unsigned*>(raw + 2 * Wp);
+  unsigned* ends = starts + nwords;
+  unsigned* fixes = ends + nwords;
+  short* ws = reinterpret_cast<short*>(fixes + nwords);
+  short* we = ws + Wp;
+  unsigned long long* red = reinterpret_cast<unsigned long long*>(
+      reinterpret_cast<unsigned char*>(scan_smem) +
+      (size_t)(K == 1 ? nw : 1) * blocks_pair_smem(Wp));
   const float NEG_INF = -INFINITY;
 
   const float* s = scal + c * 9;
   const float sg = s[0], sh = s[1], nd = s[2], cf = s[3];
   const float min_data = s[4], min_hess = s[5], mgs = s[6], l2 = s[7];
   const float sh_raw = s[8];
-
   const size_t plane = (size_t)Gp * Wp;
-  const size_t m_idx = (size_t)g * Wp + w;
-  const size_t b_idx = ((size_t)c * Gp + g) * Wp + w;
-  float gv = gb[b_idx];
-  float hv = hb[b_idx];
-  const float kr = masks[BM_KEEP_R * plane + m_idx];
-  const float kf = masks[BM_KEEP_F * plane + m_idx];
-  const float vr = masks[BM_VALID_R * plane + m_idx];
-  const float vf = masks[BM_VALID_F * plane + m_idx];
-  const float fixm = masks[BM_FIX * plane + m_idx];
-  const float pen = masks[BM_PEN * plane + m_idx];
-  start[w] = masks[BM_SEED_S * plane + m_idx] > 0.f;
-  last[w] = masks[BM_SEED_E * plane + m_idx] > 0.f;
+  const float* mg = masks + (size_t)g * Wp;    // + BM_* * plane + lane
 
-  // FixHistogram: each fix lane takes total - window sum
-  if (do_fix) {
-    pre[w] = gv;
-    pre[Wp + w] = hv;
-  }
-  __syncthreads();
-  if (w == Wp - 1) {          // the window's last lane, seen from each lane
-    int cur = Wp - 1;
-    for (int i = Wp - 1; i >= 0; --i) {
-      if (last[i]) cur = i;
-      wend[i] = cur;
+  // the window structure of the group, one ballot per 32 lanes, and the
+  // child's raw plane row, zero past G groups and W lanes; a thread's
+  // loads for up to SCAN_BATCH of its lanes are issued together
+  const int nj = (nwords - kw + K - 1) / K;      // this warp's chunks
+  const long long row = rows ? rows[c] : (long long)c;
+  const float* gsrc = gh + row * ((long long)G * W) + (long long)g * W;
+  const float* hsrc = hh + row * ((long long)G * W) + (long long)g * W;
+  for (int j0 = 0; j0 < nj; j0 += SCAN_BATCH) {
+    float ss[SCAN_BATCH], se[SCAN_BATCH], sx[SCAN_BATCH];
+    float gv[SCAN_BATCH], hv[SCAN_BATCH];
+#pragma unroll
+    for (int j = 0; j < SCAN_BATCH; ++j) {
+      if (j0 + j >= nj) break;
+      const int w = ((kw + (j0 + j) * K) << 5) + lane;
+      const bool in = g < G && w < W;
+      ss[j] = mg[BM_SEED_S * plane + w];
+      se[j] = mg[BM_SEED_E * plane + w];
+      sx[j] = mg[BM_FIX * plane + w];
+      gv[j] = in ? gsrc[w] : 0.f;
+      hv[j] = in ? hsrc[w] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < SCAN_BATCH; ++j) {
+      if (j0 + j >= nj) break;
+      const int k = kw + (j0 + j) * K;
+      const unsigned bs = __ballot_sync(SCAN_FULL, ss[j] > 0.f);
+      const unsigned be = __ballot_sync(SCAN_FULL, se[j] > 0.f);
+      const unsigned bx = __ballot_sync(SCAN_FULL, sx[j] > 0.f);
+      if (lane == 0) {
+        starts[k] = bs;
+        ends[k] = be;
+        fixes[k] = bx;
+      }
+      raw[(k << 5) + lane] = gv[j];
+      raw[Wp + (k << 5) + lane] = hv[j];
     }
   }
-  if (do_fix && w < 2) windowed_prefix(pre + w * Wp, start, Wp);
-  __syncthreads();
-  const int e = wend[w];
-  if (do_fix && fixm > 0.f) {
-    gv = gv + (sg - pre[e]);
-    hv = hv + (sh_raw - pre[Wp + e]);
+  pair_sync(K);
+  // the list of windows in lane order: window i runs from ws[i] to we[i]
+  int nwin = 0;
+  for (int k = 0; k < nwords; ++k) {
+    const unsigned bs = starts[k];
+    if (k % K == kw && ((bs >> lane) & 1u)) {
+      const int i = nwin + __popc(bs & ((1u << lane) - 1u));
+      ws[i] = (short)((k << 5) + lane);
+      we[i] = (short)window_end(ends, nwords, (k << 5) + lane);
+    }
+    nwin += __popc(bs);
   }
-  __syncthreads();
+  pair_sync(K);
 
-  // six windowed prefix sums: REVERSE-side (g, h, cnt) and forward-side
-  const float cnt = floorf(hv * cf + 0.5f);
-  pre[0 * Wp + w] = gv * kr;
-  pre[1 * Wp + w] = hv * kr;
-  pre[2 * Wp + w] = cnt * kr;
-  pre[3 * Wp + w] = gv * kf;
-  pre[4 * Wp + w] = hv * kf;
-  pre[5 * Wp + w] = cnt * kf;
-  __syncthreads();
-  if (w < 6) windowed_prefix(pre + w * Wp, start, Wp);
-  __syncthreads();
+  // FixHistogram: a window's fix lane takes x + (total - the window's f32
+  // sum of the raw values); one thread per (window, grad or hess), and
+  // only windows holding a fix lane sum
+  if (do_fix) {
+    for (int t = tid; t < 2 * nwin; t += 32 * K) {
+      const int i = t >> 1, q = t & 1;
+      const int a = ws[i], e = we[i];
+      bool any = false;
+      for (int k = a >> 5; k <= e >> 5; ++k)
+        any |= window_bits(fixes[k], k, a, e) != 0u;
+      if (!any) continue;
+      float* x = raw + q * Wp;
+      double acc = 0.0;
+      for (int l = a; l <= e; ++l) acc += (double)x[l];
+      const float d = (q ? sh_raw : sg) - (float)acc;
+      for (int k = a >> 5; k <= e >> 5; ++k) {
+        for (unsigned m = window_bits(fixes[k], k, a, e); m; m &= m - 1u) {
+          const int l = (k << 5) + __ffs(m) - 1;
+          x[l] = x[l] + d;
+        }
+      }
+    }
+    pair_sync(K);
+  }
 
-  // REVERSE: the right side is the window's total minus the prefix
-  const float r_grad = pre[0 * Wp + e] - pre[0 * Wp + w];
-  const float r_hess = pre[1 * Wp + e] - pre[1 * Wp + w];
-  const float r_cnt = pre[2 * Wp + e] - pre[2 * Wp + w];
-  const float l_cnt = nd - r_cnt;
-  const float l_grad = sg - r_grad;
-  const float l_hess = sh - r_hess;
-  bool ok_r = (vr > 0.f) && (r_cnt >= min_data) && (r_hess >= min_hess) &&
-              (l_cnt >= min_data) && (l_hess >= min_hess);
-  const float gain_r = (l_grad * l_grad) / (l_hess + l2) +
-                       (r_grad * r_grad) / (r_hess + l2);
-  ok_r = ok_r && (gain_r > mgs);
-  const float pg_r = ok_r ? (gain_r - mgs) * pen : NEG_INF;
+  // stage the six masked rows: r-direction (g, h, cnt), then forward; the
+  // valid masks become one bit per lane (bit j: the thread's j-th lane)
+  // and the penalty takes the raw grad's place in `raw`
+  unsigned valid_rb = 0, valid_fb = 0;
+  for (int j0 = 0; j0 < nj; j0 += SCAN_BATCH) {
+    float kr[SCAN_BATCH], kf[SCAN_BATCH], vr[SCAN_BATCH], vf[SCAN_BATCH];
+    float pen[SCAN_BATCH];
+#pragma unroll
+    for (int j = 0; j < SCAN_BATCH; ++j) {
+      if (j0 + j >= nj) break;
+      const int w = ((kw + (j0 + j) * K) << 5) + lane;
+      kr[j] = mg[BM_KEEP_R * plane + w];
+      kf[j] = mg[BM_KEEP_F * plane + w];
+      vr[j] = mg[BM_VALID_R * plane + w];
+      vf[j] = mg[BM_VALID_F * plane + w];
+      pen[j] = mg[BM_PEN * plane + w];
+    }
+#pragma unroll
+    for (int j = 0; j < SCAN_BATCH; ++j) {
+      if (j0 + j >= nj) break;
+      const int w = ((kw + (j0 + j) * K) << 5) + lane;
+      const float gv = raw[w], hv = raw[Wp + w];
+      const float cnt = floorf(hv * cf + 0.5f);
+      R[0 * stride + w] = (double)(gv * kr[j]);
+      R[1 * stride + w] = (double)(hv * kr[j]);
+      R[2 * stride + w] = (double)(cnt * kr[j]);
+      R[3 * stride + w] = (double)(gv * kf[j]);
+      R[4 * stride + w] = (double)(hv * kf[j]);
+      R[5 * stride + w] = (double)(cnt * kf[j]);
+      raw[w] = pen[j];
+      valid_rb |= (unsigned)(vr[j] > 0.f) << (j0 + j);
+      valid_fb |= (unsigned)(vf[j] > 0.f) << (j0 + j);
+    }
+  }
+  pair_sync(K);
+  // the six prefix sums of every window, one thread per (window, row)
+  for (int t = tid; t < SCAN_ROWS * nwin; t += 32 * K) {
+    const int i = t / SCAN_ROWS;
+    chain_prefix(R + (t % SCAN_ROWS) * stride, ws[i], we[i]);
+  }
+  pair_sync(K);
 
-  // forward: the left side is the prefix
-  const float f_l_grad = pre[3 * Wp + w];
-  const float f_l_hess = pre[4 * Wp + w];
-  const float f_l_cnt = pre[5 * Wp + w];
-  const float f_r_cnt = nd - f_l_cnt;
-  const float f_r_grad = sg - f_l_grad;
-  const float f_r_hess = sh - f_l_hess;
-  bool ok_f = (vf > 0.f) && (f_l_cnt >= min_data) && (f_l_hess >= min_hess) &&
-              (f_r_cnt >= min_data) && (f_r_hess >= min_hess);
-  const float gain_f = (f_l_grad * f_l_grad) / (f_l_hess + l2) +
-                       (f_r_grad * f_r_grad) / (f_r_hess + l2);
-  ok_f = ok_f && (gain_f > mgs);
-  const float pg_f = ok_f ? (gain_f - mgs) * pen : NEG_INF;
+  unsigned long long best_r = 0, best_f = 0;
+#pragma unroll 4
+  for (int j = 0; j < nj; ++j) {
+    const int w = ((kw + j * K) << 5) + lane;
+    const int e = window_end(ends, nwords, w);
+    const float pen = raw[w];
 
-  const float big = 1073741824.f;  // 2^30
-  const float best_gain_r = block_max(pg_r, red, lane, warp, nwarps);
-  const float best_t_r = block_max(
-      (ok_r && pg_r == best_gain_r) ? (float)w : -1.f, red, lane, warp,
-      nwarps);
-  const float best_gain_f = block_max(pg_f, red, lane, warp, nwarps);
-  const float best_t_f = block_min(
-      (ok_f && pg_f == best_gain_f) ? (float)w : big, red, lane, warp,
-      nwarps);
+    // REVERSE: the right side is the window's total minus the prefix
+    const float r_grad = (float)R[0 * stride + e] - (float)R[0 * stride + w];
+    const float r_hess = (float)R[1 * stride + e] - (float)R[1 * stride + w];
+    const float r_cnt = (float)R[2 * stride + e] - (float)R[2 * stride + w];
+    const float l_cnt = nd - r_cnt;
+    const float l_grad = sg - r_grad;
+    const float l_hess = sh - r_hess;
+    const float gain_r = (l_grad * l_grad) / (l_hess + l2) +
+                         (r_grad * r_grad) / (r_hess + l2);
+    const bool ok_r = ((valid_rb >> j) & 1u) && (r_cnt >= min_data) &&
+                      (r_hess >= min_hess) && (l_cnt >= min_data) &&
+                      (l_hess >= min_hess) && (gain_r > mgs);
+    if (ok_r) {
+      const float pg = (gain_r - mgs) * pen;
+      const unsigned long long key =
+          isnan(pg) ? SCAN_POISON : pack_key(pg, (unsigned)w);
+      best_r = key > best_r ? key : best_r;
+    }
 
-  const bool has_r = best_t_r >= 0.f;
-  const bool has_f = best_t_f < big;
-  const float bg_r = has_r ? best_gain_r : NEG_INF;
-  const float bg_f = has_f ? best_gain_f : NEG_INF;
+    // forward: the left side is the prefix
+    const float f_l_grad = (float)R[3 * stride + w];
+    const float f_l_hess = (float)R[4 * stride + w];
+    const float f_l_cnt = (float)R[5 * stride + w];
+    const float f_r_cnt = nd - f_l_cnt;
+    const float f_r_grad = sg - f_l_grad;
+    const float f_r_hess = sh - f_l_hess;
+    const float gain_f = (f_l_grad * f_l_grad) / (f_l_hess + l2) +
+                         (f_r_grad * f_r_grad) / (f_r_hess + l2);
+    const bool ok_f = ((valid_fb >> j) & 1u) && (f_l_cnt >= min_data) &&
+                      (f_l_hess >= min_hess) && (f_r_cnt >= min_data) &&
+                      (f_r_hess >= min_hess) && (gain_f > mgs);
+    if (ok_f) {
+      const float pg = (gain_f - mgs) * pen;
+      const unsigned long long key =
+          isnan(pg) ? SCAN_POISON : pack_key(pg, (unsigned)(Wp - 1 - w));
+      best_f = key > best_f ? key : best_f;
+    }
+  }
+  if (!pair_max_keys(&best_r, &best_f, red, K, kw, lane)) return;
+  if (best_r == SCAN_POISON) best_r = 0;
+  if (best_f == SCAN_POISON) best_f = 0;
+
+  const bool has_r = best_r != 0;
+  const bool has_f = best_f != 0;
+  const float bg_r = has_r ? from_order_bits((unsigned)(best_r >> 32))
+                           : NEG_INF;
+  const float bg_f = has_f ? from_order_bits((unsigned)(best_f >> 32))
+                           : NEG_INF;
+  const int t_r = has_r ? (int)(unsigned)best_r : -1;
+  const int t_f = has_f ? Wp - 1 - (int)(unsigned)best_f : -1;
   const bool use_f = bg_f > bg_r;
-  const float group_t = use_f ? best_t_f : best_t_r;
+  const int t = use_f ? t_f : t_r;
   const bool has_any = has_r || has_f;
 
-  if (w == 0) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) at_t[k] = 0.f;
+  // the left side at the chosen lane (0 when no lane is chosen)
+  float lg = 0.f, lh = 0.f, lc = 0.f;
+  if (t >= 0 && use_f) {
+    lg = (float)R[3 * stride + t];
+    lh = (float)R[4 * stride + t];
+    lc = (float)R[5 * stride + t];
+  } else if (t >= 0) {
+    const int e = window_end(ends, nwords, t);
+    lg = sg - ((float)R[0 * stride + e] - (float)R[0 * stride + t]);
+    lh = sh - ((float)R[1 * stride + e] - (float)R[1 * stride + t]);
+    lc = nd - ((float)R[2 * stride + e] - (float)R[2 * stride + t]);
   }
-  __syncthreads();
-  if ((float)w == group_t) {
-    at_t[0] = f_l_grad; at_t[1] = f_l_hess; at_t[2] = f_l_cnt;
-    at_t[3] = l_grad; at_t[4] = l_hess; at_t[5] = l_cnt;
-  }
-  __syncthreads();
-  if (w == 0) {
-    float* o = out + (size_t)c * 8 * Gp + g;
-    o[0 * Gp] = has_any ? (use_f ? bg_f : bg_r) : NEG_INF;
-    o[1 * Gp] = group_t;
-    o[2 * Gp] = use_f ? 1.f : 0.f;
-    o[3 * Gp] = use_f ? at_t[0] : at_t[3];
-    o[4 * Gp] = use_f ? at_t[1] : at_t[4];
-    o[5 * Gp] = use_f ? at_t[2] : at_t[5];
-    o[6 * Gp] = has_any ? 1.f : 0.f;
-    o[7 * Gp] = 0.f;
-  }
+  float* o = out + (size_t)c * 8 * Gp + g;
+  o[0 * Gp] = has_any ? (use_f ? bg_f : bg_r) : NEG_INF;
+  o[1 * Gp] = (float)t;
+  o[2 * Gp] = use_f ? 1.f : 0.f;
+  o[3 * Gp] = lg;
+  o[4 * Gp] = lh;
+  o[5 * Gp] = lc;
+  o[6 * Gp] = has_any ? 1.f : 0.f;
+  o[7 * Gp] = 0.f;
 }
 
-// Launches the scan of B children on `stream`: one block per (group,
-// child), Wp threads (a multiple of 32, at most 1024). Returns
-// cudaGetLastError() after the launch.
-extern "C" int scan_blocks_launch(const void* scal, const void* gb,
-                                  const void* hb, const void* masks,
-                                  int do_fix, int B, int Gp, int Wp,
-                                  void* out, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid(Gp, B);
-  scan_blocks_kernel<<<grid, Wp, 0, s>>>(
-      static_cast<const float*>(scal), static_cast<const float*>(gb),
-      static_cast<const float*>(hb), static_cast<const float*>(masks),
-      do_fix, Gp, Wp, static_cast<float*>(out));
+// Launches the scan of B children on `stream` (scan_common.cuh:scan_shape:
+// K warps per (group, child)). rows may be NULL (row c for child c). Wp is
+// a multiple of 32 in [32, 1024], W <= Wp, G <= Gp. Returns the CUDA error
+// of the launch, 0 on success.
+extern "C" int scan_blocks_launch(const void* scal, const void* gh,
+                                  const void* hh, const void* rows, int G,
+                                  int W, const void* masks, int do_fix,
+                                  int B, int Gp, int Wp, void* out,
+                                  void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int pairs = B * Gp;
+  const int pair_smem = blocks_pair_smem(Wp);
+  const ScanShape sh = scan_shape(pairs, pair_smem, 2);
+  const int smem = sh.K == 1 ? sh.nw * pair_smem
+                             : pair_smem + 2 * sh.K * (int)sizeof(double);
+  const int err = scan_allow_smem(scan_blocks_kernel, smem);
+  if (err) return err;
+  const int blocks = sh.K == 1 ? (pairs + sh.nw - 1) / sh.nw : pairs;
+  scan_blocks_kernel<<<blocks, sh.nw * 32, smem, st>>>(
+      static_cast<const float*>(scal), static_cast<const float*>(gh),
+      static_cast<const float*>(hh), static_cast<const long long*>(rows), G,
+      W, static_cast<const float*>(masks), do_fix, B, Gp, Wp, sh.K,
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

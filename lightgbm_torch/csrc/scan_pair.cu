@@ -1,193 +1,271 @@
 // scan_pair: best split per feature for a batch of B children.
 //
-// Replaces the TPU kernel lightgbm_tpu/ops/pallas_scan.py:scan_pair
-// (_scan_kernel), the fused form of the reference's
+// Replaces the TPU kernel lightgbm_tpu/ops/pallas_scan.py:scan_pair (:262,
+// kernel _scan_kernel at :128), the fused form of the reference's
 // FeatureHistogram::FindBestThresholdSequentially
 // (src/treelearner/feature_histogram.hpp:770-948) on the fast path: f32,
 // L2 only, no monotone constraints, no max_delta_step.
 //
-// Contract (the port's ops/scan.py:scan_pair_plain is the same function in
-// plain PyTorch):
+// Contract (ops/scan.py: scan_pair_plain on the gathered planes is the same
+// function in plain PyTorch, bit for bit):
 //   scal  [B, 8] f32: sum_grad, sum_hess (+2e-15, added by the caller),
 //         num_data, cnt_factor, min_data, min_hess, min_gain_shift, l2
-//   gb, hb [B, Fp, Wp] f32 per-feature bin grad/hess
+//   gh, hh [R, TBp] f32 histogram planes; child c's bin lane w of feature
+//         f is gh[rows[c], gidx[f, w]] (rows [B] i64, gidx [Fp, Wp] i64).
+//         rows == NULL reads row c, gidx == NULL reads f * Wp + w: the
+//         gathered form, [B, Fp, Wp] planes with TBp = Fp * Wp.
 //   keep_r, keep_f [Fp, Wp] f32 prefix-sum masks per scan direction
 //   valid_r, valid_f [Fp, Wp] (shared) or [B, Fp, Wp] f32 threshold masks
 //   aux   [8, Fp] f32, row 0 the feature penalty
 //   out   [B, 8, Fp] f32: gain, threshold, use_forward, left grad, left
 //         hess, left count, has_split, 0
 //
-// What bounds it on an H100: latency. At the main path's shape (B = 2,
-// Fp = 32, Wp = 256) it reads 2*2*32*256*4 + 4*32*256*4 bytes, about
-// 0.2 MB, and does a few thousand operations per feature: far below a
-// microsecond of the card's bandwidth or arithmetic. Its 64 blocks fill
-// half the SMs once, so its time is the launch and the dependent chain of
-// the Wp-step prefix sums and the block reductions.
+// What bounds it on an H100: latency. At the per-split shape (B = 2,
+// Fp = 32, Wp = 256) it reads about 0.2 MB (the byte bound is under 0.1 us)
+// and does a few thousand operations per feature. Its time is the launch
+// plus the longest dependent chain: Wp steps of an f64 add in each of the
+// six masked prefix sums, which must run in lane order to keep the plain
+// version's bits, then the IEEE divisions of the gains. At B = 256 the
+// 8192 (feature, child) pairs run side by side, as many at once as their
+// 12 KB of shared memory each lets an SM hold.
 //
-// Design. One block per (feature, child), one thread per bin lane. The
-// TPU's triangular-matmul prefix sums of the six masked quantities become
-// six sequential f64 running sums in shared memory, one thread each,
-// rounded to f32 at every lane: the plain version's cumsum in f64, bit for
-// bit, so the card and the CPU pick the same splits. Each thread then
-// evaluates both directions' gain and validity at its lane, and block
-// reductions pick the best threshold with the reference's tie rules:
-// REVERSE keeps the highest threshold among equal gains, forward the
-// lowest, and forward wins only on a strictly greater gain. The arithmetic
-// is compiled with -fmad=false so every product and sum rounds as in the
-// plain version. Against the TPU kernel's f32 matmul prefix sums, gains
-// agree to f32 rounding.
-#include "block_reduce.cuh"
+// Design. One warp per (feature, child) when the batch fills the card
+// (B = 256: 8192 warps, 8 per block, no block barrier); at a small batch
+// (B = 2: 64 pairs) K = 8 warps share each pair, one pair per block, so
+// the staging and the gain evaluation, whose IEEE divisions dominate a
+// lone warp, are split 8 ways (scan_common.cuh:scan_shape). The warps read
+// the child's plane row through rows/gidx themselves, so the grower
+// gathers nothing; a thread issues its index, mask and plane loads for up
+// to 8 of its lanes at once, so the staging waits on two memory round
+// trips, not on one per lane. They stage the six masked rows (g, h, count,
+// each times keep_r and keep_f) in shared memory as f64, all lanes
+// converting. Lanes 0-5 of the first warp then run the six prefix sums in
+// lockstep, each a register f64 chain whose inputs are loaded a block
+// ahead (scan_common.cuh:chain_prefix): the plain version's sequential
+// cumsum, rounded to f32 when read, bit for bit. Each lane evaluates both
+// directions at its thresholds (Wp / 32 / K of them) and keeps the best key
+// per direction; one warp reduction per direction, plus one cross-warp
+// stage when K > 1, picks the threshold. The key is a u64: the gain's
+// order-preserving bits above, the tie-break below (REVERSE: the lane, so
+// the highest threshold wins a tie; forward: Wp - 1 - lane, the lowest).
+// Invalid lanes have no key. A valid gain exceeds min_gain_shift, which is
+// leaf_gain (>= 0, the hessian sum is positive) plus min_gain_to_split
+// (>= 0), so it is never -0.0 or NaN: its key orders exactly as the float
+// comparisons of the plain version, +inf (l2 = 0 with a zero-hessian side)
+// included. Forward wins only on a strictly greater gain, compared as
+// floats after decoding. Compiled with -fmad=false; no fast math, no
+// approximate division.
+//
+// The two count rows are integer-valued (floor(h * cf + 0.5) times a 0/1
+// mask), so while their partial sums stay below 2^53 every f64 add is
+// exact and any order gives the same bits (tests/test_torch_scan_rows.py
+// checks this on the plain version). They run as chains here all the same:
+// in the warp's lockstep, lanes 4-5 add no step to lanes 0-3, and a
+// parallel scan would save only their share of the conversions.
+#include "scan_common.cuh"
 
 __global__ void scan_pair_kernel(const float* __restrict__ scal,
-                                 const float* __restrict__ gb,
-                                 const float* __restrict__ hb,
+                                 const float* __restrict__ gh,
+                                 const float* __restrict__ hh,
+                                 const long long* __restrict__ rows,
+                                 const long long* __restrict__ gidx,
+                                 long long tbp,
                                  const float* __restrict__ keep_r,
                                  const float* __restrict__ keep_f,
                                  const float* __restrict__ valid_r,
                                  const float* __restrict__ valid_f,
                                  int valid_batched,
-                                 const float* __restrict__ aux, int Fp,
-                                 int Wp, float* __restrict__ out) {
-  __shared__ float pre[6 * SP_MAX_LANES];
-  __shared__ float red[SP_MAX_WARPS];
-  __shared__ float at_t[6];
-
-  const int f = blockIdx.x;
-  const int c = blockIdx.y;
-  const int w = threadIdx.x;
-  const int lane = w & 31;
-  const int warp = w >> 5;
-  const int nwarps = blockDim.x >> 5;
+                                 const float* __restrict__ aux, int B,
+                                 int Fp, int Wp, int K,
+                                 float* __restrict__ out) {
+  extern __shared__ double scan_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  // K = 1: warp `warp` of the block owns its pair; K > 1: the block's K
+  // warps share one pair, warp kw taking the 32-lane chunks kw, kw + K, ...
+  const int slot = K == 1 ? warp : 0;
+  const int kw = K == 1 ? 0 : warp;
+  const int pair = K == 1 ? blockIdx.x * nw + warp : blockIdx.x;
+  if (pair >= B * Fp) return;            // the whole warp: no block barrier
+  const int f = pair % Fp;
+  const int c = pair / Fp;
+  const int stride = row_stride(Wp);
+  double* R = scan_smem + (size_t)slot * SCAN_ROWS * stride;
+  unsigned long long* red = reinterpret_cast<unsigned long long*>(
+      scan_smem + (size_t)(K == 1 ? nw : 1) * SCAN_ROWS * stride);
   const float NEG_INF = -INFINITY;
 
   const float* s = scal + c * 8;
   const float sg = s[0], sh = s[1], nd = s[2], cf = s[3];
   const float min_data = s[4], min_hess = s[5], mgs = s[6], l2 = s[7];
+  const long long row = rows ? rows[c] : (long long)c;
+  const float* gsrc = gh + row * tbp;
+  const float* hsrc = hh + row * tbp;
 
-  const size_t m_idx = (size_t)f * Wp + w;
-  const size_t b_idx = ((size_t)c * Fp + f) * Wp + w;
-  const size_t v_idx = valid_batched ? b_idx : m_idx;
-  const float g = gb[b_idx];
-  const float h = hb[b_idx];
-  const float kr = keep_r[m_idx];
-  const float kf = keep_f[m_idx];
-  const float cnt = floorf(h * cf + 0.5f);
-
-  // six masked inclusive prefix sums, r-direction (g, h, cnt) and
-  // f-direction: each a sequential f64 sum over the lanes, rounded to f32
-  // at every lane (one thread per quantity)
-  pre[0 * Wp + w] = g * kr;
-  pre[1 * Wp + w] = h * kr;
-  pre[2 * Wp + w] = cnt * kr;
-  pre[3 * Wp + w] = g * kf;
-  pre[4 * Wp + w] = h * kf;
-  pre[5 * Wp + w] = cnt * kf;
-  __syncthreads();
-  if (w < 6) {
-    float* p = pre + w * Wp;
-    double acc = 0.0;
-    for (int i = 0; i < Wp; ++i) {
-      acc += (double)p[i];
-      p[i] = (float)acc;
+  // stage the six masked rows: r-direction (g, h, cnt), then forward. A
+  // thread's loads for up to SCAN_BATCH of its lanes are issued together
+  // (index maps and masks, then the planes), and the valid masks are kept
+  // as one bit per lane (bit j: the thread's j-th lane).
+  const int nj = (Wp / 32 - kw + K - 1) / K;     // this warp's chunks
+  unsigned valid_rb = 0, valid_fb = 0;
+  for (int j0 = 0; j0 < nj; j0 += SCAN_BATCH) {
+    long long src[SCAN_BATCH];
+    float kr[SCAN_BATCH], kf[SCAN_BATCH], vr[SCAN_BATCH], vf[SCAN_BATCH];
+    float g[SCAN_BATCH], h[SCAN_BATCH];
+#pragma unroll
+    for (int j = 0; j < SCAN_BATCH; ++j) {
+      if (j0 + j >= nj) break;
+      const int w = ((kw + (j0 + j) * K) << 5) + lane;
+      const size_t m = (size_t)f * Wp + w;
+      const size_t v = valid_batched ? (size_t)c * Fp * Wp + m : m;
+      src[j] = gidx ? gidx[m] : (long long)m;
+      kr[j] = keep_r[m];
+      kf[j] = keep_f[m];
+      vr[j] = valid_r[v];
+      vf[j] = valid_f[v];
+    }
+#pragma unroll
+    for (int j = 0; j < SCAN_BATCH; ++j) {
+      if (j0 + j >= nj) break;
+      g[j] = gsrc[src[j]];
+      h[j] = hsrc[src[j]];
+    }
+#pragma unroll
+    for (int j = 0; j < SCAN_BATCH; ++j) {
+      if (j0 + j >= nj) break;
+      const int w = ((kw + (j0 + j) * K) << 5) + lane;
+      const float cnt = floorf(h[j] * cf + 0.5f);
+      R[0 * stride + w] = (double)(g[j] * kr[j]);
+      R[1 * stride + w] = (double)(h[j] * kr[j]);
+      R[2 * stride + w] = (double)(cnt * kr[j]);
+      R[3 * stride + w] = (double)(g[j] * kf[j]);
+      R[4 * stride + w] = (double)(h[j] * kf[j]);
+      R[5 * stride + w] = (double)(cnt * kf[j]);
+      valid_rb |= (unsigned)(vr[j] > 0.f) << (j0 + j);
+      valid_fb |= (unsigned)(vf[j] > 0.f) << (j0 + j);
     }
   }
-  __syncthreads();
-  const float gr_c = pre[0 * Wp + w], hr_c = pre[1 * Wp + w];
-  const float cr_c = pre[2 * Wp + w], gl_c = pre[3 * Wp + w];
-  const float hl_c = pre[4 * Wp + w], cl_c = pre[5 * Wp + w];
-  const float gr_tot = pre[1 * Wp - 1], hr_tot = pre[2 * Wp - 1];
-  const float cr_tot = pre[3 * Wp - 1];
+  pair_sync(K);
+  if (kw == 0 && lane < SCAN_ROWS) chain_prefix(R + lane * stride, 0, Wp - 1);
+  pair_sync(K);
 
-  // REVERSE: the right side accumulates from the high bins
-  const float r_grad = gr_tot - gr_c;
-  const float r_hess = hr_tot - hr_c;
-  const float r_cnt = cr_tot - cr_c;
-  const float l_cnt = nd - r_cnt;
-  const float l_grad = sg - r_grad;
-  const float l_hess = sh - r_hess;
-  bool ok_r = (valid_r[v_idx] > 0.f) && (r_cnt >= min_data) &&
-              (r_hess >= min_hess) && (l_cnt >= min_data) &&
-              (l_hess >= min_hess);
-  float gain_r = (l_grad * l_grad) / (l_hess + l2) +
-                 (r_grad * r_grad) / (r_hess + l2);
-  ok_r = ok_r && (gain_r > mgs);
-  gain_r = ok_r ? gain_r : NEG_INF;
+  const float gr_tot = (float)R[0 * stride + Wp - 1];
+  const float hr_tot = (float)R[1 * stride + Wp - 1];
+  const float cr_tot = (float)R[2 * stride + Wp - 1];
+  unsigned long long best_r = 0, best_f = 0;
+#pragma unroll 4
+  for (int j = 0; j < nj; ++j) {
+    const int w = ((kw + j * K) << 5) + lane;
+    const float gr_c = (float)R[0 * stride + w];
+    const float hr_c = (float)R[1 * stride + w];
+    const float cr_c = (float)R[2 * stride + w];
+    const float gl_c = (float)R[3 * stride + w];
+    const float hl_c = (float)R[4 * stride + w];
+    const float cl_c = (float)R[5 * stride + w];
 
-  // forward: the left side accumulates from the low bins
-  const float f_r_cnt = nd - cl_c;
-  const float f_r_grad = sg - gl_c;
-  const float f_r_hess = sh - hl_c;
-  bool ok_f = (valid_f[v_idx] > 0.f) && (cl_c >= min_data) &&
-              (hl_c >= min_hess) && (f_r_cnt >= min_data) &&
-              (f_r_hess >= min_hess);
-  float gain_f = (gl_c * gl_c) / (hl_c + l2) +
-                 (f_r_grad * f_r_grad) / (f_r_hess + l2);
-  ok_f = ok_f && (gain_f > mgs);
-  gain_f = ok_f ? gain_f : NEG_INF;
+    // REVERSE: the right side accumulates from the high bins
+    const float r_grad = gr_tot - gr_c;
+    const float r_hess = hr_tot - hr_c;
+    const float r_cnt = cr_tot - cr_c;
+    const float l_cnt = nd - r_cnt;
+    const float l_grad = sg - r_grad;
+    const float l_hess = sh - r_hess;
+    const float gain_r = (l_grad * l_grad) / (l_hess + l2) +
+                         (r_grad * r_grad) / (r_hess + l2);
+    const bool ok_r = ((valid_rb >> j) & 1u) && (r_cnt >= min_data) &&
+                      (r_hess >= min_hess) && (l_cnt >= min_data) &&
+                      (l_hess >= min_hess) && (gain_r > mgs);
+    if (ok_r) {
+      const unsigned long long key = pack_key(gain_r, (unsigned)w);
+      best_r = key > best_r ? key : best_r;
+    }
 
-  const float big = 1073741824.f;  // 2^30
-  const float best_gain_r = block_max(gain_r, red, lane, warp, nwarps);
-  const float best_t_r = block_max(
-      (ok_r && gain_r == best_gain_r) ? (float)w : -1.f, red, lane, warp,
-      nwarps);
-  const float best_gain_f = block_max(gain_f, red, lane, warp, nwarps);
-  const float best_t_f = block_min(
-      (ok_f && gain_f == best_gain_f) ? (float)w : big, red, lane, warp,
-      nwarps);
+    // forward: the left side accumulates from the low bins
+    const float f_r_cnt = nd - cl_c;
+    const float f_r_grad = sg - gl_c;
+    const float f_r_hess = sh - hl_c;
+    const float gain_f = (gl_c * gl_c) / (hl_c + l2) +
+                         (f_r_grad * f_r_grad) / (f_r_hess + l2);
+    const bool ok_f = ((valid_fb >> j) & 1u) && (cl_c >= min_data) &&
+                      (hl_c >= min_hess) && (f_r_cnt >= min_data) &&
+                      (f_r_hess >= min_hess) && (gain_f > mgs);
+    if (ok_f) {
+      const unsigned long long key =
+          pack_key(gain_f, (unsigned)(Wp - 1 - w));
+      best_f = key > best_f ? key : best_f;
+    }
+  }
+  if (!pair_max_keys(&best_r, &best_f, red, K, kw, lane)) return;
 
-  const bool has_r = best_t_r >= 0.f;
-  const bool has_f = best_t_f < big;
-  const float bg_r = has_r ? best_gain_r : NEG_INF;
-  const float bg_f = has_f ? best_gain_f : NEG_INF;
+  const bool has_r = best_r != 0;
+  const bool has_f = best_f != 0;
+  const float bg_r = has_r ? from_order_bits((unsigned)(best_r >> 32))
+                           : NEG_INF;
+  const float bg_f = has_f ? from_order_bits((unsigned)(best_f >> 32))
+                           : NEG_INF;
+  const int t_r = has_r ? (int)(unsigned)best_r : -1;
+  const int t_f = has_f ? Wp - 1 - (int)(unsigned)best_f : -1;
   const bool use_f = bg_f > bg_r;
   const float feat_gain = use_f ? bg_f : bg_r;
-  const float feat_t = use_f ? best_t_f : best_t_r;
+  const int t = use_f ? t_f : t_r;
   const bool has_any = has_r || has_f;
 
-  // prefix sums at the chosen threshold (zero when no lane is chosen)
-  if (w == 0) {
+  // the prefix sums at the chosen threshold (zero when none is chosen)
+  float at[SCAN_ROWS];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) at_t[k] = 0.f;
-  }
-  __syncthreads();
-  if ((float)w == feat_t) {
-    at_t[0] = gl_c; at_t[1] = hl_c; at_t[2] = cl_c;
-    at_t[3] = gr_c; at_t[4] = hr_c; at_t[5] = cr_c;
-  }
-  __syncthreads();
-  if (w == 0) {
-    const float lg = use_f ? at_t[0] : sg - (gr_tot - at_t[3]);
-    const float lh = use_f ? at_t[1] : sh - (hr_tot - at_t[4]);
-    const float lc = use_f ? at_t[2] : nd - (cr_tot - at_t[5]);
-    const float pen = aux[f];
-    float* o = out + (size_t)c * 8 * Fp + f;
-    o[0 * Fp] = has_any ? (feat_gain - mgs) * pen : NEG_INF;
-    o[1 * Fp] = feat_t;
-    o[2 * Fp] = use_f ? 1.f : 0.f;
-    o[3 * Fp] = lg;
-    o[4 * Fp] = lh;
-    o[5 * Fp] = lc;
-    o[6 * Fp] = has_any ? 1.f : 0.f;
-    o[7 * Fp] = 0.f;
-  }
+  for (int q = 0; q < SCAN_ROWS; ++q)
+    at[q] = t >= 0 ? (float)R[q * stride + t] : 0.f;
+  const float lg = use_f ? at[3] : sg - (gr_tot - at[0]);
+  const float lh = use_f ? at[4] : sh - (hr_tot - at[1]);
+  const float lc = use_f ? at[5] : nd - (cr_tot - at[2]);
+  float* o = out + (size_t)c * 8 * Fp + f;
+  o[0 * Fp] = has_any ? (feat_gain - mgs) * aux[f] : NEG_INF;
+  o[1 * Fp] = (float)t;
+  o[2 * Fp] = use_f ? 1.f : 0.f;
+  o[3 * Fp] = lg;
+  o[4 * Fp] = lh;
+  o[5 * Fp] = lc;
+  o[6 * Fp] = has_any ? 1.f : 0.f;
+  o[7 * Fp] = 0.f;
 }
 
-// Launches the scan of B children on `stream`; one block per (feature,
-// child), Wp threads (a multiple of 32, at most 1024). Returns
-// cudaGetLastError() after the launch.
-extern "C" int scan_pair_launch(const void* scal, const void* gb,
-                                const void* hb, const void* keep_r,
-                                const void* keep_f, const void* valid_r,
-                                const void* valid_f, int valid_batched,
-                                const void* aux, int B, int Fp, int Wp,
-                                void* out, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid(Fp, B);
-  scan_pair_kernel<<<grid, Wp, 0, s>>>(
-      static_cast<const float*>(scal), static_cast<const float*>(gb),
-      static_cast<const float*>(hb), static_cast<const float*>(keep_r),
-      static_cast<const float*>(keep_f), static_cast<const float*>(valid_r),
-      static_cast<const float*>(valid_f), valid_batched,
-      static_cast<const float*>(aux), Fp, Wp, static_cast<float*>(out));
+// Launches the scan of B children on `stream` (scan_common.cuh:scan_shape:
+// K warps per (feature, child)). rows/gidx may be NULL (the gathered
+// form). Wp is a multiple of 32 in [32, 1024]. Returns the CUDA error of
+// the launch, 0 on success.
+extern "C" int scan_pair_launch(const void* scal, const void* gh,
+                                const void* hh, const void* rows,
+                                const void* gidx, long long tbp,
+                                const void* keep_r, const void* keep_f,
+                                const void* valid_r, const void* valid_f,
+                                int valid_batched, const void* aux, int B,
+                                int Fp, int Wp, void* out, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int pairs = B * Fp;
+  const int pair_smem = SCAN_ROWS * row_stride(Wp) * (int)sizeof(double);
+  const ScanShape sh = scan_shape(pairs, pair_smem, 1);
+  const int smem = sh.K == 1 ? sh.nw * pair_smem
+                             : pair_smem + 2 * sh.K * (int)sizeof(double);
+  const int err = scan_allow_smem(scan_pair_kernel, smem);
+  if (err) return err;
+  const int blocks = sh.K == 1 ? (pairs + sh.nw - 1) / sh.nw : pairs;
+  scan_pair_kernel<<<blocks, sh.nw * 32, smem, st>>>(
+      static_cast<const float*>(scal), static_cast<const float*>(gh),
+      static_cast<const float*>(hh), static_cast<const long long*>(rows),
+      static_cast<const long long*>(gidx), tbp,
+      static_cast<const float*>(keep_r), static_cast<const float*>(keep_f),
+      static_cast<const float*>(valid_r), static_cast<const float*>(valid_f),
+      valid_batched, static_cast<const float*>(aux), B, Fp, Wp, sh.K,
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+__global__ void empty_kernel() {}
+
+// The launch floor: one launch of a kernel that does nothing, timed beside
+// the scans (chip_smoke.py); not on any path.
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

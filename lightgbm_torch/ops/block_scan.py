@@ -9,7 +9,10 @@ they are, without gathering a per-feature copy of each window.
 
 :func:`scan_blocks` launches the CUDA kernel (``csrc/scan_blocks.cu``) for
 tensors on the card and takes :func:`scan_blocks_plain`, the same function
-in plain PyTorch, for tensors on the CPU.
+in plain PyTorch, for tensors on the CPU. The kernel reads the grower's
+[G * 256] plane rows in place through the children's rows
+(:func:`scan_blocks_rows_plain` is that form's function), so the grower
+pads and gathers nothing before a scan.
 
 Per (child, group) the function computes, lane by lane:
 
@@ -45,6 +48,7 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils.log import LightGBMError
 from .scan import _round_up
@@ -247,58 +251,109 @@ def scan_blocks_plain(scal, gb, hb, masks, do_fix: bool):
         torch.zeros_like(bg_r)], dim=1)
 
 
-def _check(scal, gb, hb, masks):
-    if gb.dim() != 3:
-        raise LightGBMError("scan_blocks: gb must be [B, Gp, Wp]")
-    B, Gp, Wp = gb.shape
-    want = {"scal": (B, N_BLOCK_SCALARS), "gb": (B, Gp, Wp),
-            "hb": (B, Gp, Wp), "masks": (BM_ROWS, Gp, Wp)}
-    for name, v in (("scal", scal), ("gb", gb), ("hb", hb),
-                    ("masks", masks)):
-        if tuple(v.shape) != want[name] or v.dtype != torch.float32 \
-                or not v.is_contiguous() or v.device != gb.device:
+def scan_blocks_rows_plain(scal, gh, hh, rows, groups: int, masks,
+                           do_fix: bool):
+    """[B, 8, Gp] f32: :func:`scan_blocks_plain` of the children's [G * W]
+    plane rows ``gh[rows]`` / ``hh[rows]``, each group's W lanes padded with
+    zeros to Wp and the groups to Gp. The function of the kernel's rows
+    form."""
+    B = rows.shape[0]
+    Gp, Wp = masks.shape[1:]
+    W = gh.shape[1] // groups
+    pad = (0, Wp - W, 0, Gp - groups)
+    return scan_blocks_plain(
+        scal, F.pad(gh[rows].reshape(B, groups, W), pad),
+        F.pad(hh[rows].reshape(B, groups, W), pad), masks, do_fix)
+
+
+def _bad(name, v, shape, dtype, device):
+    raise LightGBMError(
+        "scan_blocks: %s is %s %s on %s; expected contiguous %s %s on %s"
+        % (name, tuple(v.shape), v.dtype, v.device, dtype, shape, device))
+
+
+def _check(scal, g, h, masks, rows, groups):
+    """(B, Gp, Wp, G, W) of a call, or raise on what the kernel does not
+    take."""
+    if (rows is None) != (groups is None):
+        raise LightGBMError("scan_blocks: rows and groups go together")
+    if masks.dim() != 3:
+        raise LightGBMError("scan_blocks: masks must be [BM_ROWS, Gp, Wp]")
+    Gp, Wp = masks.shape[1:]
+    if rows is None:
+        if g.dim() != 3:
+            raise LightGBMError("scan_blocks: gb must be [B, Gp, Wp]")
+        B, G, W = g.shape[0], Gp, Wp
+        planes = (B, Gp, Wp)
+    else:
+        if g.dim() != 2 or rows.dim() != 1:
+            raise LightGBMError("scan_blocks: the rows form takes gh/hh "
+                                "[R, G * W] and rows [B]")
+        B, G = rows.shape[0], int(groups)
+        W = g.shape[1] // G if G > 0 else 0
+        planes = tuple(g.shape)
+        if not 0 < G <= Gp or G * W != g.shape[1] or not 0 < W <= Wp:
             raise LightGBMError(
-                "scan_blocks: %s is %s %s on %s; expected contiguous float32 "
-                "%s on %s" % (name, tuple(v.shape), v.dtype, v.device,
-                              want[name], gb.device))
+                "scan_blocks: planes of %d lanes are not %d groups of at most "
+                "Wp=%d lanes (Gp=%d)" % (g.shape[1], G, Wp, Gp))
+        if rows.dtype != torch.int64 or not rows.is_contiguous() \
+                or rows.device != g.device:
+            _bad("rows", rows, (B,), torch.int64, g.device)
+    want = {"scal": (B, N_BLOCK_SCALARS), "gb": planes, "hb": planes,
+            "masks": (BM_ROWS, Gp, Wp)}
+    for name, v in (("scal", scal), ("gb", g), ("hb", h), ("masks", masks)):
+        if tuple(v.shape) != want[name] or v.dtype != torch.float32 \
+                or not v.is_contiguous() or v.device != g.device:
+            _bad(name, v, want[name], torch.float32, g.device)
     if Wp % 32 or not 32 <= Wp <= 1024:
         raise LightGBMError("scan_blocks: Wp=%d must be a multiple of 32 in "
                             "[32, 1024]" % Wp)
     if B < 1 or Gp < 1:
         raise LightGBMError("scan_blocks: empty batch (B=%d, Gp=%d)"
                             % (B, Gp))
+    return B, Gp, Wp, G, W
 
 
-def _launch(scal, gb, hb, masks, do_fix):
+def _launch(scal, g, h, masks, do_fix, rows, B, Gp, Wp, G, W):
     from .build import load
     fn = load("scan_blocks").scan_blocks_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, I, I, I, I, P, P]
+    fn.argtypes = [P, P, P, P, I, I, P, I, I, I, I, P, P]
     fn.restype = I
-    B, Gp, Wp = gb.shape
-    out = torch.empty((B, 8, Gp), dtype=torch.float32, device=gb.device)
-    stream = torch.cuda.current_stream(gb.device).cuda_stream
-    err = fn(scal.data_ptr(), gb.data_ptr(), hb.data_ptr(), masks.data_ptr(),
-             int(do_fix), B, Gp, Wp, out.data_ptr(), stream)
+    out = torch.empty((B, 8, Gp), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(scal.data_ptr(), g.data_ptr(), h.data_ptr(),
+             None if rows is None else rows.data_ptr(), G, W,
+             masks.data_ptr(), int(do_fix), B, Gp, Wp, out.data_ptr(),
+             stream)
     if err != 0:
         raise LightGBMError("scan_blocks kernel launch failed: CUDA error %d"
                             % err)
     return out
 
 
-def scan_blocks(scal, gb, hb, masks, do_fix: bool):
+def scan_blocks(scal, g, h, masks, do_fix: bool, rows=None, groups=None):
     """Best split per group for B children: the CUDA kernel for tensors on
     the card, the plain version for tensors on the CPU.
 
-    scal [B, 9] f32 (``pair_scalars``' 8 columns and the raw hessian sum);
-    gb/hb [B, Gp, Wp] group planes; masks [BM_ROWS, Gp, Wp] (a
-    :meth:`BlockScanLayout.tree_masks` stack). Returns [B, 8, Gp] f32."""
-    _check(scal, gb, hb, masks)
-    if gb.device.type == "cpu":
-        return scan_blocks_plain(scal, gb, hb, masks, do_fix)
-    if gb.device.type != "cuda":
-        raise LightGBMError("scan_blocks: no kernel for device %s" % gb.device)
-    out = _launch(scal, gb, hb, masks, do_fix)
+    Two forms of one contract. With ``rows`` and ``groups``, g/h are the
+    grower's [R, G * W] histogram planes (G = groups, W <= Wp), rows [B]
+    int64 the children's plane rows; the kernel reads them in place, groups
+    past G and lanes past W as zeros, and the function is
+    :func:`scan_blocks_rows_plain`. Without, g/h are [B, Gp, Wp] planes
+    already gathered and padded, and the function is
+    :func:`scan_blocks_plain`. scal [B, 9] f32 (``pair_scalars``' 8
+    columns and the raw hessian sum); masks [BM_ROWS, Gp, Wp] (a
+    :meth:`BlockScanLayout.tree_masks` stack). Returns [B, 8, Gp] f32. The
+    caller keeps rows inside the planes (the kernel does not check them)."""
+    B, Gp, Wp, G, W = _check(scal, g, h, masks, rows, groups)
+    if g.device.type == "cpu":
+        if rows is None:
+            return scan_blocks_plain(scal, g, h, masks, do_fix)
+        return scan_blocks_rows_plain(scal, g, h, rows, G, masks, do_fix)
+    if g.device.type != "cuda":
+        raise LightGBMError("scan_blocks: no kernel for device %s" % g.device)
+    out = _launch(scal, g, h, masks, do_fix, rows, B, Gp, Wp, G, W)
     scan_blocks.launches += 1
     return out
 

@@ -21,9 +21,11 @@ the host, driving the device:
     (``smaller_is_left = left_count <= right_count`` from the candidate's
     hessian-recovered counts, as grow.py:1518 decides before the
     partition);
-  * both children are scanned by one ``scan_pair`` launch (B = 2); the
-    root by one launch at B = 1 (the JAX grower scans the root with the
-    general XLA scan, which gives the same split on the fast path);
+  * both children are scanned by one ``scan_pair`` launch (B = 2), which
+    reads their rows of the [L, TB] grad and hess planes through the
+    layout's index map itself; the root by one launch at B = 1 (the JAX
+    grower scans the root with the general XLA scan, which gives the same
+    split on the fast path);
   * the cross-feature argmax and the candidate assembly
     (grow.py:541-702) run on the host in numpy float32 on the kernel's
     small ``[B, 8, Fp]`` output, so leaf selection needs no device work.
@@ -138,19 +140,24 @@ def assemble(gain, feature, threshold, use_f, lg, lh, lc, forced_right,
     return cands
 
 
-def scan_children(gb: torch.Tensor, hb: torch.Tensor, layout: ScanLayout,
-                  params: SplitParams, sgs, shs, cnts, depths,
-                  max_depth: int):
-    """SplitCandidates of B children from their gathered [B, Fp, Wp]
-    grad/hess histograms: one scan_pair launch, then the cross-feature
-    argmax (first maximum = smallest feature id) and the host assembly.
-    `depths` is each child's depth, or one depth for all."""
+def scan_children(gh: torch.Tensor, hh: torch.Tensor, rows,
+                  layout: ScanLayout, params: SplitParams, sgs, shs, cnts,
+                  depths, max_depth: int):
+    """SplitCandidates of B children from their rows of the [R, TB]
+    grad/hess histogram planes: one scan_pair launch, which reads the
+    children's planes through ``rows`` and ``layout.gidx`` itself, then the
+    cross-feature argmax (first maximum = smallest feature id) and the host
+    assembly. `depths` is each child's depth, or one depth for all."""
     scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
                         params.min_gain_to_split, params.min_data_in_leaf,
                         params.min_sum_hessian_in_leaf)
-    out = scan_pair(torch.as_tensor(scal, device=gb.device), gb, hb,
+    dev = gh.device
+    out = scan_pair(torch.as_tensor(scal, device=dev), gh, hh,
                     layout.keep_r, layout.keep_f, layout.valid_r,
-                    layout.valid_f, layout.aux).cpu().numpy()
+                    layout.valid_f, layout.aux,
+                    rows=torch.as_tensor(np.asarray(rows, np.int64),
+                                         device=dev),
+                    gidx=layout.gidx).cpu().numpy()
     bf = np.argmax(out[:, 0], axis=1)
     best = out[np.arange(len(bf)), :, bf]                        # [B, 8]
     return assemble(best[:, 0], bf, best[:, 1], best[:, 2] > 0.5,
@@ -227,15 +234,15 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
     layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
                         meta.default_bin, meta.penalty, feature_mask,
                         gc.scan_width, TB, device)
-    leaf_hist = torch.zeros((L, TB, 2), dtype=torch.float32, device=device)
-    leaf_hist[0] = root_hist
+    # grad and hess planes [2, L, TB]: each is an [L, TB] matrix that the
+    # scan reads through the leaves' rows
+    leaf_hist = torch.zeros((2, L, TB), dtype=torch.float32, device=device)
+    leaf_hist[:, 0] = root_hist.t()
 
     def evaluate(leaves, sgs, shs, cnts, depth_child):
-        rows = torch.as_tensor(leaves, device=device)
-        gb = leaf_hist[rows, :, 0][:, layout.gidx]              # [B, Fp, Wp]
-        hb = leaf_hist[rows, :, 1][:, layout.gidx]
-        return scan_children(gb, hb, layout, params, sgs, shs, cnts,
-                             depth_child, gc.max_depth)
+        return scan_children(leaf_hist[0], leaf_hist[1], leaves, layout,
+                             params, sgs, shs, cnts, depth_child,
+                             gc.max_depth)
 
     best = [SplitCandidate.none() for _ in range(L)]
     best_gain = np.full(L, K_MIN_SCORE, F32)
@@ -268,10 +275,10 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         else:
             small = hist_tb(s0 + n_left, n_right)
             sm_g, sm_h = cand.right_sum_grad, cand.right_sum_hess
-        small = fix_histogram(small, sm_g, sm_h, *meta.fix)
-        larger = leaf_hist[l] - small
-        leaf_hist[l] = small if smaller_is_left else larger
-        leaf_hist[s] = larger if smaller_is_left else small
+        small = fix_histogram(small, sm_g, sm_h, *meta.fix).t()  # [2, TB]
+        larger = leaf_hist[:, l] - small
+        leaf_hist[:, l] = small if smaller_is_left else larger
+        leaf_hist[:, s] = larger if smaller_is_left else small
 
         k = s - 1
         arr["split_leaf"][k] = l

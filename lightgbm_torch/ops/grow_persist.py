@@ -55,8 +55,10 @@ histogram and value are the per-split path's, bit for bit.
 EFB-bundled data (several features in one group) are scanned with the
 bundle-native ``scan_blocks`` over the group planes, FixHistogram inside
 the kernel (:1108-1139); the group argmax, the owner map and the window
-offset give the feature and its threshold. Unbundled data gather each
-feature's window and scan it with ``scan_pair``.
+offset give the feature and its threshold. Unbundled data are scanned with
+``scan_pair``, which reads each feature's window of the planes through the
+layout's ``gidx``. Both scans read the children's rows of the [L, G * 256]
+planes themselves: no gather or pad runs before a scan.
 
 The host loop is Python over numpy leaf state, as in ops/grow.py; leaf
 counts are the kernel's exact n_left (``stat_from_scan=False``) and stay
@@ -69,7 +71,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .block_scan import BlockScanLayout, scan_blocks
 from .grow import TreeArrays, _empty_arrays, assemble, scan_children
@@ -245,23 +246,23 @@ class PersistGrower:
                                               int(a.mf[f]))
         return scal
 
-    def _scan_blocks(self, g2, h2, masks, sgs, shs, cnts, depths):
-        """SplitCandidates of B children from their [B, G * 256] planes
-        through scan_blocks (grow_persist.py:1108-1139): the group argmax
-        (first maximum), the feature from the owner map, the threshold
-        t_abs - ls[f]."""
+    def _scan_blocks(self, gh, hh, rows, masks, sgs, shs, cnts, depths):
+        """SplitCandidates of B children from their rows of the [L, G * 256]
+        planes through scan_blocks, which reads them in place
+        (grow_persist.py:1108-1139): the group argmax (first maximum), the
+        feature from the owner map, the threshold t_abs - ls[f]."""
         params, blk = self.params, self.blocks
-        B = g2.shape[0]
+        B = len(rows)
         scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
                             params.min_gain_to_split,
                             params.min_data_in_leaf,
                             params.min_sum_hessian_in_leaf)
         scal9 = np.concatenate([scal, np.asarray(shs, F32)[:, None]], axis=1)
-        pad = (0, blk.Wp - HIST_W, 0, blk.Gp - self.G)
-        gb = F.pad(g2.reshape(B, self.G, HIST_W), pad)
-        hb = F.pad(h2.reshape(B, self.G, HIST_W), pad)
-        out = scan_blocks(torch.as_tensor(scal9, device=g2.device), gb, hb,
-                          masks, blk.do_fix).cpu().numpy()
+        dev = gh.device
+        out = scan_blocks(torch.as_tensor(scal9, device=dev), gh, hh, masks,
+                          blk.do_fix,
+                          torch.as_tensor(np.asarray(rows, np.int64),
+                                          device=dev), self.G).cpu().numpy()
         bg = np.argmax(out[:, 0], axis=1)
         best = out[np.arange(B), :, bg]                          # [B, 8]
         t_abs = best[:, 1]
@@ -295,8 +296,8 @@ class PersistGrower:
         if self.blocks is not None:
             masks = self.blocks.tree_masks(feature_mask)
 
-            def scan(rows, sgs, shs, cnts, depths):
-                return self._scan_blocks(gh[rows], hh[rows], masks, sgs, shs,
+            def evaluate(leaves, sgs, shs, cnts, depths):
+                return self._scan_blocks(gh, hh, leaves, masks, sgs, shs,
                                          cnts, depths)
         else:
             layout = ScanLayout(self.win_start, self.win_end,
@@ -304,14 +305,9 @@ class PersistGrower:
                                 meta.penalty, feature_mask, gc.scan_width,
                                 TBp, dev)
 
-            def scan(rows, sgs, shs, cnts, depths):
-                return scan_children(gh[rows][:, layout.gidx],  # [B, Fp, Wp]
-                                     hh[rows][:, layout.gidx], layout,
-                                     params, sgs, shs, cnts, depths, md)
-
-        def evaluate(leaves, sgs, shs, cnts, depths):
-            return scan(torch.as_tensor(np.asarray(leaves), device=dev), sgs,
-                        shs, cnts, depths)
+            def evaluate(leaves, sgs, shs, cnts, depths):
+                return scan_children(gh, hh, leaves, layout, params, sgs,
+                                     shs, cnts, depths, md)
 
         st = LeafState(sum_hess=np.zeros(L, F32),
                        count=np.zeros(L, np.int64), value=np.zeros(L, F32),

@@ -8,7 +8,10 @@ max_delta_step; the tree learner refuses every other configuration.
 
 :func:`scan_pair` launches the CUDA kernel (``csrc/scan_pair.cu``) for
 tensors on the card and takes :func:`scan_pair_plain`, the same function in
-plain PyTorch, for tensors on the CPU.
+plain PyTorch, for tensors on the CPU. The kernel reads the grower's
+histogram planes through the children's rows and the layout's ``gidx``
+itself (:func:`scan_pair_rows_plain` is that form's function), so the
+grower gathers nothing before a scan.
 
 Outputs per (child, feature), ``[B, 8, Fp]``: penalized gain (-inf when the
 feature cannot split), local threshold, direction (1 = forward), the left
@@ -193,13 +196,44 @@ def scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
                         has_any.to(gb.dtype), torch.zeros_like(lg)], dim=1)
 
 
-def _check(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
-    if gb.dim() != 3:
-        raise LightGBMError("scan_pair: gb must be [B, Fp, Wp]")
-    B, Fp, Wp = gb.shape
-    want = {"scal": (B, 8), "gb": (B, Fp, Wp), "hb": (B, Fp, Wp),
+def scan_pair_rows_plain(scal, gh, hh, rows, gidx, keep_r, keep_f, valid_r,
+                         valid_f, aux):
+    """[B, 8, Fp] f32: :func:`scan_pair_plain` of the children's planes read
+    through the index maps: child c's lane w of feature f is
+    gh[rows[c], gidx[f, w]]. The function of the kernel's rows/gidx form."""
+    return scan_pair_plain(scal, gh[rows][:, gidx], hh[rows][:, gidx],
+                           keep_r, keep_f, valid_r, valid_f, aux)
+
+
+def _fail(name, v, shape, dtype, device):
+    raise LightGBMError(
+        "scan_pair: %s is %s %s on %s; expected contiguous %s %s on %s"
+        % (name, tuple(v.shape), v.dtype, v.device, dtype, shape, device))
+
+
+def _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx):
+    """(B, Fp, Wp) of a call, or raise on what the kernel does not take."""
+    if (rows is None) != (gidx is None):
+        raise LightGBMError("scan_pair: rows and gidx go together")
+    if rows is None:
+        if g.dim() != 3:
+            raise LightGBMError("scan_pair: gb must be [B, Fp, Wp]")
+        B, Fp, Wp = g.shape
+        planes = (B, Fp, Wp)
+    else:
+        if g.dim() != 2 or rows.dim() != 1 or gidx.dim() != 2:
+            raise LightGBMError("scan_pair: the rows form takes gh/hh "
+                                "[R, TBp], rows [B] and gidx [Fp, Wp]")
+        B, (Fp, Wp) = rows.shape[0], gidx.shape
+        planes = tuple(g.shape)
+        for name, v, shape in (("rows", rows, (B,)),
+                               ("gidx", gidx, (Fp, Wp))):
+            if tuple(v.shape) != shape or v.dtype != torch.int64 \
+                    or not v.is_contiguous() or v.device != g.device:
+                _fail(name, v, shape, torch.int64, g.device)
+    want = {"scal": (B, 8), "gb": planes, "hb": planes,
             "keep_r": (Fp, Wp), "keep_f": (Fp, Wp), "aux": (8, Fp)}
-    got = {"scal": scal, "gb": gb, "hb": hb, "keep_r": keep_r,
+    got = {"scal": scal, "gb": g, "hb": h, "keep_r": keep_r,
            "keep_f": keep_f, "aux": aux, "valid_r": valid_r,
            "valid_f": valid_f}
     for name, v in got.items():
@@ -209,11 +243,9 @@ def _check(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
         else:
             ok = tuple(v.shape) == shape
         if not ok or v.dtype != torch.float32 or not v.is_contiguous() \
-                or v.device != gb.device:
-            raise LightGBMError(
-                "scan_pair: %s is %s %s on %s; expected contiguous float32 "
-                "%s on %s" % (name, tuple(v.shape), v.dtype, v.device,
-                              shape or "(Fp, Wp) or (B, Fp, Wp)", gb.device))
+                or v.device != g.device:
+            _fail(name, v, shape or "(Fp, Wp) or (B, Fp, Wp)", torch.float32,
+                  g.device)
     if tuple(valid_r.shape) != tuple(valid_f.shape):
         raise LightGBMError("scan_pair: valid_r and valid_f differ in shape")
     if Wp % 32 or not 32 <= Wp <= 1024:
@@ -221,18 +253,22 @@ def _check(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
                             "[32, 1024]" % Wp)
     if B < 1 or Fp < 1:
         raise LightGBMError("scan_pair: empty batch (B=%d, Fp=%d)" % (B, Fp))
+    return B, Fp, Wp
 
 
-def _launch(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
+def _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
+            B, Fp, Wp):
     from .build import load
     fn = load("scan_pair").scan_pair_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, P, P, P, I, P, I, I, I, P, P]
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [P, P, P, P, P, L, P, P, P, P, I, P, I, I, I, P, P]
     fn.restype = I
-    B, Fp, Wp = gb.shape
-    out = torch.empty((B, 8, Fp), dtype=torch.float32, device=gb.device)
-    stream = torch.cuda.current_stream(gb.device).cuda_stream
-    err = fn(scal.data_ptr(), gb.data_ptr(), hb.data_ptr(),
+    out = torch.empty((B, 8, Fp), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = fn(scal.data_ptr(), g.data_ptr(), h.data_ptr(),
+             None if rows is None else rows.data_ptr(),
+             None if gidx is None else gidx.data_ptr(),
+             Fp * Wp if rows is None else g.shape[1],
              keep_r.data_ptr(), keep_f.data_ptr(), valid_r.data_ptr(),
              valid_f.data_ptr(), int(valid_r.dim() == 3), aux.data_ptr(),
              B, Fp, Wp, out.data_ptr(), stream)
@@ -242,21 +278,34 @@ def _launch(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
     return out
 
 
-def scan_pair(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
+def scan_pair(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows=None,
+              gidx=None):
     """Best split per feature for B children: the CUDA kernel for tensors
     on the card, the plain version for tensors on the CPU.
 
-    scal [B, 8] (see :func:`pair_scalars`); gb/hb [B, Fp, Wp]; keep masks
-    [Fp, Wp]; valid masks [Fp, Wp] shared or [B, Fp, Wp]; aux [8, Fp] with
-    the penalty in row 0. Returns [B, 8, Fp] f32.
+    Two forms of one contract. With ``rows`` and ``gidx``, g/h are the
+    grower's [R, TBp] histogram planes, rows [B] int64 the children's plane
+    rows and gidx [Fp, Wp] int64 each feature's lanes (``ScanLayout.gidx``);
+    the kernel reads the planes through them, and the function is
+    :func:`scan_pair_rows_plain`. Without, g/h are [B, Fp, Wp] planes
+    already gathered (rows = arange(B), gidx the identity), and the function
+    is :func:`scan_pair_plain`. scal [B, 8] (see :func:`pair_scalars`);
+    keep masks [Fp, Wp]; valid masks [Fp, Wp] shared or [B, Fp, Wp]; aux
+    [8, Fp] with the penalty in row 0. Returns [B, 8, Fp] f32. The caller
+    keeps rows inside the planes (the kernel does not check them).
     """
-    _check(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux)
-    if gb.device.type == "cpu":
-        return scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r,
-                               valid_f, aux)
-    if gb.device.type != "cuda":
-        raise LightGBMError("scan_pair: no kernel for device %s" % gb.device)
-    out = _launch(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux)
+    B, Fp, Wp = _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux,
+                       rows, gidx)
+    if g.device.type == "cpu":
+        if rows is None:
+            return scan_pair_plain(scal, g, h, keep_r, keep_f, valid_r,
+                                   valid_f, aux)
+        return scan_pair_rows_plain(scal, g, h, rows, gidx, keep_r, keep_f,
+                                    valid_r, valid_f, aux)
+    if g.device.type != "cuda":
+        raise LightGBMError("scan_pair: no kernel for device %s" % g.device)
+    out = _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows,
+                  gidx, B, Fp, Wp)
     scan_pair.launches += 1
     return out
 
