@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the eight CUDA kernels from csrc/, in parallel;
+  2. build    nvcc builds the nine CUDA kernels from csrc/, in parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
               scan_pair (the v1 grower), root_hist over all 10.5M payload
@@ -44,7 +44,16 @@ exits non-zero without printing a result:
               call where one computes the same function, the bound, the
               ownership routine for seg_hist (also on small children) and
               level_seg_hist, and, for the level kernels, the 128
-              per-split launches they replace;
+              per-split launches they replace. split_pass and seg_hist
+              are timed in their device form (scalars and segment in
+              device memory, the fixed grids the per-split loop
+              launches); split_pass's device form is also held to the host
+              form, with the done flag set (nothing written or counted)
+              and with the buffer parity flag (second buffer to payload).
+              The grow_step kernels (pick, commit, planes, assemble, the
+              consolidation table, the score update) are held bit for bit
+              against their plain versions on random mid-tree states at
+              the per-split shapes, and timed;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255, binary) on cuda with the default
               routing, along three paths, each wrapper's launch count set
@@ -59,7 +68,16 @@ exits non-zero without printing a result:
               launch counts checked against the trees, splits, level
               programs and per-split splits grown (level programs at most
               max_depth per tree) and, for the consolidation, the trees
-              with a leaf at an odd depth, training logloss falling every
+              with a leaf at an odd depth (hist_window, level_pass and
+              level_seg_hist by their wrappers' counters, every other
+              kernel by its device counter, which a CUDA graph's replays
+              also advance and a no-op step does not); on the per-split
+              path the first iteration runs under
+              set_sync_debug_mode("error"), the second is captured as one
+              CUDA graph, the later ones must be its replays, and one
+              iteration must read the card back exactly once (the
+              graph's node count, capture and replay times printed); a
+              sha256 of each path's model text; training logloss falling every
               iteration, the device scores against the numpy walk (v1:
               1e-9; f32 payload scores: within 2 * (iterations + 1) f32 ulps
               of the largest score), and a model-text round trip;
@@ -85,8 +103,10 @@ kernels, the card's name and power limit, and the result line
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
 scan, scatter, consolidation; a copy-back kernel fails the run), the split
-scan beside the torch index/gather kernels, and the count of device
-kernels and copies.
+scan beside the torch index/gather kernels, the count of device kernels
+and copies, and the host time split into Python, launch calls and time
+blocked in copies that wait for the card, with the grower steps'
+record_function ranges where the iteration runs them eagerly.
 """
 from __future__ import annotations
 
@@ -112,7 +132,8 @@ def _device_events(prof):
     """(device ms, calls, name) of every kernel and copy the card ran."""
     out = []
     for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                or ev.key.startswith("grow::"):   # a range, not a kernel
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
@@ -415,6 +436,139 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
     ]
 
 
+def phase_grow_step():
+    """The grow_step kernels against their plain versions on the CPU, bit
+    for bit, on random mid-tree states at the per-split path's shapes
+    (HIGGS: 255 leaves, 28 features in 28 groups, Fp = 32; Expo's block
+    scan: Gp = 24, Wp = 256) with -inf gains, ties across leaves and
+    features, +inf and NaN scan gains, children at max_depth, zero
+    hessians and forced_right features (the CPU tests' builders,
+    tests/test_torch_step_cases.py); with the done flag set they write
+    nothing. Then the time of one step's four kernels (pick, commit,
+    planes, assemble), of a no-op step, and of the tree's end (the
+    consolidation table and the score update over the 10.5M-lane score
+    row). Returns the kernel record."""
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from test_torch_step_cases import (assert_same_state, on, random_case,
+                                       state_arrays)
+    from lightgbm_torch.ops import grow_step as gs
+
+    def steps(c, mode):
+        S, k = c["S"], c["k"]
+        gs.pick(S, c["feat"], k)
+        l = S.st[gs.ST_LEAF:gs.ST_LEAF + 1]
+        S.st[gs.ST_NLEFT:gs.ST_NLEFT + 1] = S.li[l, gs.LI_NROWS] // 3
+        gs.commit(S, k)
+        gs.planes(S, c["gh"], c["hh"], c["small"])
+        out = c["out_pair"] if mode == gs.SCAN_PAIR else c["out_blocks"]
+        gs.assemble(S, out, mode, c["owner"], c["Wp"], c["feat"], k, True)
+        gs.cons_table(S)
+        gs.apply_scores(S, c["score"], 0.1)
+
+    shapes = {gs.SCAN_PAIR: dict(L=255, F=28, Fp=32, G=28, Gp=32, Wp=256),
+              gs.SCAN_BLOCKS: dict(L=256, F=648, Fp=648, G=18, Gp=24,
+                                   Wp=256)}
+    cases = 0
+    for mode, shape in shapes.items():
+        for seed in range(6):
+            c = random_case(seed, n=1_000_000, **shape)
+            if seed == 4:
+                c["out_pair"][0, 0, 5] = float("inf")
+                c["out_blocks"][1, 0, 2] = float("nan")
+            if seed == 5:
+                c["S"].li[:, gs.LI_DEPTH] = c["k"].max_depth - 1
+            d = on(c, "cuda")
+            steps(c, mode)
+            steps(d, mode)
+            torch.cuda.synchronize()
+            assert_same_state(state_arrays(c["S"]), state_arrays(d["S"]))
+            for key in ("gh", "hh", "score"):
+                _same("grow_step mode %d seed %d: %s" % (mode, seed, key),
+                      d[key], c[key])
+            d["S"].st[gs.ST_DONE] = 1
+            before = state_arrays(d["S"])
+            gh0 = d["gh"].clone()
+            steps(d, mode)
+            after = state_arrays(d["S"])
+            after["st"][0, gs.ST_NLEFT] = before["st"][0, gs.ST_NLEFT]
+            after["tab"] = before["tab"]   # the table is rebuilt every tree
+            assert_same_state(before, after)
+            _same("grow_step with the done flag set: planes", d["gh"], gh0)
+            cases += 1
+    log("grow_step: pick, commit, planes, assemble, the consolidation "
+        "table and the score update bit-identical to their plain versions "
+        "on the CPU in %d random mid-tree states (scan_pair and scan_blocks "
+        "assembly; -inf, +inf and NaN gains, ties across leaves and "
+        "features, children at max_depth, zero hessians, forced_right); "
+        "with the done flag set nothing is written" % cases)
+
+    # ---- times at the HIGGS per-split shape -------------------------------
+    c = on(random_case(11, n=10_500_000, **shapes[gs.SCAN_PAIR]), "cuda")
+    S, k = c["S"], c["k"]
+    S.st[gs.ST_NLEFT] = 1000
+    base = S.blob.clone()
+    kern = {
+        "pick": lambda: gs.pick(S, c["feat"], k),
+        "commit": lambda: gs.commit(S, k),
+        "planes": lambda: gs.planes(S, c["gh"], c["hh"], c["small"]),
+        "assemble": lambda: gs.assemble(S, c["out_pair"], gs.SCAN_PAIR,
+                                        c["owner"], c["Wp"], c["feat"], k,
+                                        True)}
+    times = {}
+    for name, fn in kern.items():
+        S.blob.copy_(base)
+        times[name] = device_ms(fn, sleep_cycles=2_000_000)
+    S.blob.copy_(base)
+    S.st[gs.ST_DONE] = 1
+    noop_ms = device_ms(lambda: [f() for f in kern.values()])
+    S.blob.copy_(base)
+    cons_ms = device_ms(lambda: gs.cons_table(S), sleep_cycles=2_000_000)
+    apply_ms = device_ms(lambda: gs.apply_scores(S, c["score"], 0.1))
+    step_ms = sum(times.values())
+    plain = on(random_case(11, n=10_500_000, **shapes[gs.SCAN_PAIR]), "cuda")
+
+    def plain_step():
+        P = plain["S"]
+        P.blob.copy_(base)
+        gs.pick_plain(P, plain["feat"], k)
+        gs.commit_plain(P, k)
+        gs.planes_plain(P, plain["gh"], plain["hh"], plain["small"])
+        gs.assemble_plain(P, plain["out_pair"], gs.SCAN_PAIR,
+                          plain["owner"], c["Wp"], plain["feat"], k, True)
+    plain_ms = device_ms(plain_step, reps=5, warmup=1)
+    L, TBp, Fp = S.L, c["gh"].shape[1], c["out_pair"].shape[2]
+    # bytes a step must move: the gains, one leaf row and one feature row
+    # (pick); the parent's and the smaller child's planes read, both
+    # children's written (planes); the scan output read and two leaf rows
+    # written (assemble); the split record, scalars and state words
+    nbytes = (L * 4 + 20 * 8 + 10 * 4 + 6 * TBp * 4 + 2 * 8 * Fp * 4
+              + 4 * 20 * 8 + 16 * 4 + 2 * 9 * 4)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * TBp + 4.0 * L + 4.0 * Fp)
+    n = c["score"].shape[0]
+    apply_bound = bound_ms(2.0 * n * 4 + L * 20.0, float(n))[0]
+    log("grow_step at the HIGGS per-split shape (L=%d, G*256=%d, Fp=%d): "
+        "one step's kernels %.4f ms (pick %.4f, commit %.4f, planes %.4f, "
+        "assemble %.4f), plain versions %.4f ms, bound %.6f ms (%s); a "
+        "no-op step (done set) %.4f ms; the end of a tree: the "
+        "consolidation table %.4f ms, the score update over %d lanes %.4f "
+        "ms (bound %.4f ms)"
+        % (L, TBp, Fp, step_ms, times["pick"], times["commit"],
+           times["planes"], times["assemble"], plain_ms, b_ms, b_by,
+           noop_ms, cons_ms, n, apply_ms, apply_bound))
+    del c, plain
+    torch.cuda.empty_cache()
+    return {"name": "grow_step", "route": "cuda",
+            "source": "lightgbm_torch/csrc/grow_step.cu",
+            "replaces": "lightgbm_tpu/ops/grow_persist.py:1533",
+            "launches": 0, "max_abs_err": 0.0, "ms": step_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "kernel_ms": times, "noop_step_ms": noop_ms,
+            "cons_table_ms": cons_ms, "apply_scores_ms": apply_ms,
+            "apply_scores_bound_ms": apply_bound}
+
+
 def phase_scan_edges():
     """scan_pair and scan_blocks against their plain versions on the CPU at
     the edge shapes, bit for bit, in the rows form (planes read in place
@@ -605,6 +759,86 @@ def same_outside(name, dst, dst0, segs, wp_live):
     _same(name + ": rows from wp_live on", dst[wp_live:], dst0[wp_live:])
 
 
+def seg_hist_dev(pay, plan_d, nbw, start, length, max_length):
+    """A call of seg_hist's device form over lanes [start, start + length)
+    (the segment uploaded once, outside the call) with the scratch of a
+    grower whose payload has max_length lanes: the per-split loop's
+    launches, its fixed grids' idle blocks included."""
+    import torch
+    from lightgbm_torch.ops import payload_kernels as pk
+    seg = torch.tensor([start, length], dtype=torch.int64, device=pay.device)
+    out, partial = pk.hist_scratch(pay, plan_d.shape[0], max_length)
+    return lambda: pk.seg_hist_device(pay, plan_d, nbw, seg, out, partial)
+
+
+def run_consolidate_device(src, dst0, tab, wp_live):
+    from lightgbm_torch.ops import payload_kernels as pk
+    dst = dst0.clone()
+    pk.consolidate_device(src, dst, tab, wp_live)
+    return dst
+
+
+def run_consolidate_plain(src, dst0, segs, wp_live):
+    from lightgbm_torch.ops import payload_kernels as pk
+    dst = dst0.clone()
+    pk.consolidate_plain(src, dst, segs, wp_live)
+    return dst
+
+
+def check_split_device(pay, second0, scal, plan_d, nbw, wp_live, run,
+                       n_left):
+    """split_pass's device form against the host form's run `run` (dst,
+    n_left, in-pass histogram) at the path's shape: the same destination,
+    n_left, smaller child and histogram from the scalars in device memory;
+    with the done flag set nothing is written or counted; with the parity
+    flag set the partition runs from the second buffer into the payload,
+    equal to the host form in that direction. Returns the number of
+    checks."""
+    import torch
+    from lightgbm_torch.ops import counters
+    from lightgbm_torch.ops import payload_kernels as pk
+    dev = pay.device
+    G = plan_d.shape[0]
+    scal_d = torch.tensor(scal + [0], dtype=torch.int32, device=dev)
+    res = torch.full((3,), -1, dtype=torch.int64, device=dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    one = torch.ones(1, dtype=torch.int64, device=dev)
+    d = second0.clone()
+    hist = pk.hist_scratch(d, G, scal[pk.S_NL])
+    pk.split_pass_device(pay, d, scal_d, res, plan_d, nbw, wp_live, hist,
+                         done=zero, swap=zero)
+    _same("split_pass device form vs the host form: destination", d, run[0])
+    _same("split_pass device form vs the host form: in-pass histogram",
+          hist[0], torch.stack(run[2]))
+    if res.tolist() != [n_left, *pk._child(scal, n_left)]:
+        raise AssertionError("split_pass device form: res %s, n_left %d"
+                             % (res.tolist(), n_left))
+    before = counters.read(dev)
+    snap = (d.clone(), res.clone(), hist[0].clone())
+    pk.split_pass_device(pay, d, scal_d, res, plan_d, nbw, wp_live, hist,
+                         done=one, swap=zero)
+    for name, a, b in zip(("destination", "res", "histogram"), snap,
+                          (d, res, hist[0])):
+        _same("split_pass with the done flag set: " + name, a, b)
+    if counters.read(dev) != before:
+        raise AssertionError("split_pass with the done flag set was counted")
+    # parity 1: the leaf lives in the second buffer, the children go to
+    # the payload (the host form's second-buffer-to-payload direction)
+    src_b, dst_b = pay[:wp_live].clone(), pay.clone()
+    want = dst_b.clone()
+    pk.split_pass(src_b, want, scal, plan_d, nbw, wp_live, False)
+    pk.split_pass_device(dst_b, src_b, scal_d, res, plan_d, nbw, wp_live,
+                         done=zero, swap=one)
+    _same("split_pass device form with the parity flag vs the host form "
+          "from the second buffer", dst_b, want)
+    log("split_pass device form at %d lanes: destination, n_left, the "
+        "smaller child and the in-pass histogram equal to the host form's; "
+        "the done flag writes and counts nothing; the parity flag runs the "
+        "partition from the second buffer into the payload as the host "
+        "form does" % scal[pk.S_NL])
+    return 4
+
+
 def check_root_hist(pay, cpu, plan, nbw, n, label):
     """root_hist over lanes [0, n) of the payload `pay` (and its CPU copy):
     two launches bit-identical, bit-identical to the plain version on the
@@ -734,7 +968,7 @@ def phase_payload_kernels(inner, meta, gc, params):
         err = max(err, _same("seg_hist, %d lanes from lane %d" % (ln, st),
                              pk.seg_hist(pay, plan_d, nbw, st, ln),
                              pk.seg_hist_plain(cpu, plan_c, nbw, st, ln)))
-    ms = device_ms(lambda: pk.seg_hist(pay, plan_d, *args))
+    ms = device_ms(seg_hist_dev(pay, plan_d, nbw, 777, R, n))
     own_ms = device_ms(lambda: ownership_hist(pay, plan_d, *args))
     plain_ms = device_ms(lambda: pk.seg_hist_plain(pay, plan_d, *args),
                          reps=5)
@@ -744,12 +978,14 @@ def phase_payload_kernels(inner, meta, gc, params):
         "equal to the ownership routine, bit-identical to the plain version "
         "on the CPU (and on every lane in one bin, and on %d ragged "
         "segments: (start, length) %s); median time per call: kernel %.4f "
-        "ms, ownership routine %.4f ms, plain %.4f ms, index_add_ %.4f ms; "
-        "bound %.4f ms (%s)" % (R, len(cases), cases, ms, own_ms, plain_ms,
-                                lib_ms, b_ms, b_by))
+        "ms (the device form: the segment in device memory, the fixed grids "
+        "of a %d-lane payload), ownership routine %.4f ms, plain %.4f ms, "
+        "index_add_ %.4f ms; bound %.4f ms (%s)"
+        % (R, len(cases), cases, ms, n, own_ms, plain_ms, lib_ms, b_ms,
+           b_by))
     log("seg_hist, %d lanes, every lane in bin 7: kernel %.4f ms, ownership "
         "routine %.4f ms, index_add_ %.4f ms" % (
-            R, device_ms(lambda: pk.seg_hist(one, plan_d, *args)),
+            R, device_ms(seg_hist_dev(one, plan_d, nbw, 777, R, n)),
             device_ms(lambda: ownership_hist(one, plan_d, *args)),
             library_hist_segments(one, plan, nbw, [(777, R)])))
     del one
@@ -758,7 +994,8 @@ def phase_payload_kernels(inner, meta, gc, params):
         sa = (nbw, 777, ln)
         log("seg_hist, a small child of %d lanes from lane 777: kernel %.4f "
             "ms, ownership routine %.4f ms, index_add_ %.4f ms; bound %.6f "
-            "ms" % (ln, device_ms(lambda: pk.seg_hist(pay, plan_d, *sa)),
+            "ms" % (ln, device_ms(seg_hist_dev(pay, plan_d, nbw, 777, ln,
+                                                n)),
                     device_ms(lambda: ownership_hist(pay, plan_d, *sa)),
                     library_hist_segments(pay, plan, nbw, [(777, ln)]),
                     bound_ms(ln * lane_bytes + plane_bytes, 2.0 * ln * G)[0]))
@@ -821,8 +1058,10 @@ def phase_payload_kernels(inner, meta, gc, params):
           "child", runs[2][2], pk.seg_hist(part1, plan_d, nbw, *child))
     _same("split_pass's in-pass histogram vs the ownership routine",
           runs[2][2], ownership_hist(part1, plan_d, nbw, *child))
-    hist_ms = device_ms(lambda: pk._launch_hist(
-        "split_pass", "split_pass_hist_launch", part1, plan_d, nbw, *child))
+    child_d = torch.tensor(child, dtype=torch.int64, device=dev)
+    hscr = pk.hist_scratch(part1, G, n)
+    hist_ms = device_ms(lambda: pk._launch_hist_dev(
+        "split_pass_hist_launch", part1, plan_d, nbw, child_d, *hscr, None))
     log("split_pass's in-pass histogram of the smaller child (%d lanes from "
         "lane %d, partitioned buffer): equal to seg_hist's and the "
         "ownership routine's; kernel %.4f ms, seg_hist %.4f ms, ownership "
@@ -833,9 +1072,18 @@ def phase_payload_kernels(inner, meta, gc, params):
             library_hist_segments(part1, plan, nbw, [child]),
             bound_ms(child[1] * lane_bytes + plane_bytes,
                      2.0 * child[1] * G)[0]))
-    del runs, dst_c, p_hist, part1
+    dev_err = check_split_device(pay, second0, scal, plan_d, nbw, wp_live,
+                                 runs[2], p_left)
+    del runs, dst_c, p_hist, part1, hscr
     d = second0.clone()
-    ms = device_ms(lambda: pk._launch_split(pay, d, scal, wp_live))
+    scal_d = torch.tensor(scal, dtype=torch.int32, device=dev)
+    res = torch.empty(3, dtype=torch.int64, device=dev)
+    work = pk.split_scratch(pay)
+    ms = device_ms(lambda: pk._launch_split(pay, d, scal_d, res, wp_live,
+                                            work))
+    done1 = torch.ones(1, dtype=torch.int64, device=dev)
+    noop_ms = device_ms(lambda: pk._launch_split(pay, d, scal_d, res,
+                                                 wp_live, work, done1))
     plain_ms = device_ms(lambda: pk.split_pass_plain(pay, d, scal, plan_d,
                                                      nbw, wp_live, False),
                          reps=5)
@@ -846,16 +1094,18 @@ def phase_payload_kernels(inner, meta, gc, params):
         "buffer and back: two launches bit-identical, bit-identical to the "
         "plain version on the CPU (destination, n_left, the in-pass "
         "histogram), the source and every lane and row outside the segment "
-        "untouched; median time per call: kernel %.4f ms (the partition "
-        "launches, without the wrapper's host sync for n_left), plain %.4f "
-        "ms, no single PyTorch call computes it; bound %.4f ms (%s)"
-        % (R, p_left, ms, plain_ms, b_ms, b_by))
+        "untouched; median time per call: kernel %.4f ms (the device form: "
+        "scalars in device memory, the fixed persistent grids), plain %.4f "
+        "ms, no single PyTorch call computes it; bound %.4f ms (%s); with "
+        "the done flag set (a no-op step) %.4f ms"
+        % (R, p_left, ms, plain_ms, b_ms, b_by, noop_ms))
     sp_rec = {"name": "split_pass", "route": "cuda",
               "source": "lightgbm_torch/csrc/split_pass.cu",
               "replaces": "lightgbm_tpu/ops/pallas_grow.py:292",
               "launches": 0, "max_abs_err": 0.0, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-              "library_ms": None, "inpass_hist_ms": hist_ms}
+              "library_ms": None, "inpass_hist_ms": hist_ms,
+              "noop_ms": noop_ms, "device_form_checks": dev_err}
     records.append(sp_rec)
     records.append(seg_rec)
     level_recs, cons, scan_b256 = phase_level_kernels(
@@ -966,9 +1216,19 @@ def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
     del c_dev, ref, c_cpu
     # timed over every lane: the most a tree can consolidate
     c_dst = pay.clone()
-    ctab = pk._segment_tables(cover, dev)
-    cons_ms = device_ms(lambda: pk._launch_consolidate(part, c_dst, wp_live,
-                                                       ctab))
+    ctab = torch.tensor(cover, dtype=torch.int64, device=dev)
+    cons_ms = device_ms(lambda: pk._launch_consolidate(
+        part, c_dst, wp_live, ctab, -(-NP // 1024), False))
+    # the grower's form: a leaf table of 2 * S entries (the even-depth
+    # leaves with length 0), over the same lanes
+    ltab = torch.zeros((2 * S, 2), dtype=torch.int64, device=dev)
+    ltab[1::2] = ctab
+    _same("consolidate from a %d-entry leaf table vs the plain version on "
+          "the CPU" % (2 * S),
+          run_consolidate_device(part, pay, ltab, wp_live),
+          run_consolidate_plain(sub, cpu, cover, wp_live))
+    cons_dev_ms = device_ms(lambda: pk._launch_consolidate(
+        part, c_dst, wp_live, ltab, -(-NP // 1024), False))
     cons_plain = device_ms(lambda: pk.consolidate_plain(part, c_dst, cover,
                                                         wp_live), reps=5)
     cons_lib = device_ms(lambda: c_dst[:wp_live, :n].copy_(part[:, :n]))
@@ -979,10 +1239,12 @@ def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
         "the payload: equal to one copy_ per segment and bit-identical to "
         "the plain version on the CPU, the source untouched; over all %d "
         "lanes in %d segments, median time per call: kernel %.4f ms, plain "
-        "%.4f ms, one copy_ %.4f ms; bound %.4f ms (%s)"
+        "%.4f ms, one copy_ %.4f ms; bound %.4f ms (%s); from a "
+        "256-entry leaf table (the grower's form) %.4f ms"
         % (len(back), n, S, cons_ms, cons_plain, cons_lib, cons_bound,
-           cons_by))
+           cons_by, cons_dev_ms))
     cons = {"consolidate_ms": cons_ms, "consolidate_plain_ms": cons_plain,
+            "consolidate_leaf_table_ms": cons_dev_ms,
             "consolidate_bound_ms": cons_bound,
             "consolidate_library_ms": cons_lib, "consolidate_launches": 0}
 
@@ -993,8 +1255,12 @@ def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
     lp_plain = device_ms(lambda: pk.level_pass_plain(pay, d, scal, plan_d,
                                                      nbw, wp_live, False),
                          reps=3, warmup=1)
-    rows = [r[:pk.N_SCALARS].tolist() for r in scal if r[pk.S_NL] > 0]
-    lp_split = device_ms(lambda: [pk._launch_split(pay, d, r, wp_live)
+    rows = [torch.tensor(r[:pk.N_SCALARS].tolist(), dtype=torch.int32,
+                         device=dev) for r in scal if r[pk.S_NL] > 0]
+    res = torch.empty(3, dtype=torch.int64, device=dev)
+    work = pk.split_scratch(pay)
+    lp_split = device_ms(lambda: [pk._launch_split(pay, d, r, res, wp_live,
+                                                   work)
                                   for r in rows], reps=5, warmup=1)
     del d
     torch.cuda.empty_cache()
@@ -1020,9 +1286,11 @@ def phase_level_kernels(pay, cpu, second0, assets, inner, meta, gc, params):
                                                          kids),
                          reps=3, warmup=1)
     live = [(st, ln) for st, ln in kids if ln > 0]
-    ls_split = device_ms(lambda: [pk._launch_hist(
-        "seg_hist", "seg_hist_launch", part, plan_d, nbw, st, ln)
-        for st, ln in live], reps=5, warmup=1)
+    live_d = [torch.tensor(c, dtype=torch.int64, device=dev) for c in live]
+    hscr = pk.hist_scratch(part, G, n)
+    ls_split = device_ms(lambda: [pk.seg_hist_device(part, plan_d, nbw, c,
+                                                     *hscr)
+                                  for c in live_d], reps=5, warmup=1)
     ls_lib = library_hist_segments(part, plan, nbw, kids)
     ls_bound, ls_by = bound_ms(small * (4 * nbw + 8) + S * 2 * G * 256 * 4,
                                2.0 * small * G)
@@ -1205,40 +1473,59 @@ def phase_block_kernels(inner, meta, gc, params):
 
 
 # name: (parameters beyond COMMON, kernels the path launches, kernels it
-# must not launch)
+# must not launch). grow_* are the grow_step kernels and apply_scores the
+# score update (ops/grow_step.py).
 COMMON = {"objective": "binary", "max_bin": 255, "verbosity": -1}
+STEPS = ("grow_root", "grow_pick", "grow_commit", "grow_planes",
+         "grow_assemble")
 PATHS = {
     "persist": ({"num_leaves": 255, "tpu_persist_scan": "auto"},
                 ("root_hist", "split_pass", "seg_hist", "scan_pair",
-                 "consolidate"),
+                 "consolidate", "apply_scores") + STEPS,
                 ("hist_window", "level_pass", "level_seg_hist",
                  "scan_blocks")),
     "v1": ({"num_leaves": 255, "tpu_persist_scan": "false"},
            ("hist_window", "scan_pair"),
            ("root_hist", "split_pass", "seg_hist", "level_pass",
-            "level_seg_hist", "scan_blocks", "consolidate")),
+            "level_seg_hist", "scan_blocks", "consolidate",
+            "apply_scores") + STEPS),
     "level": ({"num_leaves": 256, "max_depth": 8},
-              ("root_hist", "level_pass", "level_seg_hist", "scan_pair"),
-              ("hist_window", "scan_blocks")),
+              ("root_hist", "level_pass", "level_seg_hist", "scan_pair",
+               "apply_scores"),
+              ("hist_window", "scan_blocks", "grow_root")),
     "bundled": ({"num_leaves": 256, "max_depth": 8},
-                ("root_hist", "level_pass", "scan_blocks"),
-                ("hist_window", "scan_pair", "seg_hist", "level_seg_hist")),
+                ("root_hist", "level_pass", "scan_blocks", "apply_scores"),
+                ("hist_window", "scan_pair", "seg_hist", "level_seg_hist",
+                 "grow_root")),
 }
+# the kernels whose launches a Python counter counts (they run eagerly on
+# every path); every other kernel of the paths counts its launches on the
+# device (ops/counters.py), replays of a CUDA graph included
+PY_COUNTED = ("hist_window", "level_pass", "level_seg_hist")
 
 
 def _wrappers():
-    from lightgbm_torch.ops.block_scan import scan_blocks
     from lightgbm_torch.ops.histogram import hist_window
-    from lightgbm_torch.ops.payload_kernels import (consolidate, level_pass,
-                                                    level_seg_hist,
-                                                    root_hist, seg_hist,
-                                                    split_pass)
-    from lightgbm_torch.ops.scan import scan_pair
-    return {"hist_window": hist_window, "scan_pair": scan_pair,
-            "root_hist": root_hist, "split_pass": split_pass,
-            "seg_hist": seg_hist, "level_pass": level_pass,
-            "level_seg_hist": level_seg_hist, "scan_blocks": scan_blocks,
-            "consolidate": consolidate}
+    from lightgbm_torch.ops.payload_kernels import level_pass, level_seg_hist
+    return {"hist_window": hist_window, "level_pass": level_pass,
+            "level_seg_hist": level_seg_hist}
+
+
+def reset_counts():
+    """Every launch count to 0: the Python counters of PY_COUNTED and the
+    device counters."""
+    from lightgbm_torch.ops import counters
+    for w in _wrappers().values():
+        w.launches = 0
+    counters.reset("cuda")
+
+
+def read_counts():
+    """The launch counts since reset_counts (reads the device counters)."""
+    from lightgbm_torch.ops import counters
+    out = {name: w.launches for name, w in _wrappers().items()}
+    out.update(counters.read("cuda"))
+    return out
 
 
 def has_odd_leaf(tree) -> bool:
@@ -1258,13 +1545,16 @@ def has_odd_leaf(tree) -> bool:
 
 
 def expected_launches(bst, trees):
-    """Each wrapper's launches for the trees of `bst`: v1 scans and
+    """Each kernel's launches for the trees of `bst`: v1 scans and
     histograms once per node; the persistent grower runs root_hist per
     tree, one level_pass (level_seg_hist when G > 20) and one scan per
     level program, one split_pass (seg_hist when G > 20) and one scan per
-    split of its per-split loop, and one consolidate per tree with a leaf
-    at an odd depth. Returns (counts, per-tree (level programs, per-split
-    splits))."""
+    split of its per-split loop (the device steps after a tree stops
+    growing do nothing and count nothing), the grow_step kernels once per
+    split (grow_root and the root's assembly once per tree without a level
+    phase), one consolidate per tree with a leaf at an odd depth and one
+    score update per tree with a split. Returns (counts, per-tree (level
+    programs, per-split splits))."""
     nodes = sum(t.num_leaves for t in trees)
     if not bst._booster.use_persist:
         return {"hist_window": nodes, "scan_pair": nodes}, []
@@ -1273,17 +1563,80 @@ def expected_launches(bst, trees):
     if len(stats) != len(trees):
         raise AssertionError("grow_stats has %d trees, the model %d"
                              % (len(stats), len(trees)))
+    T = len(trees)
     lv = sum(a for a, _ in stats)
     fb = sum(b for _, b in stats)
     sep = not gr.inpass_hist
+    roots = 0 if gr.use_level else T
     scan = "scan_blocks" if gr.blocks is not None else "scan_pair"
-    return {"root_hist": len(trees), "level_pass": lv, "split_pass": fb,
+    return {"root_hist": T, "level_pass": lv, "split_pass": fb,
             "level_seg_hist": lv if sep else 0, "seg_hist": fb if sep else 0,
-            scan: len(trees) + lv + fb,
-            "consolidate": sum(has_odd_leaf(t) for t in trees)}, stats
+            scan: T + lv + fb,
+            "consolidate": sum(has_odd_leaf(t) for t in trees),
+            "grow_root": roots, "grow_pick": fb, "grow_commit": fb,
+            "grow_planes": fb, "grow_assemble": fb + roots,
+            "apply_scores": sum(t.num_leaves > 1 for t in trees)}, stats
+
+
+def model_digest(bst) -> str:
+    """sha256 of the model text without its parameters block."""
+    import hashlib
+    text = bst.model_to_string().split("\nparameters:")[0]
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def d2h_reads(bst):
+    """One more boosting iteration under torch.profiler (the card's
+    activity only): (its device-to-host copies, host-to-device copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bst.update()
+        torch.cuda.synchronize()
+    dtoh = htod = 0
+    for ev in prof.key_averages():
+        if "Memcpy DtoH" in ev.key:
+            dtoh += ev.count
+        elif "Memcpy HtoD" in ev.key:
+            htod += ev.count
+    return dtoh, htod
 
 
 WALK_ROWS = 1_000_000     # rows the numpy walk checks (it walks ~1M rows/s)
+
+
+def check_graph(bst, gr, path, walls):
+    """The per-split path (no level phase): the first iteration ran eagerly
+    under set_sync_debug_mode("error") (any synchronizing torch operation
+    raises), the second was captured as one CUDA graph, the later ones
+    replayed it; one more iteration reads the card back exactly once. A
+    path with a level phase runs eagerly and is only reported."""
+    if gr.use_level:
+        log("train %s: the level phase runs on the host; its iterations run "
+            "eagerly (no graph)" % path)
+        return
+    if len(walls) >= 3 and (gr._graph is None or gr.replays != len(walls) - 2):
+        raise AssertionError("train %s: %d iterations, %s graph, %d replays"
+                             % (path, len(walls), "a" if gr._graph else "no",
+                                gr.replays))
+    st = gr.graph_stats
+    dtoh, htod = d2h_reads(bst)
+    log("train %s: iteration 1 (eager, set_sync_debug_mode('error')) %.1f "
+        "ms; iteration 2 (capture %.1f ms, instantiate %.1f ms, then the "
+        "first replay) %.1f ms; replayed iterations %.1f ms each (mean of "
+        "%d); the graph has %s nodes; %d replays so far"
+        % (path, walls[0] * 1e3, st.get("capture_ms", float("nan")),
+           st.get("instantiate_ms", float("nan")),
+           (walls[1] if len(walls) > 1 else float("nan")) * 1e3,
+           np.mean(walls[2:]) * 1e3 if len(walls) > 2 else float("nan"),
+           max(len(walls) - 2, 0), st.get("nodes"), gr.replays))
+    log("train %s: device-to-host reads in one iteration: %d (the tree); "
+        "host-to-device copies: %d" % (path, dtoh, htod))
+    if dtoh != 1:
+        raise AssertionError("train %s: %d device-to-host reads in one "
+                             "per-split iteration, expected 1"
+                             % (path, dtoh))
 
 
 def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
@@ -1299,11 +1652,9 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
     extra, used, unused = PATHS[path]
     params = dict(COMMON, **extra)
     y_d = torch.as_tensor(y, device="cuda")
-    wrappers = _wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
-    wall, losses, kept = 0.0, [], None
+    wall, losses, kept, walls = 0.0, [], None, []
     bst = None
     for i in range(iters):
         t = time.time()
@@ -1312,12 +1663,14 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
         else:
             bst.update()
         torch.cuda.synchronize()
-        wall += time.time() - t
+        walls.append(time.time() - t)
+        wall += walls[-1]
         score = bst._booster.train_score.score
         losses.append(logloss(y_d, score))
         if i + 1 == off_iters:
             kept = score.cpu().numpy()
-    counts = {name: w.launches for name, w in wrappers.items()}
+    counts = read_counts()
+    digest = model_digest(bst)
     if bst._booster.use_persist != (path != "v1"):
         raise AssertionError("train %s: the learner took the wrong grower "
                              "(use_persist=%s)"
@@ -1335,12 +1688,17 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
             or any(counts[k] for k in unused):
         raise AssertionError("train %s: launch counts (got, expected) %s, "
                              "all %s" % (path, bad, counts))
-    log("train %s: launches %s (trees %d, splits %d)"
-        % (path, counts, len(trees), sum(splits)))
+    log("train %s: launches %s (trees %d, splits %d; %s counted by the "
+        "wrappers, the rest by the kernels on the device)"
+        % (path, counts, len(trees), sum(splits), "/".join(PY_COUNTED)))
+    log("train %s: model digest %s (sha256 of the model text without its "
+        "parameters, after %d iterations)" % (path, digest, iters))
     if bst._booster.use_persist:
-        sec = bst._booster.tree_learner._persist_gr.second
+        gr = bst._booster.tree_learner._persist_gr
+        sec = gr.second
         log("train %s: the second payload buffer [%d, %d] int32, %d bytes"
             % (path, sec.shape[0], sec.shape[1], sec.numel() * 4))
+        check_graph(bst, gr, path, walls)
     if path in ("level", "bundled"):
         md = PATHS[path][0]["max_depth"]
         if any(not 0 < a <= md for a, _ in stats):
@@ -1426,35 +1784,46 @@ PARTITION_STAGES = ("split_count", "split_scan", "split_scatter",
 
 
 def seg_hist_call_mix(bst):
-    """One more per-split iteration with every seg_hist call's (start,
-    length) recorded, then each call timed again, alone, on the buffer it
-    read, as that iteration left it (each child's lanes hold the same
-    rows, in leaf order): seg_hist against one index_add_ over the same
-    lanes, both on the card's clock behind a short sleep kernel, and the
-    call's bound. Logged in all and by the teams per group the kernel
-    takes at HIGGS's 28 groups on an H100 (up to 4 row blocks: four; 5 to
-    9: two; more: one)."""
+    """One more per-split iteration run eagerly (the grower's capture off),
+    with every seg_hist call's segment and buffer recorded, then each call
+    that did work (the done flag clear) timed again, alone, in the device
+    form on the buffer it read, as that iteration left it (each child's
+    lanes hold the same rows, in leaf order): seg_hist against one
+    index_add_ over the same lanes, both on the card's clock behind a
+    short sleep kernel, and the call's bound. Logged in all and by the
+    teams per group the kernel takes at HIGGS's 28 groups on an H100 (up
+    to 4 row blocks: four; 5 to 9: two; more: one)."""
     import torch
     import lightgbm_torch.ops.grow_persist as gp
-    from lightgbm_torch.ops import payload_kernels as pk
     from lightgbm_torch.ops.histogram import row_blocks
-    calls, real = [], gp.seg_hist
+    gr = bst._booster.tree_learner._persist_gr
+    calls, real = [], gp.seg_hist_device
 
-    def record(pay, plan, nbw, start, length):
-        calls.append((pay, plan, int(nbw), int(start), int(length)))
-        return real(pay, plan, nbw, start, length)
+    def record(pay, plan, nbw, seg, out, partial, done=None, alt=None,
+               swap=None):
+        calls.append((pay, alt, plan, int(nbw), seg.clone(), done.clone(),
+                      swap.clone()))
+        return real(pay, plan, nbw, seg, out, partial, done=done, alt=alt,
+                    swap=swap)
 
-    gp.seg_hist = record
+    gp.seg_hist_device = record
+    gr.capture = False
     try:
         bst.update()
         torch.cuda.synchronize()
     finally:
-        gp.seg_hist = real
-    if not calls:
+        gp.seg_hist_device = real
+        gr.capture = True
+    live = []
+    for pay, alt, plan, nbw, seg, done, swap in calls:
+        if int(done[0]) == 0:
+            st, ln = seg.tolist()
+            live.append((alt if int(swap[0]) else pay, plan, nbw, st, ln))
+    if not live:
         raise AssertionError("the per-split iteration made no seg_hist call")
     classes = {}
-    for pay, plan, nbw, st, ln in calls:
-        k_ms = device_ms(lambda: pk.seg_hist(pay, plan, nbw, st, ln), reps=3,
+    for pay, plan, nbw, st, ln in live:
+        k_ms = device_ms(seg_hist_dev(pay, plan, nbw, st, ln, gr.n), reps=3,
                          warmup=1, sleep_cycles=2_000_000)
         idx, vals, out = index_add_inputs(pay, plan.tolist(), nbw,
                                           [(st, ln)])
@@ -1475,23 +1844,69 @@ def seg_hist_call_mix(bst):
             c[3] += l_ms
             c[4] += b_ms
     torch.cuda.empty_cache()
-    lens = sorted(c[4] for c in calls)
-    log("seg_hist over one per-split iteration's %d calls (lengths %d to "
-        "%d, median %d), each timed alone: %s" % (
-            len(calls), lens[0], lens[-1], lens[len(lens) // 2],
+    lens = sorted(c[4] for c in live)
+    log("seg_hist over one per-split iteration's %d calls (%d queued, %d of "
+        "them no-ops after the tree stopped; lengths %d to %d, median %d), "
+        "each timed alone in the device form: %s" % (
+            len(live), len(calls), len(calls) - len(live), lens[0], lens[-1],
+            lens[len(lens) // 2],
             "; ".join("%s: %d calls, %d lanes, kernel %.4f ms (mean %.4f), "
                       "index_add_ %.4f ms (mean %.4f), bound %.4f ms"
                       % (key, n, lanes, k, k / n, li, li / n, b)
                       for key, (n, lanes, k, li, b) in classes.items())))
 
 
+# CUDA runtime and driver calls that queue work, and those that wait for
+# the card (a copy to or from pageable memory waits for its stream)
+LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+              "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+WAIT_API = ("cudaMemcpyAsync", "cudaMemcpy", "cuMemcpy",
+            "cudaStreamSynchronize", "cuStreamSynchronize",
+            "cudaEventSynchronize")
+
+
+def host_split(prof, wall_ms, path):
+    """The host time of the profiled iteration (wall_ms, the host clock
+    around the update) split into (a) Python, (b) launch calls and (c)
+    time blocked in copies that wait for the card (the device-to-host
+    reads, and host-to-device copies from pageable memory, which wait for
+    their stream), from the profiler's CPU events; and the grower steps'
+    record_function ranges (grow::*, inclusive host time) where the
+    iteration ran them eagerly."""
+    launch = wait = 0.0
+    n_launch = n_wait = 0
+    steps = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        key = ev.key
+        if key.startswith(LAUNCH_API):
+            launch += ev.self_cpu_time_total / 1e3
+            n_launch += ev.count
+        elif key.startswith(WAIT_API):
+            wait += ev.self_cpu_time_total / 1e3
+            n_wait += ev.count
+        elif key.startswith("grow::"):
+            steps[key] = (ev.cpu_time_total / 1e3, ev.count)
+    log("profile %s: host split of the profiled iteration (%.1f ms on the "
+        "host clock): (a) Python %.1f ms, (b) launch calls %.1f ms in %d "
+        "calls, (c) blocked in copies that wait for the card %.1f ms in %d "
+        "calls" % (path, wall_ms, wall_ms - launch - wait, launch, n_launch,
+                   wait, n_wait))
+    if steps:
+        log("profile %s: grower steps (record_function, inclusive host ms "
+            "and calls): %s" % (path, ", ".join(
+                "%s %.1f/%d" % (k[6:], v[0], v[1])
+                for k, v in sorted(steps.items(), key=lambda kv: -kv[1][0]))))
+
+
 def phase_profile(bst, card, path):
     """One more boosting iteration timed on the host clock, then another
     under torch.profiler: device time by kernel, and the device's idle
-    share of the unprofiled iteration's wall time. The profiler's count of
-    the path's histogram kernels is printed beside the wrappers' launch
-    count, since a window that lost events would understate the busy
-    time."""
+    share of the unprofiled iteration's wall time; the host split of the
+    profiled iteration. The profiler's count of the path's histogram
+    kernels is printed beside their launch count, since a window that lost
+    events would understate the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1499,14 +1914,16 @@ def phase_profile(bst, card, path):
     bst.update()
     torch.cuda.synchronize()
     wall_ms = (time.time() - t) * 1e3
-    wrappers = _wrappers()
     names = tuple(w for w, _ in PROFILED[path])
     kernels = tuple(k for _, k in PROFILED[path])
-    before = sum(wrappers[k].launches for k in names)
+    before = read_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
         bst.update()
+        t2 = time.perf_counter()
         torch.cuda.synchronize()
+    after = read_counts()
     rows = _device_events(prof)
     seen = sum(n for _, n, key in rows
                if key.removeprefix("void ").startswith(kernels))
@@ -1515,10 +1932,11 @@ def phase_profile(bst, card, path):
         "%.1f ms (profiled iteration; profiler saw %d %s kernels for %d %s "
         "launches), idle share %.3f (%s)"
         % (path, wall_ms, busy, seen, "/".join(kernels),
-           sum(wrappers[k].launches for k in names) - before,
+           sum(after[k] - before[k] for k in names),
            " + ".join(names), 1 - busy / wall_ms, card))
     log("profile %s: %d device kernels and copies in the profiled "
         "iteration" % (path, sum(n for _, n, _ in rows)))
+    host_split(prof, (t2 - t1) * 1e3, path)
     for ms, n, key in rows[:12]:
         log("profile %s:   %9.2f ms  %6d calls  %s" % (path, ms, n, key[:90]))
     log("profile %s: partition stages: %s" % (path, ", ".join(
@@ -1548,6 +1966,14 @@ def phase_profile(bst, card, path):
             sum(n for _, n, key in rows
                 if key.removeprefix("void ").startswith(k)))
         for w, k in PROFILED[path])))
+    steps = [(ms, n, key) for ms, n, key in rows
+             if key.removeprefix("void ").startswith("gs_")]
+    if steps:
+        log("profile %s: grow_step kernels %.2f ms in %d calls (%s)" % (
+            path, sum(ms for ms, _, _ in steps), sum(n for _, n, _ in steps),
+            ", ".join("%s %.2f/%d" % (key.removeprefix("void ")
+                                      .split("(")[0], ms, n)
+                      for ms, n, key in steps)))
     if path == "persist":
         seg_hist_call_mix(bst)
 
@@ -1672,6 +2098,7 @@ def main() -> int:
                                                     split_params)
     kernels[1].update(scan_b256)                    # scan_pair's record
     kernels += payload_recs
+    kernels.append(phase_grow_step())
     runs = {}
     if not args.skip_train:
         runs["persist"] = phase_train(lgb, X, y, ds, args.iters, card,
@@ -1701,11 +2128,18 @@ def main() -> int:
         # scan_pair, root_hist, split_pass and seg_hist, the level path's
         # for level_pass and level_seg_hist, the bundled path's for
         # scan_blocks
+        # (grow_step: its splits, one commit each; its other kernels'
+        # counts beside them)
         serves = {"hist_window": "v1", "level_pass": "level",
                   "level_seg_hist": "level", "scan_blocks": "bundled"}
         for rec in kernels:
-            rec["launches"] = runs[serves.get(rec["name"], "persist")][
-                rec["name"]]
+            run = runs[serves.get(rec["name"], "persist")]
+            if rec["name"] == "grow_step":
+                rec["launches"] = run["grow_commit"]
+                rec["step_launches"] = {k: run[k] for k in STEPS
+                                        + ("apply_scores",)}
+            else:
+                rec["launches"] = run[rec["name"]]
             if "consolidate_launches" in rec:
                 rec["consolidate_launches"] = runs["persist"]["consolidate"]
     del X, y, ds, inner

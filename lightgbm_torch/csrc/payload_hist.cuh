@@ -113,8 +113,10 @@ __global__ void payload_hist_reduce(const float* __restrict__ partial,
                                     int nblocks, long long cells2,
                                     float* __restrict__ out,
                                     const double* __restrict__ sums_partial,
-                                    float* __restrict__ sums) {
+                                    float* __restrict__ sums,
+                                    long long* counter) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (counter != nullptr && c == 0) *counter += 1;
   if (c < cells2) {
     float acc = partial[c];
     for (int b = 1; b < nblocks; ++b) acc += partial[(long long)b * cells2 + c];
@@ -132,16 +134,18 @@ __global__ void payload_hist_reduce(const float* __restrict__ partial,
 }
 
 // Queue the reduce of nblocks [2, G * 256] partials into out on `s`, and
-// of the f64 sums where sums_partial is not null.
+// of the f64 sums where sums_partial is not null; counter (may be NULL) is
+// incremented once.
 static inline int payload_hist_finish(const void* partial, int nblocks,
                                       int G, void* out,
                                       const void* sums_partial, void* sums,
-                                      cudaStream_t s) {
+                                      cudaStream_t s,
+                                      void* counter = nullptr) {
   const long long cells2 = 2LL * G * PH_BINS;
   payload_hist_reduce<<<(unsigned)((cells2 + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(partial), nblocks, cells2,
       static_cast<float*>(out), static_cast<const double*>(sums_partial),
-      static_cast<float*>(sums));
+      static_cast<float*>(sums), static_cast<long long*>(counter));
   return (int)cudaGetLastError();
 }
 

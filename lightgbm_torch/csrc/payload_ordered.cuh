@@ -29,6 +29,17 @@
 // writes the f64 sums of the row block's grad and hess (root_hist's
 // totals).
 //
+// The device-segment form (payload_ordered_run_dev: seg_hist and the
+// in-pass histogram of split_pass on the persistent grower's per-split
+// loop) reads (start, length) from device memory and may be skipped by
+// the grower's done flag, so its grid is fixed: each block computes the
+// segment's row blocks (po_row_blocks, ops/histogram.py:row_blocks's
+// integer formula) and the team count from the device length, and a block
+// past the segment's row blocks, or of a team count other than the one
+// the length picks, returns at once. One launch per team count (4, 2 and
+// 1, each sized for the longest segment that picks it) covers every
+// length; the team count changes the speed, never the bits.
+//
 // payload_ordered_run picks T: 4 while the G * nblocks blocks fit
 // one wave at one block of 512 threads per multiprocessor, 2 at two of
 // 256, else 1 (six blocks of 128 share a multiprocessor, so that one
@@ -50,8 +61,32 @@
 // one-hot bundles), that bin's serial chain bounds the tile
 // (ordered_hist.cuh).
 #pragma once
+#include <algorithm>
+
 #include "ordered_hist.cuh"
 #include "payload_hist.cuh"
+
+// (row blocks, rows per block) of a segment of `length` lanes over G
+// groups: ops/histogram.py:row_blocks (about 528 blocks over all groups,
+// none under 16384 rows), the same integers on the host and the card.
+static __host__ __device__ __forceinline__ void po_row_blocks(
+    long long length, int G, long long* nb, long long* rows) {
+  const long long gg = G > 1 ? G : 1;
+  const long long per_group = (528 + gg - 1) / gg;
+  long long r = (length + per_group - 1) / per_group;
+  if (r < 16384) r = 16384;
+  const long long n = (length + r - 1) / r;
+  *rows = r;
+  *nb = n < 1 ? 1 : n;
+}
+
+// The team count of a launch of `blocks` blocks: 4 while they fit one
+// wave at lim4 resident blocks of 512 threads, 2 at lim2 of 256, else 1.
+static __host__ __device__ __forceinline__ int po_teams(long long blocks,
+                                                        long long lim4,
+                                                        long long lim2) {
+  return blocks <= lim4 ? 4 : blocks <= lim2 ? 2 : 1;
+}
 
 // One staging buffer: a super-tile's (grad, hess) and bin words, T tiles.
 template <int T>
@@ -105,14 +140,18 @@ struct PoShared {
 // rotation), so the first team's threads find their bins' slots in each.
 template <class Caller, int T>
 __global__ void __launch_bounds__(T * OH_TEAM)
-payload_ordered_partial(const int32_t* __restrict__ pay, long long np_,
+payload_ordered_partial(const int32_t* pay, long long np_,
                         const int32_t* __restrict__ plan, int grad_row,
                         int G, long long start, long long length,
                         long long rows_per_block,
                         const long long* __restrict__ seg,
                         const int* __restrict__ slot_of_block,
                         float* __restrict__ partial,
-                        double* __restrict__ sums_partial) {
+                        double* __restrict__ sums_partial,
+                        const long long* __restrict__ dseg,
+                        const long long* __restrict__ done, int lim4,
+                        int lim2, const int32_t* pay_alt,
+                        const long long* swap) {
   constexpr int NT = T * OH_TEAM;              // threads per block
   constexpr int SUPER = T * OH_TILE;           // lanes per super-tile
   extern __shared__ __align__(16) unsigned char smem[];
@@ -123,6 +162,15 @@ payload_ordered_partial(const int32_t* __restrict__ pay, long long np_,
   const int r = t / OH_TEAM;                   // team: tile of the super-tile
   const long long rb = blockIdx.x / G;
   const int g = (int)(blockIdx.x % G);
+  if (dseg != nullptr) {               // the device-segment form
+    if (done != nullptr && *done != 0) return;
+    start = dseg[0];
+    length = dseg[1];
+    long long nb;
+    po_row_blocks(length, G, &nb, &rows_per_block);
+    if (rb >= nb || po_teams(G * nb, lim4, lim2) != T) return;
+    if (swap != nullptr && *swap != 0) pay = pay_alt;
+  }
   long long r_begin, r_end;
   if (seg != nullptr) {
     const long long* sj = seg + (long long)slot_of_block[rb] * PH_SEG;
@@ -227,6 +275,9 @@ static inline int po_resident() {
 }
 
 // Launch the partial kernel with T teams over nblocks row blocks.
+// (The shared-memory attribute is set once per kernel, on its first
+// launch, so that a later launch inside a graph capture makes no runtime
+// call but the launch.)
 template <class Caller, int T>
 static cudaError_t po_partial(const int32_t* pay, long long np_,
                               const int32_t* plan, int grad_row, int G,
@@ -234,15 +285,24 @@ static cudaError_t po_partial(const int32_t* pay, long long np_,
                               long long rows_per_block, const long long* seg,
                               const int* slot_of_block, int nblocks,
                               float* partial, double* sums_partial,
-                              cudaStream_t s) {
+                              cudaStream_t s,
+                              const long long* dseg = nullptr,
+                              const long long* done = nullptr, int lim4 = 0,
+                              int lim2 = 0, const int32_t* pay_alt = nullptr,
+                              const long long* swap = nullptr) {
   const size_t smem = sizeof(PoShared<T>);
-  cudaError_t err =
-      oh_smem((const void*)payload_ordered_partial<Caller, T>, smem);
-  if (err != cudaSuccess) return err;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err =
+        oh_smem((const void*)payload_ordered_partial<Caller, T>, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
   const long long grid = (long long)G * nblocks;
   payload_ordered_partial<Caller, T><<<(unsigned)grid, T * OH_TEAM, smem, s>>>(
       pay, np_, plan, grad_row, G, start, length, rows_per_block, seg,
-      slot_of_block, partial, sums_partial);
+      slot_of_block, partial, sums_partial, dseg, done, lim4, lim2, pay_alt,
+      swap);
   return cudaGetLastError();
 }
 
@@ -268,9 +328,72 @@ static inline cudaError_t payload_ordered_run(
   const long long blocks = (long long)G * nblocks;
   const long long sms = oh_multiprocessors();
   using std::integral_constant;
-  if (blocks <= sms * po_resident<Caller, 4>())
-    return run(integral_constant<int, 4>());
-  if (blocks <= sms * po_resident<Caller, 2>())
-    return run(integral_constant<int, 2>());
-  return run(integral_constant<int, 1>());
+  switch (po_teams(blocks, sms * po_resident<Caller, 4>(),
+                   sms * po_resident<Caller, 2>())) {
+    case 4: return run(integral_constant<int, 4>());
+    case 2: return run(integral_constant<int, 2>());
+    default: return run(integral_constant<int, 1>());
+  }
+}
+
+// out = the row blocks of partial added in order, (start, length) = dseg
+// on the device; nothing when *done is set. Block 0 counts the histogram.
+__global__ void payload_hist_reduce_dev(const float* __restrict__ partial,
+                                        const long long* __restrict__ dseg,
+                                        const long long* done, int G,
+                                        float* __restrict__ out,
+                                        long long* counter) {
+  if (done != nullptr && *done != 0) return;
+  long long nb, rows;
+  po_row_blocks(dseg[1], G, &nb, &rows);
+  const long long cells2 = 2LL * G * PH_BINS;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < cells2) {
+    float acc = partial[c];
+    for (long long b = 1; b < nb; ++b) acc += partial[b * cells2 + c];
+    out[c] = acc;
+  }
+  if (counter != nullptr && c == 0) *counter += 1;
+}
+
+// The histogram of the device segment dseg = (start, length) of `pay` (of
+// `alt` when *swap is set) into out [2, G * 256] on `s`, unless *done: one
+// partial launch per team count over a fixed grid (each sized for the longest
+// segment of at most max_nblocks row blocks that picks it), then the reduce.
+// partial is [max_nblocks, 2, G * 256] scratch.
+template <class Caller>
+static inline cudaError_t payload_ordered_run_dev(
+    const void* pay, const void* alt, const void* swap, long long np_,
+    const void* plan, int G, int grad_row,
+    const void* dseg, const void* done, int max_nblocks, void* partial,
+    void* out, void* counter, cudaStream_t s) {
+  const long long sms = oh_multiprocessors();
+  const long long lim4 = sms * po_resident<Caller, 4>();
+  const long long lim2 = sms * po_resident<Caller, 2>();
+  const long long* ds = static_cast<const long long*>(dseg);
+  const long long* dn = static_cast<const long long*>(done);
+  auto run = [&](auto tc, long long nb) -> cudaError_t {
+    if (nb < 1) return cudaSuccess;
+    return po_partial<Caller, decltype(tc)::value>(
+        static_cast<const int32_t*>(pay), np_,
+        static_cast<const int32_t*>(plan), grad_row, G, 0, 0, 0, nullptr,
+        nullptr, (int)nb, static_cast<float*>(partial), nullptr, s, ds, dn,
+        (int)lim4, (int)lim2, static_cast<const int32_t*>(alt),
+        static_cast<const long long*>(swap));
+  };
+  using std::integral_constant;
+  // the most row blocks for which each team count is picked
+  const long long nb4 = std::min<long long>(max_nblocks, lim4 / G);
+  const long long nb2 = std::min<long long>(max_nblocks, lim2 / G);
+  cudaError_t err = run(integral_constant<int, 4>(), nb4);
+  if (err == cudaSuccess && nb2 > nb4)
+    err = run(integral_constant<int, 2>(), nb2);
+  if (err == cudaSuccess && max_nblocks > std::max(nb2, nb4))
+    err = run(integral_constant<int, 1>(), max_nblocks);
+  if (err != cudaSuccess) return err;
+  const long long cells2 = 2LL * G * PH_BINS;
+  payload_hist_reduce_dev<<<(unsigned)((cells2 + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partial), ds, dn, G,
+      static_cast<float*>(out), static_cast<long long*>(counter));
+  return cudaGetLastError();
 }

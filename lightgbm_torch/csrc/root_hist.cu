@@ -31,17 +31,18 @@
 
 struct RootHist {};  // the partial kernel's caller tag
 
+// counter (a device int64; may be NULL) is incremented once per launch.
 extern "C" int root_hist_launch(const void* pay, long long np_,
                                 const void* plan, int G, int grad_row,
                                 long long n, int nblocks,
                                 long long rows_per_block, void* partial,
                                 void* out, void* sums_partial, void* sums,
-                                void* stream) {
+                                void* counter, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const cudaError_t err = payload_ordered_run<RootHist>(
       pay, np_, plan, G, grad_row, 0, n, rows_per_block, nullptr, nullptr,
       nblocks, partial, sums_partial, s);
   if (err != cudaSuccess) return (int)err;
   return payload_hist_finish(partial, nblocks, G, out, sums_partial, sums,
-                             s);
+                             s, counter);
 }

@@ -100,7 +100,12 @@ __global__ void scan_blocks_kernel(const float* __restrict__ scal,
                                    int G, int W,
                                    const float* __restrict__ masks,
                                    int do_fix, int B, int Gp, int Wp, int K,
-                                   float* __restrict__ out) {
+                                   float* __restrict__ out,
+                                   const long long* done,
+                                   long long* counter) {
+  if (done != nullptr && *done != 0) return;   // the grower's tree is done
+  if (counter != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    *counter += 1;
   extern __shared__ double scan_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -341,12 +346,16 @@ __global__ void scan_blocks_kernel(const float* __restrict__ scal,
 
 // Launches the scan of B children on `stream` (scan_common.cuh:scan_shape:
 // K warps per (group, child)). rows may be NULL (row c for child c). Wp is
-// a multiple of 32 in [32, 1024], W <= Wp, G <= Gp. Returns the CUDA error
-// of the launch, 0 on success.
+// a multiple of 32 in [32, 1024], W <= Wp, G <= Gp. With *done (a device
+// int64; may be NULL) set the kernel returns at once; counter (may be
+// NULL) is incremented once per scan. The scalars, rows and done flag are
+// read from device memory, where the grower's step kernels write them.
+// Returns the CUDA error of the launch, 0 on success.
 extern "C" int scan_blocks_launch(const void* scal, const void* gh,
                                   const void* hh, const void* rows, int G,
                                   int W, const void* masks, int do_fix,
                                   int B, int Gp, int Wp, void* out,
+                                  const void* done, void* counter,
                                   void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int pairs = B * Gp;
@@ -361,6 +370,7 @@ extern "C" int scan_blocks_launch(const void* scal, const void* gh,
       static_cast<const float*>(scal), static_cast<const float*>(gh),
       static_cast<const float*>(hh), static_cast<const long long*>(rows), G,
       W, static_cast<const float*>(masks), do_fix, B, Gp, Wp, sh.K,
-      static_cast<float*>(out));
+      static_cast<float*>(out), static_cast<const long long*>(done),
+      static_cast<long long*>(counter));
   return (int)cudaGetLastError();
 }

@@ -77,7 +77,11 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
                                  int valid_batched,
                                  const float* __restrict__ aux, int B,
                                  int Fp, int Wp, int K,
-                                 float* __restrict__ out) {
+                                 float* __restrict__ out,
+                                 const long long* done, long long* counter) {
+  if (done != nullptr && *done != 0) return;   // the grower's tree is done
+  if (counter != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    *counter += 1;
   extern __shared__ double scan_smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -232,15 +236,19 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
 
 // Launches the scan of B children on `stream` (scan_common.cuh:scan_shape:
 // K warps per (feature, child)). rows/gidx may be NULL (the gathered
-// form). Wp is a multiple of 32 in [32, 1024]. Returns the CUDA error of
-// the launch, 0 on success.
+// form). Wp is a multiple of 32 in [32, 1024]. With *done (a device int64;
+// may be NULL) set the kernel returns at once; counter (may be NULL) is
+// incremented once per scan. The scalars, rows and done flag are read from
+// device memory, where the grower's step kernels write them. Returns the
+// CUDA error of the launch, 0 on success.
 extern "C" int scan_pair_launch(const void* scal, const void* gh,
                                 const void* hh, const void* rows,
                                 const void* gidx, long long tbp,
                                 const void* keep_r, const void* keep_f,
                                 const void* valid_r, const void* valid_f,
                                 int valid_batched, const void* aux, int B,
-                                int Fp, int Wp, void* out, void* stream) {
+                                int Fp, int Wp, void* out, const void* done,
+                                void* counter, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int pairs = B * Fp;
   const int pair_smem = SCAN_ROWS * row_stride(Wp) * (int)sizeof(double);
@@ -257,7 +265,8 @@ extern "C" int scan_pair_launch(const void* scal, const void* gh,
       static_cast<const float*>(keep_r), static_cast<const float*>(keep_f),
       static_cast<const float*>(valid_r), static_cast<const float*>(valid_f),
       valid_batched, static_cast<const float*>(aux), B, Fp, Wp, sh.K,
-      static_cast<float*>(out));
+      static_cast<float*>(out), static_cast<const long long*>(done),
+      static_cast<long long*>(counter));
   return (int)cudaGetLastError();
 }
 

@@ -10,10 +10,15 @@
 // The persistent grower calls it after split_pass for the smaller child,
 // whose lanes are then contiguous and start at any lane.
 //
+// The segment (start, length) is read from device memory, where the
+// grower's split_pass wrote the smaller child's, and the grower's done
+// flag turns the call into a no-op; the grid is therefore fixed
+// (payload_ordered.cuh's device-segment form). A host caller uploads its
+// (start, length) and calls the same launcher.
+//
 // Design: payload_ordered.cuh's partial kernel over lanes [start, start +
-// length), one group per block, then payload_hist.cuh's reduce adds the
-// row blocks in order; a segment of one row block writes its planes
-// directly. A child of up to 4 row blocks (65536 lanes at 28 groups) is
+// length), one group per block, then a reduce adds the row blocks in
+// order. A child of up to 4 row blocks (65536 lanes at 28 groups) is
 // at most 112 (row block, group) units for 132 multiprocessors; each unit
 // is a serial pass over its row block, so there four teams per group sort
 // four tiles at once and one walks them in order (two teams per group up
@@ -29,16 +34,20 @@
 
 struct SegHist {};   // the partial kernel's caller tag
 
-extern "C" int seg_hist_launch(const void* pay, long long np_,
+// The histogram of lanes [seg[0], seg[0] + seg[1]) (seg: device int64[2]) of
+// `pay` (of `alt` when *swap, a device int64 that may be NULL, is set: the
+// grower's buffer parity) into out [2, G * 256] f32 on `stream`, unless *done
+// (device int64; may be NULL) is set. partial is [max_nblocks, 2, G * 256] f32
+// scratch, where max_nblocks is row_blocks' count of the longest segment the
+// call may name; counter (may be NULL) is incremented once per histogram.
+// Returns the first CUDA error of the launches, or 0.
+extern "C" int seg_hist_launch(const void* pay, const void* alt,
+                               const void* swap, long long np_,
                                const void* plan, int G, int grad_row,
-                               long long start, long long length,
-                               int nblocks, long long rows_per_block,
-                               void* partial, void* out, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t err = payload_ordered_run<SegHist>(
-      pay, np_, plan, G, grad_row, start, length, rows_per_block, nullptr,
-      nullptr, nblocks, partial, nullptr, s);
-  if (err != cudaSuccess) return (int)err;
-  if (partial == out) return 0;
-  return payload_hist_finish(partial, nblocks, G, out, nullptr, nullptr, s);
+                               const void* seg, const void* done,
+                               int max_nblocks, void* partial, void* out,
+                               void* counter, void* stream) {
+  return (int)payload_ordered_run_dev<SegHist>(
+      pay, alt, swap, np_, plan, G, grad_row, seg, done, max_nblocks,
+      partial, out, counter, reinterpret_cast<cudaStream_t>(stream));
 }

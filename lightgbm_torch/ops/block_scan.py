@@ -51,7 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.log import LightGBMError
-from .scan import _round_up
+from . import counters
+from .scan import _round_up, check_done, check_out
 
 # rows of the static mask stack (pallas_scan.py:367-369)
 (BM_KEEP_R, BM_KEEP_F, BM_VALID_R, BM_VALID_F,
@@ -314,25 +315,26 @@ def _check(scal, g, h, masks, rows, groups):
     return B, Gp, Wp, G, W
 
 
-def _launch(scal, g, h, masks, do_fix, rows, B, Gp, Wp, G, W):
+def _launch(scal, g, h, masks, do_fix, rows, B, Gp, Wp, G, W, out, done):
     from .build import load
     fn = load("scan_blocks").scan_blocks_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, I, I, P, I, I, I, I, P, P]
+    fn.argtypes = [P, P, P, P, I, I, P, I, I, I, I, P, P, P, P]
     fn.restype = I
-    out = torch.empty((B, 8, Gp), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(scal.data_ptr(), g.data_ptr(), h.data_ptr(),
              None if rows is None else rows.data_ptr(), G, W,
              masks.data_ptr(), int(do_fix), B, Gp, Wp, out.data_ptr(),
-             stream)
+             None if done is None else done.data_ptr(),
+             counters.ptr(g.device, "scan_blocks"), stream)
     if err != 0:
         raise LightGBMError("scan_blocks kernel launch failed: CUDA error %d"
                             % err)
     return out
 
 
-def scan_blocks(scal, g, h, masks, do_fix: bool, rows=None, groups=None):
+def scan_blocks(scal, g, h, masks, do_fix: bool, rows=None, groups=None,
+                out=None, done=None):
     """Best split per group for B children: the CUDA kernel for tensors on
     the card, the plain version for tensors on the CPU.
 
@@ -344,16 +346,28 @@ def scan_blocks(scal, g, h, masks, do_fix: bool, rows=None, groups=None):
     already gathered and padded, and the function is
     :func:`scan_blocks_plain`. scal [B, 9] f32 (``pair_scalars``' 8
     columns and the raw hessian sum); masks [BM_ROWS, Gp, Wp] (a
-    :meth:`BlockScanLayout.tree_masks` stack). Returns [B, 8, Gp] f32. The
+    :meth:`BlockScanLayout.tree_masks` stack). Returns [B, 8, Gp] f32,
+    written to ``out`` where given. The scalars and rows are read on the
+    device, and with ``done`` (int64 [1]) set nothing is written. The
     caller keeps rows inside the planes (the kernel does not check them)."""
     B, Gp, Wp, G, W = _check(scal, g, h, masks, rows, groups)
+    if out is not None:
+        check_out("scan_blocks", out, (B, 8, Gp), g.device)
+    check_done("scan_blocks", done, g.device)
     if g.device.type == "cpu":
+        if done is not None and int(done[0]):
+            return out
         if rows is None:
-            return scan_blocks_plain(scal, g, h, masks, do_fix)
-        return scan_blocks_rows_plain(scal, g, h, rows, G, masks, do_fix)
+            res = scan_blocks_plain(scal, g, h, masks, do_fix)
+        else:
+            res = scan_blocks_rows_plain(scal, g, h, rows, G, masks, do_fix)
+        counters.bump(g.device, "scan_blocks")
+        return res if out is None else out.copy_(res)
     if g.device.type != "cuda":
         raise LightGBMError("scan_blocks: no kernel for device %s" % g.device)
-    out = _launch(scal, g, h, masks, do_fix, rows, B, Gp, Wp, G, W)
+    if out is None:
+        out = torch.empty((B, 8, Gp), dtype=torch.float32, device=g.device)
+    _launch(scal, g, h, masks, do_fix, rows, B, Gp, Wp, G, W, out, done)
     scan_blocks.launches += 1
     return out
 

@@ -8,12 +8,13 @@ per-row gather or scatter runs between iterations:
 
   * the root: one ``root_hist`` launch (histogram + grad/hess totals) and
     one ``scan_pair`` launch (the root's best split);
-  * per split: one ``split_pass`` launch partitions the leaf's segment
-    into the other payload buffer (below) and returns the exact n_left; the
-    smaller child's histogram comes from ``seg_hist`` over its segment
+  * per split (ops/grow_step.py picks the leaf and keeps the leaf table):
+    one ``split_pass`` launch partitions the leaf's segment into the other
+    payload buffer (below) and writes the exact n_left to device memory;
+    the smaller child's histogram comes from ``seg_hist`` over its segment
     (G > SEG_HIST_MIN_GROUPS) or from ``split_pass`` itself
-    (G <= SEG_HIST_MIN_GROUPS); the larger child is the parent minus it; one
-    ``scan_pair`` launch scans both children;
+    (G <= SEG_HIST_MIN_GROUPS); the larger child is the parent minus it;
+    one ``scan_pair`` launch scans both children;
   * histograms stay in the padded [G * 256] group-plane layout end to end;
     feature f's window sits at group_of[f] * 256 + ls[f] (``pad_meta`` at
     grow_persist.py:873-882);
@@ -31,7 +32,7 @@ allocated once per grower (``wp_live * NP * 4`` bytes; rows past
 ``wp_live`` never move). A leaf at depth d has been partitioned d times,
 so its segment lives in buffer d % 2: a split reads buffer depth % 2 and
 writes buffer 1 - depth % 2, and the histograms of the children read the
-buffer they were written to. At the end of :meth:`PersistGrower.grow` one
+buffer they were written to. At the end of every tree one
 ``consolidate`` launch copies every odd-depth leaf's segment back into
 buffer 0, so the payload is leaf-partitioned exactly as an in-place stable
 partition would leave it, and ``apply_scores``, ``fill_grad``,
@@ -60,10 +61,19 @@ offset give the feature and its threshold. Unbundled data are scanned with
 layout's ``gidx``. Both scans read the children's rows of the [L, G * 256]
 planes themselves: no gather or pad runs before a scan.
 
-The host loop is Python over numpy leaf state, as in ops/grow.py; leaf
-counts are the kernel's exact n_left (``stat_from_scan=False``) and stay
-integers on the host. Not ported here: sharding, voting, quantization,
-bagging and the health vector.
+The per-split loop runs on the device (:meth:`PersistGrower._step`): the
+leaf state, the candidates and the split records live in a device table
+(ops/grow_step.py), the kernels read the split's scalars, the segment and a
+"done" flag from device memory, and a tree is a fixed trip count of L - 1
+steps, each a no-op once no leaf has a positive gain (the JAX
+while_loop's cond, :1530). Nothing is read back until the tree is done;
+then the table is read once. On the card one boosting iteration (gradients,
+tree, score update) is captured as one CUDA graph and replayed
+(:meth:`PersistGrower.iteration`); on the CPU the same loop runs eagerly
+with the plain versions. Leaf counts are the kernel's exact n_left
+(``stat_from_scan=False``). The level phase keeps its host loop (one
+read-back per level) and hands its leaves to the device loop. Not ported
+here: sharding, voting, quantization, bagging and the health vector.
 """
 from __future__ import annotations
 
@@ -72,17 +82,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import counters
+from . import grow_step as gs
 from .block_scan import BlockScanLayout, scan_blocks
 from .grow import TreeArrays, _empty_arrays, assemble, scan_children
 from .payload import PersistAssets, payload_weight_row
 from .payload_kernels import (HIST_W, N_SCALARS, S_DB, S_DL, S_LE, S_LS,
                               S_MASK, S_MF, S_MT, S_NB, S_NCH, S_NL, S_S0,
-                              S_SH, S_SMALL_L, S_THR, S_WG, consolidate,
+                              S_SH, S_SMALL_L, S_THR, S_WG,
+                              consolidate_device, hist_scratch,
                               level_children, level_pass, level_seg_hist,
-                              plan_tensor, root_hist, seg_hist, split_pass)
-from .scan import ScanLayout, pair_scalars
+                              plan_tensor, root_hist, root_scratch,
+                              seg_hist_device,
+                              split_pass_device)
+from .scan import ScanLayout, pair_scalars, scan_pair
 from .split import K_MIN_SCORE, SplitCandidate, leaf_output_unconstrained
 from ..utils.log import LightGBMError
+
+_range = torch.profiler.record_function
 
 F32 = np.float32
 
@@ -130,12 +147,17 @@ class LeafState(NamedTuple):
 
 
 class PersistGrower:
-    """grow / apply_scores / fill_grad / init_carry / finalize_scores over
-    one dataset's payload, for one grow configuration, on one device.
-    ``level_mode`` "auto" runs the level phase where :func:`can_level_grow`
-    holds, "off" never. ``grow_stats`` holds (level programs, splits of the
-    per-split loop after them) of every tree grown, as the JAX stats vector
-    does (:77-89)."""
+    """grow / iteration / apply_scores / fill_grad / init_carry /
+    finalize_scores over one dataset's payload, for one grow
+    configuration, on one device. ``level_mode`` "auto" runs the level
+    phase where :func:`can_level_grow` holds, "off" never. ``grow_stats``
+    holds (level programs, splits of the per-split loop after them) of
+    every tree grown, as the JAX stats vector does (:77-89).
+
+    Everything a tree's per-split loop touches is allocated here, once, at
+    fixed addresses (the planes, the leaf table, the scan's layout and
+    output, the partition's and histograms' scratch, the device counters),
+    so that an iteration can be captured as one CUDA graph."""
 
     def __init__(self, assets: PersistAssets, meta, gc, params, device,
                  level_mode: str = "auto"):
@@ -145,18 +167,17 @@ class PersistGrower:
         self.meta = meta
         self.gc = gc
         self.params = params
-        self.device = torch.device(device)
+        self.device = dev = torch.device(device)
         self.n, self.nbw, self.G, self.C = n, nbw, G, C
         self.wp_live = payload_weight_row(nbw, K) + (1 if has_w else 0)
         self.weight_row = payload_weight_row(nbw, K) if has_w else None
         self.score_row = nbw + 4
         self.inpass_hist = G <= SEG_HIST_MIN_GROUPS
-        self.plan = plan_tensor(plan, self.device)
+        self.plan = plan_tensor(plan, dev)
         group_of, ls, nb = assets.efb[0], assets.efb[1], assets.efb[2]
         self.win_start = (group_of.astype(np.int64) * HIST_W + ls)
         self.win_end = self.win_start + nb
-        self.blocks = (BlockScanLayout(assets.efb, meta.penalty, G,
-                                       self.device)
+        self.blocks = (BlockScanLayout(assets.efb, meta.penalty, G, dev)
                        if assets.efb[5] else None)
         self.use_level = level_mode != "off" and can_level_grow(gc)
         # the widest frontier a depth-bounded tree presents (:789-791)
@@ -165,8 +186,51 @@ class PersistGrower:
         self.grow_stats = []
         # buffer 1 of the depth-parity partition: the wp_live moving rows
         # at the payload's lane stride
-        self.second = torch.zeros((self.wp_live, assets.geometry[1]),
-                                  dtype=torch.int32, device=self.device)
+        NP = assets.geometry[1]
+        self.second = torch.zeros((self.wp_live, NP), dtype=torch.int32,
+                                  device=dev)
+        self.device = dev = self.second.device          # with its index
+        # ---- the per-split loop's device state ------------------------
+        L, TBp = gc.num_leaves, G * HIST_W
+        self.TBp = TBp
+        self.gh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
+        self.hh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
+        self.root_buf = root_scratch(self.second, G, n)
+        self.small = hist_scratch(self.second, G, n)
+        self.work = torch.empty((2, max(1, -(-NP // 1024))),
+                                dtype=torch.int32, device=dev)
+        self.state = gs.GrowState(L, dev)
+        self.k = gs.StepConst.of(params, gc.max_depth, C)
+        if self.blocks is not None:
+            self.masks = self.blocks.masks.clone()
+            self.mode, self.Wp = gs.SCAN_BLOCKS, self.blocks.Wp
+            self.owner = torch.as_tensor(
+                self.blocks.owner.reshape(-1).astype(np.int32), device=dev)
+            self.scan_out = torch.empty((2, 8, self.blocks.Gp),
+                                        dtype=torch.float32, device=dev)
+            fr, rows = self.blocks.forced_right, 0
+        else:
+            self.layout = ScanLayout(self.win_start, self.win_end,
+                                     meta.missing_type, meta.default_bin,
+                                     meta.penalty,
+                                     np.ones(len(nb), bool), gc.scan_width,
+                                     TBp, dev)
+            self.mode, self.Wp = gs.SCAN_PAIR, self.layout.Wp
+            self.owner = torch.zeros(1, dtype=torch.int32, device=dev)
+            self.scan_out = torch.empty((2, 8, self.layout.Fp),
+                                        dtype=torch.float32, device=dev)
+            fr, rows = self.layout.forced_right, self.layout.Fp
+        self.feat = gs.feature_table(assets, fr, rows, dev)
+        self._mask_key = np.ones(len(nb), bool).tobytes()
+        counters.counts(dev)
+        self._levels = (0, 1)         # (level programs, s after them)
+        self._graph = None            # (CUDAGraph, its key)
+        self._checked = None          # key of the sync-checked iteration
+        self.graph_stats = {}
+        self.replays = 0
+        # False: every iteration on the card runs eagerly (a probe that
+        # must see each launch, as the smoke test's per-call timing does)
+        self.capture = True
 
     # ---- payload <-> row order ---------------------------------------------
     def _f32_row(self, pay, r):
@@ -210,23 +274,44 @@ class PersistGrower:
 
     def apply_scores(self, pay, lstate: LeafState, num_leaves: int,
                      shrink: float) -> None:
-        """score += f32(leaf_value * shrink) on every leaf's segment, one
-        direct f32 add per row (in place). The JAX f32 path adds segment
-        deltas through a cumsum (grow_persist.py:1761-1773), which rounds
-        differently; the direct add is what the update means, and what
-        the JAX widened mode does (:1743-1760)."""
-        if num_leaves <= 1:
-            return
-        order = np.argsort(lstate.start[:num_leaves], kind="stable")
-        vals = (lstate.value[:num_leaves] * F32(shrink)).astype(F32)[order]
-        lane_val = torch.repeat_interleave(
-            torch.as_tensor(vals, device=pay.device),
-            torch.as_tensor(lstate.nrows[:num_leaves][order],
-                            device=pay.device))
-        score = self._f32_row(pay, self.score_row)[:self.n]
-        score += lane_val
+        """score += f32(leaf_value * shrink) on every leaf's segment of a
+        host LeafState, one direct f32 add per row (in place): the leaves
+        are uploaded into a leaf table and :func:`grow_step.apply_scores`
+        runs on it, as :meth:`iteration` runs it on the device table. The
+        JAX f32 path adds segment deltas through a cumsum
+        (grow_persist.py:1761-1773), which rounds differently; the direct
+        add is what the update means, and what the JAX widened mode does
+        (:1743-1760)."""
+        S = gs.GrowState(len(lstate.value), pay.device)
+        host = torch.zeros_like(S.blob, device="cpu")
+        h = S.views(host)
+        h["li"][:, gs.LI_START] = torch.as_tensor(lstate.start)
+        h["li"][:, gs.LI_NROWS] = torch.as_tensor(lstate.nrows)
+        h["lf"][:, gs.LF_VALUE] = torch.as_tensor(lstate.value)
+        h["st"][0, gs.ST_S] = int(num_leaves)
+        S.blob.copy_(host)
+        gs.apply_scores(S, self._f32_row(pay, self.score_row)[:self.n],
+                        shrink)
 
-    # ---- one tree ------------------------------------------------------------
+    # ---- per tree: the host side --------------------------------------------
+    def _prepare(self, feature_mask) -> None:
+        """The tree's feature mask into the scan's static layout (host work
+        and one copy, outside any captured region; nothing when the mask
+        is the last one's)."""
+        key = np.asarray(feature_mask, bool).tobytes()
+        if key == self._mask_key:
+            return
+        if self.blocks is not None:
+            self.masks.copy_(self.blocks.tree_masks(feature_mask))
+        else:
+            meta, gc = self.meta, self.gc
+            lay = ScanLayout(self.win_start, self.win_end, meta.missing_type,
+                             meta.default_bin, meta.penalty, feature_mask,
+                             gc.scan_width, self.TBp, "cpu")
+            self.layout.valid_r.copy_(lay.valid_r)
+            self.layout.valid_f.copy_(lay.valid_f)
+        self._mask_key = key
+
     def _scalars(self, cand: SplitCandidate, s0: int, n_l: int,
                  smaller_is_left: bool):
         """The N_SCALARS slots of one split (grow_persist.py:1546-1562)."""
@@ -246,11 +331,12 @@ class PersistGrower:
                                               int(a.mf[f]))
         return scal
 
-    def _scan_blocks(self, gh, hh, rows, masks, sgs, shs, cnts, depths):
-        """SplitCandidates of B children from their rows of the [L, G * 256]
-        planes through scan_blocks, which reads them in place
-        (grow_persist.py:1108-1139): the group argmax (first maximum), the
-        feature from the owner map, the threshold t_abs - ls[f]."""
+    def _scan_blocks(self, rows, sgs, shs, cnts, depths):
+        """SplitCandidates of B children on the host (the level phase) from
+        their rows of the planes through scan_blocks, which reads them in
+        place (grow_persist.py:1108-1139): the group argmax (first
+        maximum), the feature from the owner map, the threshold t_abs -
+        ls[f]."""
         params, blk = self.params, self.blocks
         B = len(rows)
         scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
@@ -258,9 +344,9 @@ class PersistGrower:
                             params.min_data_in_leaf,
                             params.min_sum_hessian_in_leaf)
         scal9 = np.concatenate([scal, np.asarray(shs, F32)[:, None]], axis=1)
-        dev = gh.device
-        out = scan_blocks(torch.as_tensor(scal9, device=dev), gh, hh, masks,
-                          blk.do_fix,
+        dev = self.device
+        out = scan_blocks(torch.as_tensor(scal9, device=dev), self.gh,
+                          self.hh, self.masks, blk.do_fix,
                           torch.as_tensor(np.asarray(rows, np.int64),
                                           device=dev), self.G).cpu().numpy()
         bg = np.argmax(out[:, 0], axis=1)
@@ -272,85 +358,117 @@ class PersistGrower:
                         blk.forced_right[f], scal, params.lambda_l2, depths,
                         self.gc.max_depth)
 
-    def grow(self, pay, feature_mask):
-        """Grow one tree on the payload. The splits move segments between
-        the payload and the second buffer by depth parity; the last step
-        brings the odd-depth leaves back, so the payload ends partitioned
-        by leaf. Returns (LeafState, split records as a dict of [L-1]
-        arrays, num_leaves)."""
-        gc, params, meta = self.gc, self.params, self.meta
-        L, n, G, nbw = gc.num_leaves, self.n, self.G, self.nbw
+    def _evaluate(self, leaves, sgs, shs, cnts, depths):
+        """Host SplitCandidates of B children (the level phase's scans)."""
+        if self.blocks is not None:
+            return self._scan_blocks(leaves, sgs, shs, cnts, depths)
+        return scan_children(self.gh, self.hh, leaves, self.layout,
+                             self.params, sgs, shs, cnts, depths,
+                             int(self.gc.max_depth))
+
+    # ---- per tree: the device loop ------------------------------------------
+    def _scan(self, B: int) -> None:
+        """The scan of the state's B children and their candidates'
+        assembly, on the device."""
+        S = self.state
+        with _range("grow::scan"):
+            if self.blocks is not None:
+                scan_blocks(S.ps[:B], self.gh, self.hh, self.masks,
+                            self.blocks.do_fix, S.rows[:B], self.G,
+                            out=self.scan_out[:B], done=S.done)
+            else:
+                lay = self.layout
+                scan_pair(S.ps8[:B], self.gh, self.hh, lay.keep_r,
+                          lay.keep_f, lay.valid_r, lay.valid_f, lay.aux,
+                          rows=S.rows[:B], gidx=lay.gidx,
+                          out=self.scan_out[:B], done=S.done)
+        with _range("grow::assembly"):
+            gs.assemble(S, self.scan_out[:B], self.mode, self.owner,
+                        self.Wp, self.feat, self.k, advance=B == 2)
+
+    def _root(self, pay) -> None:
+        """root_hist, the root's state and its scan, on the device."""
+        with _range("grow::root"):
+            planes, sums = self.root_buf[:2]
+            root_hist(pay, self.plan, self.nbw, self.n, out=self.root_buf)
+            self.gh[0].copy_(planes[0])
+            self.hh[0].copy_(planes[1])
+            gs.root(self.state, sums, self.n, self.k)
+        self._scan(1)
+
+    def _step(self, pay) -> None:
+        """One split on the device: pick -> split_pass -> seg_hist (G > 20)
+        -> the children's state -> planes -> scan -> assembly; a no-op
+        once the done flag is set."""
+        S = self.state
+        with _range("grow::pick"):
+            gs.pick(S, self.feat, self.k)
+        with _range("grow::split_pass"):
+            split_pass_device(pay, self.second, S.scal, S.res, self.plan,
+                              self.nbw, self.wp_live,
+                              self.small if self.inpass_hist else None,
+                              done=S.done, work=self.work, swap=S.parity)
+        if not self.inpass_hist:
+            with _range("grow::seg_hist"):
+                seg_hist_device(self.second, self.plan, self.nbw, S.child,
+                                self.small[0], self.small[1], done=S.done,
+                                alt=pay, swap=S.parity)
+        with _range("grow::assembly"):
+            gs.commit(S, self.k)
+        with _range("grow::planes"):
+            gs.planes(S, self.gh, self.hh, self.small[0])
+        self._scan(2)
+
+    def _finish(self, pay) -> None:
+        """The odd-depth leaves back into the payload (their table built on
+        the device)."""
+        with _range("grow::consolidation"):
+            gs.cons_table(self.state)
+            consolidate_device(self.second, pay, self.state.tab,
+                               self.wp_live)
+
+    def _device_tree(self, pay) -> None:
+        """A whole tree on the device, queued without a read-back: the
+        root, L - 1 steps (the fixed trip count), the consolidation."""
+        self._root(pay)
+        for _ in range(self.gc.num_leaves - 1):
+            self._step(pay)
+        self._finish(pay)
+        self._levels = (0, 1)
+
+    # ---- per tree: the level phase, then the device loop --------------------
+    def _level_tree(self, pay) -> None:
+        """The level phase on the host (grow_persist.py:1295-1527), its
+        leaf state and candidates uploaded once, then the rest of the tree
+        by L - s device steps and the consolidation."""
+        gc, params = self.gc, self.params
+        L, n, nbw = gc.num_leaves, self.n, self.nbw
         md = int(gc.max_depth)
-        dev = pay.device
         bufs = (pay, self.second)
-        l2 = F32(params.lambda_l2)
+        gh, hh = self.gh, self.hh
         tree = {k: v for k, v in _empty_arrays(L).items()
                 if not k.startswith("leaf_")}             # split records
-        gh0, hh0, sums = root_hist(pay, self.plan, nbw, n)
+        planes, sums = self.root_buf[:2]
+        root_hist(pay, self.plan, nbw, n, out=self.root_buf)
+        gh[0].copy_(planes[0])
+        hh[0].copy_(planes[1])
         sum_grad, sum_hess = (F32(v) for v in sums.cpu().numpy())
-        root_out = leaf_output_unconstrained(sum_grad, sum_hess, l2)
-        TBp = G * HIST_W
-        gh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
-        hh = torch.zeros((L, TBp), dtype=torch.float32, device=dev)
-        gh[0], hh[0] = gh0, hh0
-        if self.blocks is not None:
-            masks = self.blocks.tree_masks(feature_mask)
-
-            def evaluate(leaves, sgs, shs, cnts, depths):
-                return self._scan_blocks(gh, hh, leaves, masks, sgs, shs,
-                                         cnts, depths)
-        else:
-            layout = ScanLayout(self.win_start, self.win_end,
-                                meta.missing_type, meta.default_bin,
-                                meta.penalty, feature_mask, gc.scan_width,
-                                TBp, dev)
-
-            def evaluate(leaves, sgs, shs, cnts, depths):
-                return scan_children(gh, hh, leaves, layout, params, sgs,
-                                     shs, cnts, depths, md)
-
         st = LeafState(sum_hess=np.zeros(L, F32),
                        count=np.zeros(L, np.int64), value=np.zeros(L, F32),
                        depth=np.zeros(L, np.int32),
                        start=np.zeros(L, np.int64),
                        nrows=np.zeros(L, np.int64))
         st.sum_hess[0] = sum_hess
-        st.count[0], st.value[0], st.nrows[0] = n, root_out, n
+        st.count[0], st.nrows[0] = n, n
+        st.value[0] = leaf_output_unconstrained(sum_grad, sum_hess,
+                                                F32(params.lambda_l2))
         best = [SplitCandidate.none() for _ in range(L)]
         best_gain = np.full(L, K_MIN_SCORE, F32)
-        best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0)[0]
+        best[0] = self._evaluate([0], [sum_grad], [sum_hess], [n], 0)[0]
         best_gain[0] = best[0].gain
 
-        def split(l, r, cand, n_left):
-            """Record the split of leaf l into l (left) and r (right) and
-            the children's state; returns (left count, right count, the
-            children's depth)."""
-            s0, n_l = int(st.start[l]), int(st.nrows[l])
-            k = r - 1
-            tree["split_leaf"][k] = l
-            tree["split_feature"][k] = cand.feature
-            tree["threshold"][k] = cand.threshold
-            tree["default_left"][k] = cand.default_left
-            tree["gain"][k] = cand.gain
-            tree["internal_value"][k] = st.value[l]
-            tree["internal_count"][k] = st.count[l]
-            left_cnt = n_left
-            right_cnt = int(st.count[l]) - left_cnt
-            depth = int(st.depth[l]) + 1
-            for leaf, sh_, cnt_, val_, st_, nr_ in (
-                    (l, cand.left_sum_hess, left_cnt, cand.left_output, s0,
-                     n_left),
-                    (r, cand.right_sum_hess, right_cnt, cand.right_output,
-                     s0 + n_left, n_l - n_left)):
-                st.sum_hess[leaf] = sh_
-                st.count[leaf], st.value[leaf] = cnt_, val_
-                st.depth[leaf] = depth
-                st.start[leaf], st.nrows[leaf] = st_, nr_
-            return left_cnt, right_cnt, depth
-
-        # ---- the level phase (grow_persist.py:1295-1527) -----------------
         s, levels = 1, 0
-        while self.use_level and s < L:
+        while s < L:
             # the no-bind certificate: the leaf budget covers the
             # depth-limited completion of every positive-gain frontier leaf
             pos = (np.arange(L) < s) & (best_gain > 0)
@@ -374,69 +492,203 @@ class PersistGrower:
             if small is None:
                 small = level_seg_hist(dst, self.plan, nbw,
                                        level_children(scal, n_lefts))
-            rows = torch.as_tensor(slots, device=dev)
-            new = torch.arange(s, s + cntp, device=dev)
-            sl_t = torch.as_tensor(small_l, device=dev)[:, None]
-            for planes, sm in ((gh, small[0]), (hh, small[1])):
-                big = planes[rows] - sm
-                planes[new] = torch.where(sl_t, big, sm)
-                planes[rows] = torch.where(sl_t, sm, big)
-            kids = [split(int(l), s + j, c, int(n_lefts[j]))
-                    for j, (l, c) in enumerate(zip(slots, cands))]
-            res = evaluate(
+            rows = torch.as_tensor(slots, device=self.device)
+            new = torch.arange(s, s + cntp, device=self.device)
+            sl_t = torch.as_tensor(small_l, device=self.device)[:, None]
+            for P, sm in ((gh, small[0]), (hh, small[1])):
+                big = P[rows] - sm
+                P[new] = torch.where(sl_t, big, sm)
+                P[rows] = torch.where(sl_t, sm, big)
+            kids = []
+            for j, (l, c) in enumerate(zip(slots, cands)):
+                l, r, n_left = int(l), s + j, int(n_lefts[j])
+                s0, n_l = int(st.start[l]), int(st.nrows[l])
+                k = r - 1
+                tree["split_leaf"][k] = l
+                tree["split_feature"][k] = c.feature
+                tree["threshold"][k] = c.threshold
+                tree["default_left"][k] = c.default_left
+                tree["gain"][k] = c.gain
+                tree["internal_value"][k] = st.value[l]
+                tree["internal_count"][k] = st.count[l]
+                left_cnt, right_cnt = n_left, int(st.count[l]) - n_left
+                depth = int(st.depth[l]) + 1
+                for leaf, sh_, cnt_, val_, st_, nr_ in (
+                        (l, c.left_sum_hess, left_cnt, c.left_output, s0,
+                         n_left),
+                        (r, c.right_sum_hess, right_cnt, c.right_output,
+                         s0 + n_left, n_l - n_left)):
+                    st.sum_hess[leaf] = sh_
+                    st.count[leaf], st.value[leaf] = cnt_, val_
+                    st.depth[leaf] = depth
+                    st.start[leaf], st.nrows[leaf] = st_, nr_
+                kids.append((left_cnt, right_cnt, depth))
+            res = self._evaluate(
                 np.concatenate([slots, np.arange(s, s + cntp)]),
                 [c.left_sum_grad for c in cands]
                 + [c.right_sum_grad for c in cands],
                 [c.left_sum_hess for c in cands]
                 + [c.right_sum_hess for c in cands],
-                [k[0] for k in kids] + [k[1] for k in kids],
-                [k[2] for k in kids] * 2)
+                [k_[0] for k_ in kids] + [k_[1] for k_ in kids],
+                [k_[2] for k_ in kids] * 2)
             for j, l in enumerate(slots):
                 best[l], best[s + j] = res[j], res[cntp + j]
                 best_gain[l], best_gain[s + j] = res[j].gain, \
                     res[cntp + j].gain
             s += cntp
             levels += 1
+        self._upload(st, best, best_gain, tree, s)
+        # the candidates are on the host here: with no positive gain left
+        # the device loop would stop at its first pick, so none is queued
+        for _ in range(L - s if bool(np.any(best_gain > 0)) else 0):
+            self._step(pay)
+        self._finish(pay)
+        self._levels = (levels, s)
 
-        # ---- the per-split loop ------------------------------------------
-        s_level = s
-        while s < L:
-            l = int(np.argmax(best_gain))
-            cand = best[l]
-            if not cand.gain > 0.0:
-                break
-            s0, n_l = int(st.start[l]), int(st.nrows[l])
-            smaller_is_left = cand.left_count <= cand.right_count
-            scal = self._scalars(cand, s0, n_l, smaller_is_left)
-            p = int(st.depth[l]) % 2
-            dst = bufs[1 - p]
-            n_left, small = split_pass(bufs[p], dst, scal, self.plan, nbw,
-                                       self.wp_live, self.inpass_hist)
-            if small is None:
-                small = seg_hist(dst, self.plan, nbw,
-                                 s0 if smaller_is_left else s0 + n_left,
-                                 n_left if smaller_is_left else n_l - n_left)
-            big_g, big_h = gh[l] - small[0], hh[l] - small[1]
-            if smaller_is_left:
-                gh[s], hh[s] = big_g, big_h
-                gh[l], hh[l] = small
-            else:
-                gh[s], hh[s] = small
-                gh[l], hh[l] = big_g, big_h
-            left_cnt, right_cnt, depth = split(l, s, cand, n_left)
-            cand_l, cand_r = evaluate(
-                [l, s], [cand.left_sum_grad, cand.right_sum_grad],
-                [cand.left_sum_hess, cand.right_sum_hess],
-                [left_cnt, right_cnt], depth)
-            best[l], best[s] = cand_l, cand_r
-            best_gain[l], best_gain[s] = cand_l.gain, cand_r.gain
-            s += 1
-        odd = [(int(st.start[k]), int(st.nrows[k])) for k in range(s)
-               if st.depth[k] % 2 and st.nrows[k] > 0]
-        if odd:
-            consolidate(self.second, pay, odd, self.wp_live)
+    def _upload(self, st: LeafState, best, best_gain, tree, s: int) -> None:
+        """The host tree (leaf state, candidates, split records, s) into the
+        device state, with one copy."""
+        S = self.state
+        host = torch.zeros_like(S.blob, device="cpu")
+        h = {k: v.numpy() for k, v in S.views(host).items()}
+        lf, li, rf, ri = h["lf"], h["li"], h["rf"], h["ri"]
+        lf[:, gs.LF_SUM_HESS], lf[:, gs.LF_VALUE] = st.sum_hess, st.value
+        li[:, gs.LI_COUNT], li[:, gs.LI_DEPTH] = st.count, st.depth
+        li[:, gs.LI_START], li[:, gs.LI_NROWS] = st.start, st.nrows
+        lf[:, gs.LF_GAIN] = best_gain
+        for l, c in enumerate(best):
+            lf[l, [gs.LF_LOUT, gs.LF_ROUT, gs.LF_LSG, gs.LF_LSH, gs.LF_RSG,
+                   gs.LF_RSH]] = (c.left_output, c.right_output,
+                                  c.left_sum_grad, c.left_sum_hess,
+                                  c.right_sum_grad, c.right_sum_hess)
+            li[l, [gs.LI_FEAT, gs.LI_THR, gs.LI_DL, gs.LI_LCNT,
+                   gs.LI_RCNT]] = (c.feature, c.threshold,
+                                   int(c.default_left), c.left_count,
+                                   c.right_count)
+        R = len(tree["gain"])
+        rf[:R, gs.RF_GAIN], rf[:R, gs.RF_IVAL] = (tree["gain"],
+                                                  tree["internal_value"])
+        for col, key in ((gs.RI_LEAF, "split_leaf"),
+                         (gs.RI_FEAT, "split_feature"),
+                         (gs.RI_THR, "threshold"),
+                         (gs.RI_DL, "default_left"),
+                         (gs.RI_ICNT, "internal_count")):
+            ri[:R, col] = tree[key]
+        h["st"][0, gs.ST_S] = s
+        S.blob.copy_(host)
+
+    def read_tree(self):
+        """(LeafState, split records as a dict of [L-1] arrays, num_leaves)
+        of the tree in the device state: one device-to-host copy."""
+        h = self.state.read()
+        L = self.gc.num_leaves
+        lf, li, rf, ri = h["lf"], h["li"], h["rf"][:L - 1], h["ri"][:L - 1]
+        s = int(h["st"][0, gs.ST_S])
+        self.device_counts = dict(zip(counters.SLOTS, h["cnt"][0].tolist()))
+        st = LeafState(sum_hess=lf[:, gs.LF_SUM_HESS].copy(),
+                       count=li[:, gs.LI_COUNT].copy(),
+                       value=lf[:, gs.LF_VALUE].copy(),
+                       depth=li[:, gs.LI_DEPTH].astype(np.int32),
+                       start=li[:, gs.LI_START].copy(),
+                       nrows=li[:, gs.LI_NROWS].copy())
+        tree = dict(split_leaf=ri[:, gs.RI_LEAF].astype(np.int32),
+                    split_feature=ri[:, gs.RI_FEAT].astype(np.int32),
+                    threshold=ri[:, gs.RI_THR].astype(np.int32),
+                    default_left=ri[:, gs.RI_DL].astype(bool),
+                    gain=rf[:, gs.RF_GAIN].copy(),
+                    internal_value=rf[:, gs.RF_IVAL].copy(),
+                    internal_count=ri[:, gs.RI_ICNT].astype(np.int32))
+        levels, s_level = self._levels
         self.grow_stats.append((levels, s - s_level))
         return st, tree, s
+
+    def _tree(self, pay) -> None:
+        if self.use_level:
+            self._level_tree(pay)
+        else:
+            self._device_tree(pay)
+
+    def grow(self, pay, feature_mask):
+        """Grow one tree on the payload. The splits move segments between
+        the payload and the second buffer by depth parity; the last step
+        brings the odd-depth leaves back, so the payload ends partitioned
+        by leaf. Returns (LeafState, split records as a dict of [L-1]
+        arrays, num_leaves), read back once."""
+        self._prepare(feature_mask)
+        self._tree(pay)
+        return self.read_tree()
+
+    # ---- one boosting iteration -------------------------------------------
+    def _body(self, pay, grad_fn, shrink) -> None:
+        """fill_grad -> the tree -> apply_scores, queued with no read-back
+        (on the card: everything one CUDA graph captures)."""
+        with _range("grow::fill_grad"):
+            self.fill_grad(pay, grad_fn)
+        self._tree(pay)
+        with _range("grow::apply_scores"):
+            gs.apply_scores(self.state,
+                            self._f32_row(pay, self.score_row)[:self.n],
+                            shrink)
+        self.state.cnt.copy_(counters.counts(self.device))
+
+    def iteration(self, pay, grad_fn, feature_mask, shrink: float):
+        """One boosting iteration on the payload: the objective's gradients
+        (``grad_fn``, a payload_grad_fn), one tree, its score update.
+        Returns the tree as :meth:`grow` does, read back once.
+
+        On the CPU, and after a level phase, it runs eagerly. On the card
+        without a level phase the first iteration runs eagerly under
+        ``torch.cuda.set_sync_debug_mode("error")`` (any torch operation
+        that waits for the card raises); the next one is captured as one
+        CUDA graph, and every later iteration on the same payload and
+        shrinkage replays it. The tree itself is the only read-back. A
+        failure raises: there is no fallback to an eager loop."""
+        self._prepare(feature_mask)
+        if self.use_level or self.device.type != "cuda" or not self.capture:
+            self._body(pay, grad_fn, shrink)
+            return self.read_tree()
+        key = (pay.data_ptr(), float(shrink))
+        if self._graph is not None and self._graph[1] == key:
+            self._graph[0].replay()
+            self.replays += 1
+        elif self._checked != key:
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._body(pay, grad_fn, shrink)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self._checked = key
+        else:
+            self._capture(pay, grad_fn, shrink, key)
+        return self.read_tree()
+
+    def _capture(self, pay, grad_fn, shrink, key) -> None:
+        """Capture one iteration as a CUDA graph, then replay it."""
+        import time
+        try:
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError:                 # a torch without keep_graph
+            g = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(g):
+            self._body(pay, grad_fn, shrink)
+        t1 = time.perf_counter()
+        nodes = None
+        if hasattr(g, "raw_cuda_graph"):
+            try:
+                nodes = gs.graph_nodes(g)
+            except RuntimeError:          # the graph was not kept
+                nodes = None
+        if hasattr(g, "instantiate"):
+            g.instantiate()
+        torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        self._graph = (g, key)
+        self.graph_stats = {"nodes": nodes, "capture_ms": (t1 - t0) * 1e3,
+                            "instantiate_ms": (t2 - t1) * 1e3}
+        g.replay()
 
     @staticmethod
     def to_tree_arrays(lstate: LeafState, tree: dict,

@@ -23,6 +23,15 @@ its plain PyTorch version:
     TPU kernels partition in place): the copy of the segments that a tree
     left in the second buffer back into the payload.
 
+The persistent grower's per-split loop runs these kernels in their device
+form (:func:`split_pass_device`, :func:`seg_hist_device`,
+:func:`consolidate_device`): the split's scalars, the segment and the
+grower's "done" flag are read from device memory, n_left is written there,
+and the grids are fixed, so nothing waits for the card between splits and
+the loop can be captured in a CUDA graph. The host forms
+(:func:`split_pass`, :func:`seg_hist`, :func:`consolidate`) upload their
+arguments and launch the same kernels: one contract.
+
 The payload is the [WPA, NP] int32 matrix of ops/payload.py. Histograms are
 two f32 planes of [G * 256]: group g's bin b at g * 256 + b, the layout of
 the TPU kernels' ``_unpack_hist`` output, without the bf16 hi/lo
@@ -49,6 +58,7 @@ import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
+from . import counters
 from .histogram import _chain, row_blocks
 
 # scalar slots of one split (pallas_grow.py:83-98)
@@ -232,9 +242,13 @@ def _hist_buffers(pay, G, length, sums):
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _HIST_ARGS = [_P, _LL, _P, _I, _I, _LL, _LL, _I, _LL, _P, _P, _P]
+_DEV_HIST_ARGS = [_P, _P, _P, _LL, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P]
 
 
 def _launch_hist(lib_name, fn_name, pay, plan, nbw, start, length):
+    """A host-segment histogram launcher (the ownership witness,
+    ``ownership_hist_launch``): (grad plane, hess plane) of lanes [start,
+    start + length)."""
     from .build import load
     fn = getattr(load(lib_name), fn_name)
     fn.argtypes = _HIST_ARGS
@@ -249,76 +263,266 @@ def _launch_hist(lib_name, fn_name, pay, plan, nbw, start, length):
     return out[0], out[1]
 
 
+def _opt(t):
+    return None if t is None else _void(t)
+
+
+def _launch_hist_dev(fn_name, pay, plan, nbw, seg, out, partial, done,
+                     counter=None, alt=None, swap=None):
+    """Queue a device-segment histogram launcher (seg_hist's, or
+    split_pass's in-pass one) into `out` [2, G * 256], of `pay` (of `alt`
+    when the device flag `swap` is set)."""
+    from .build import load
+    lib = "seg_hist" if fn_name == "seg_hist_launch" else "split_pass"
+    fn = getattr(load(lib), fn_name)
+    G = plan.shape[0]
+    if fn_name == "seg_hist_launch":
+        fn.argtypes = _DEV_HIST_ARGS
+        extra = (counter,)
+    else:
+        fn.argtypes = _DEV_HIST_ARGS[:-2] + [_P]
+        extra = ()
+    fn.restype = _I
+    err = fn(_void(pay), _opt(alt), _opt(swap), pay.shape[1], _void(plan),
+             G, nbw + 2, _void(seg), _opt(done), partial.shape[0],
+             _void(partial), _void(out), *extra, _stream(pay))
+    if err != 0:
+        raise LightGBMError("%s kernel launch failed: CUDA error %d"
+                            % (lib, err))
+
+
+def _check_dev(name, t, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
+            or t.device != device or not t.is_contiguous():
+        raise LightGBMError("%s is %s %s on %s; expected contiguous %s %s "
+                            "on %s" % (name, tuple(t.shape), t.dtype,
+                                       t.device, dtype, tuple(shape),
+                                       device))
+
+
+def hist_scratch(pay, G: int, max_length: int):
+    """(out [2, G * 256], partial [row blocks of max_length, 2, G * 256])
+    f32 buffers of a device-segment histogram of at most max_length
+    lanes."""
+    nb = row_blocks(int(max_length), G)[0]
+    return (torch.empty((2, G * HIST_W), dtype=torch.float32,
+                        device=pay.device),
+            torch.empty((nb, 2, G * HIST_W), dtype=torch.float32,
+                        device=pay.device))
+
+
+def seg_hist_device(pay: torch.Tensor, plan: torch.Tensor, nbw: int,
+                    seg: torch.Tensor, out: torch.Tensor,
+                    partial: torch.Tensor, done=None, alt=None,
+                    swap=None) -> None:
+    """The histogram of the device segment ``seg`` (int64 [2]: start,
+    length) into ``out`` [2, G * 256] f32: the CUDA kernel for a payload
+    on the card, the plain version on the CPU; nothing when ``done``
+    (int64 [1]) is set. With ``swap`` (int64 [1]) set, the lanes are read
+    from ``alt`` (the other payload buffer, same lanes) instead of
+    ``pay``. ``partial`` is the [n, 2, G * 256] scratch of
+    :func:`hist_scratch`, n the row blocks of the longest segment the call
+    may name (the kernel does not check). Nothing is read back."""
+    nbw = int(nbw)
+    _check("seg_hist", pay, plan, nbw, (0, 0))
+    G, dev = plan.shape[0], pay.device
+    _check_dev("seg_hist: seg", seg, (2,), torch.int64, dev)
+    _check_dev("seg_hist: out", out, (2, G * HIST_W), torch.float32, dev)
+    if partial.dim() != 3 or tuple(partial.shape[1:]) != (2, G * HIST_W):
+        raise LightGBMError("seg_hist: partial must be [n, 2, %d]"
+                            % (G * HIST_W))
+    if done is not None:
+        _check_dev("seg_hist: done", done, (1,), torch.int64, dev)
+    if (alt is None) != (swap is None):
+        raise LightGBMError("seg_hist: alt and swap go together")
+    if alt is not None:
+        _check_pair("seg_hist", alt, pay, nbw + 4)
+        _check_dev("seg_hist: swap", swap, (1,), torch.int64, dev)
+    if dev.type == "cpu":
+        if done is not None and int(done[0]):
+            return
+        st, ln = (int(v) for v in seg.tolist())
+        src = alt if swap is not None and int(swap[0]) else pay
+        gh, hh = seg_hist_plain(src, plan, nbw, st, ln)
+        out[0].copy_(gh)
+        out[1].copy_(hh)
+        counters.bump(dev, "seg_hist")
+        return
+    _launch_hist_dev("seg_hist_launch", pay, plan, nbw, seg, out, partial,
+                     done, counters.ptr(dev, "seg_hist"), alt, swap)
+    seg_hist_device.launches += 1
+
+
+seg_hist_device.launches = 0
+
+
 def seg_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, start: int,
              length: int):
     """(grad plane, hess plane) of lanes [start, start + length): the CUDA
-    kernel for a payload on the card, the plain version on the CPU."""
+    kernel for a payload on the card (the segment uploaded, then
+    :func:`seg_hist_device`'s launch), the plain version on the CPU."""
     start, length, nbw = int(start), int(length), int(nbw)
     _check("seg_hist", pay, plan, nbw, (start, length))
     if pay.device.type == "cpu":
         return seg_hist_plain(pay, plan, nbw, start, length)
-    out = _launch_hist("seg_hist", "seg_hist_launch", pay, plan, nbw, start,
-                       length)
+    out, partial = hist_scratch(pay, plan.shape[0], length)
+    seg = torch.tensor([start, length], dtype=torch.int64, device=pay.device)
+    _launch_hist_dev("seg_hist_launch", pay, plan, nbw, seg, out, partial,
+                     None, counters.ptr(pay.device, "seg_hist"))
     seg_hist.launches += 1
-    return out
+    return out[0], out[1]
 
 
 seg_hist.launches = 0
 
 
-def root_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, n: int):
+def root_scratch(pay: torch.Tensor, G: int, n: int):
+    """The buffers of a root_hist launch over n lanes: (planes [2, G * 256]
+    f32, sums [2] f32, partial [row blocks, 2, G * 256] f32, sums partial
+    [row blocks, 2] f64), allocated once by a caller that launches it
+    again at fixed addresses (the grower's CUDA graph)."""
+    nblocks = row_blocks(int(n), G)[0]
+    dev = pay.device
+    return (torch.empty((2, G * HIST_W), dtype=torch.float32, device=dev),
+            torch.empty(2, dtype=torch.float32, device=dev),
+            torch.empty((nblocks, 2, G * HIST_W), dtype=torch.float32,
+                        device=dev),
+            torch.empty((nblocks, 2), dtype=torch.float64, device=dev))
+
+
+def root_hist(pay: torch.Tensor, plan: torch.Tensor, nbw: int, n: int,
+              out=None):
     """(grad plane, hess plane, sums [2] f32) over lanes [0, n): the CUDA
     kernel for a payload on the card, the plain version on the CPU.
 
     The totals are f64 sums rounded to f32, the same value on any device
     (ops/grow.py's convention). The TPU kernel sums them in f32 chunk
     partials instead; the two differ by f32 rounding (the tests hold
-    it)."""
+    it). ``out``, where given, is :func:`root_scratch`'s buffers: the
+    results are written to its planes and sums."""
     n, nbw = int(n), int(nbw)
     _check("root_hist", pay, plan, nbw, (0, n))
+    G = plan.shape[0]
+    if out is None:
+        out = root_scratch(pay, G, n)
+    planes, sums, partial, sums_partial = out
+    _check_dev("root_hist: planes", planes, (2, G * HIST_W), torch.float32,
+               pay.device)
+    _check_dev("root_hist: sums", sums, (2,), torch.float32, pay.device)
+    nblocks, rows = row_blocks(n, G)
+    if partial.shape[0] != nblocks:
+        raise LightGBMError("root_hist: scratch for %d row blocks, %d lanes "
+                            "need %d" % (partial.shape[0], n, nblocks))
     if pay.device.type == "cpu":
-        return root_hist_plain(pay, plan, nbw, n)
+        gh, hh, s_ = root_hist_plain(pay, plan, nbw, n)
+        planes[0].copy_(gh)
+        planes[1].copy_(hh)
+        sums.copy_(s_)
+        counters.bump(pay.device, "root_hist")
+        return planes[0], planes[1], sums
     from .build import load
     fn = load("root_hist").root_hist_launch
-    fn.argtypes = [_P, _LL, _P, _I, _I, _LL, _I, _LL, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _LL, _P, _I, _I, _LL, _I, _LL, _P, _P, _P, _P, _P, _P]
     fn.restype = _I
-    G = plan.shape[0]
-    nblocks, rows, partial, out = _hist_buffers(pay, G, n, True)
-    sums_partial = torch.empty((nblocks, 2), dtype=torch.float64,
-                               device=pay.device)
-    sums = torch.empty(2, dtype=torch.float32, device=pay.device)
     err = fn(_void(pay), pay.shape[1], _void(plan), G, nbw + 2, n, nblocks,
-             rows, _void(partial), _void(out), _void(sums_partial),
-             _void(sums), _stream(pay))
+             rows, _void(partial), _void(planes), _void(sums_partial),
+             _void(sums), counters.ptr(pay.device, "root_hist"),
+             _stream(pay))
     if err != 0:
         raise LightGBMError("root_hist kernel launch failed: CUDA error %d"
                             % err)
     root_hist.launches += 1
-    return out[0], out[1], sums
+    return planes[0], planes[1], sums
 
 
 root_hist.launches = 0
 
 
-def _launch_split(src, dst, scal, wp_live):
-    """Queue the partition kernels of a non-empty segment from `src` into
-    `dst` on the card; returns n_left as a [1] int32 tensor on the card,
-    without waiting."""
+def split_scratch(src: torch.Tensor) -> torch.Tensor:
+    """The int32 [2, tiles] tile counts and offsets of a partition of any
+    segment of `src`'s lanes (one tile per 1024 lanes)."""
+    return torch.empty((2, max(1, -(-src.shape[1] // 1024))),
+                       dtype=torch.int32, device=src.device)
+
+
+def _launch_split(src, dst, scal, res, wp_live, work, done=None, swap=None):
+    """Queue the partition kernels of the device scalars `scal` from `src`
+    into `dst` (the other way when `swap` is set) on the card; n_left and
+    the smaller child go to `res`."""
     from .build import load
     fn = load("split_pass").split_pass_launch
-    fn.argtypes = [_P, _P, _LL, _I, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _P, _LL, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P]
     fn.restype = _I
-    ntiles = -(-scal[S_NL] // 1024)
-    tiles = torch.empty((2, ntiles), dtype=torch.int32, device=src.device)
-    cnt = torch.empty(1, dtype=torch.int32, device=src.device)
-    host = (ctypes.c_int * N_SCALARS)(*scal)
-    err = fn(_void(src), _void(dst), src.shape[1], wp_live,
-             ctypes.cast(host, ctypes.c_void_p), _void(tiles[0]),
-             _void(tiles[1]), _void(cnt), _stream(src))
+    err = fn(_void(src), _void(dst), src.shape[1], wp_live, _void(scal),
+             _opt(done), _opt(swap), work.shape[1], _void(work[0]),
+             _void(work[1]),
+             _void(res), counters.ptr(src.device, "split_pass"),
+             _stream(src))
     if err != 0:
         raise LightGBMError("split_pass kernel launch failed: CUDA error %d"
                             % err)
-    return cnt
+
+
+def _split_args(src, dst, plan, nbw, wp_live):
+    nbw, wp_live = int(nbw), int(wp_live)
+    _check("split_pass", src, plan, nbw, (0, 0))
+    if wp_live < nbw + 4:
+        raise LightGBMError("split_pass: wp_live=%d leaves the grad/hess "
+                            "rows behind (nbw + 4 = %d)" % (wp_live, nbw + 4))
+    _check_pair("split_pass", src, dst, wp_live)
+    return nbw, wp_live
+
+
+def split_pass_device(src: torch.Tensor, dst: torch.Tensor,
+                      scal: torch.Tensor, res: torch.Tensor,
+                      plan: torch.Tensor, nbw: int, wp_live: int, hist=None,
+                      done=None, work=None, swap=None) -> None:
+    """The device form of :func:`split_pass`: the scalars are the int32
+    [N_SCALARS] (or longer) tensor ``scal`` on the payload's device, and
+    ``res`` (int64 [3]) receives n_left and the smaller child's (start,
+    length); nothing is read back. ``hist``, where given, is the (out,
+    partial) pair of :func:`hist_scratch` that receives the smaller
+    child's planes from `dst`. With ``done`` (int64 [1]) set, nothing is
+    written. With ``swap`` (int64 [1]) set, the partition runs from `dst`
+    into `src` (the grower's buffer parity: the leaf's buffer is picked on
+    the device). ``work`` is :func:`split_scratch` (allocated when None). The
+    CUDA kernels for buffers on the card, the plain version on the CPU; the
+    kernels do not check the scalars (the caller keeps the segment inside
+    the buffers and the word row a bin word)."""
+    nbw, wp_live = _split_args(src, dst, plan, nbw, wp_live)
+    dev = src.device
+    if scal.dtype != torch.int32 or scal.dim() != 1 \
+            or scal.numel() < N_SCALARS or scal.device != dev:
+        raise LightGBMError("split_pass: scal must be an int32 [>= %d] "
+                            "tensor on %s" % (N_SCALARS, dev))
+    _check_dev("split_pass: res", res, (3,), torch.int64, dev)
+    for name, flag in (("done", done), ("swap", swap)):
+        if flag is not None:
+            _check_dev("split_pass: " + name, flag, (1,), torch.int64, dev)
+    if dev.type == "cpu":
+        if done is not None and int(done[0]):
+            return
+        if swap is not None and int(swap[0]):
+            src, dst = dst, src
+        sc = [int(v) for v in scal[:N_SCALARS].tolist()]
+        n_left, h = split_pass_plain(src, dst, sc, plan, nbw, wp_live,
+                                     hist is not None)
+        res.copy_(torch.tensor([n_left, *_child(sc, n_left)]))
+        if hist is not None:
+            hist[0][0].copy_(h[0])
+            hist[0][1].copy_(h[1])
+        counters.bump(dev, "split_pass")
+        return
+    _launch_split(src, dst, scal, res, wp_live,
+                  split_scratch(src) if work is None else work, done, swap)
+    if hist is not None:
+        _launch_hist_dev("split_pass_hist_launch", dst, plan, nbw, res[1:],
+                         hist[0], hist[1], done,
+                         alt=None if swap is None else src, swap=swap)
+    split_pass_device.launches += 1
+
+
+split_pass_device.launches = 0
 
 
 def split_pass(src: torch.Tensor, dst: torch.Tensor, scal,
@@ -326,72 +530,89 @@ def split_pass(src: torch.Tensor, dst: torch.Tensor, scal,
     """Partition one leaf's segment from `src` into `dst` (the same lanes,
     rows < wp_live; `src` is not written): the CUDA kernel for a payload on
     the card, the plain version on the CPU. `scal` is the host sequence of
-    the N_SCALARS slots. Returns (n_left, the smaller child's (grad, hess)
-    planes, from `dst`, when `with_hist`, else None). Reading n_left back
-    waits for the card: one host sync per split."""
+    the N_SCALARS slots; on the card it is uploaded and the kernels of
+    :func:`split_pass_device` run on it. Returns (n_left, the smaller
+    child's (grad, hess) planes, from `dst`, when `with_hist`, else None).
+    Reading n_left back waits for the card."""
     scal = [int(v) for v in scal]
     if len(scal) != N_SCALARS:
         raise LightGBMError("split_pass: %d scalars, expected %d"
                             % (len(scal), N_SCALARS))
-    nbw, wp_live = int(nbw), int(wp_live)
+    nbw, wp_live = _split_args(src, dst, plan, nbw, wp_live)
     _check("split_pass", src, plan, nbw, (scal[S_S0], scal[S_NL]))
-    if wp_live < nbw + 4:
-        raise LightGBMError("split_pass: wp_live=%d leaves the grad/hess "
-                            "rows behind (nbw + 4 = %d)" % (wp_live, nbw + 4))
-    _check_pair("split_pass", src, dst, wp_live)
     if not 0 <= scal[S_WG] < nbw:
         raise LightGBMError("split_pass: word row %d is not a bin word"
                             % scal[S_WG])
     if src.device.type == "cpu":
         return split_pass_plain(src, dst, scal, plan, nbw, wp_live,
                                 with_hist)
-    n_left = 0
-    if scal[S_NL] > 0:
-        n_left = int(_launch_split(src, dst, scal, wp_live).item())
-    hist = None
-    if with_hist:
-        hist = _launch_hist("split_pass", "split_pass_hist_launch", dst, plan,
-                            nbw, *_child(scal, n_left))
-    if scal[S_NL] > 0 or with_hist:
-        split_pass.launches += 1
-    return n_left, hist
+    dev = src.device
+    scal_d = torch.tensor(scal, dtype=torch.int32, device=dev)
+    res = torch.empty(3, dtype=torch.int64, device=dev)
+    hist = hist_scratch(dst, plan.shape[0], scal[S_NL]) if with_hist \
+        else None
+    _launch_split(src, dst, scal_d, res, wp_live, split_scratch(src))
+    if hist is not None:
+        _launch_hist_dev("split_pass_hist_launch", dst, plan, nbw, res[1:],
+                         hist[0], hist[1], None)
+    split_pass.launches += 1
+    return int(res[0].item()), \
+        None if hist is None else (hist[0][0], hist[0][1])
 
 
 split_pass.launches = 0
 
 
-def _segment_tables(segs, device):
-    """The device tables of a consolidate launch: the int64 [K, 3] table of
-    split_pass.cu (start, length, first tile of 1024 lanes) and the segment
-    of every tile."""
-    ln = np.array([l_ for _, l_ in segs], np.int64)
-    ntiles = -(-ln // 1024)
-    tab = np.stack([np.array([st for st, _ in segs], np.int64), ln,
-                    np.cumsum(ntiles) - ntiles], axis=1)
-    sot = np.repeat(np.arange(len(segs), dtype=np.int32), ntiles)
-    return (torch.as_tensor(tab, device=device),
-            torch.as_tensor(sot, device=device))
-
-
-def _launch_consolidate(src, dst, wp_live, tables):
-    """Queue the copy of the segments of `tables` (:func:`_segment_tables`,
-    at least one tile) from `src` to `dst` on the card."""
+def _launch_consolidate(src, dst, wp_live, tab, max_tiles, counter=True):
+    """Queue the copy of the segments of the device table `tab` (int64
+    [K, 2]: start, length) from `src` to `dst` on the card."""
     from .build import load
     fn = load("split_pass").consolidate_launch
-    fn.argtypes = [_P, _P, _LL, _I, _P, _P, _I, _P]
+    fn.argtypes = [_P, _P, _LL, _I, _P, _I, _LL, _P, _P]
     fn.restype = _I
-    tab, sot = tables
     err = fn(_void(src), _void(dst), src.shape[1], wp_live, _void(tab),
-             _void(sot), len(sot), _stream(src))
+             tab.shape[0], max_tiles,
+             counters.ptr(src.device, "consolidate") if counter else None,
+             _stream(src))
     if err != 0:
         raise LightGBMError("consolidate kernel launch failed: CUDA error %d"
                             % err)
 
 
+def consolidate_device(src: torch.Tensor, dst: torch.Tensor,
+                       tab: torch.Tensor, wp_live: int) -> None:
+    """Copy rows < wp_live of the segments of the device table `tab`
+    (int64 [K, 2]: start, length; length 0 is no segment; disjoint) from
+    `src` to `dst`: one launch of the CUDA kernel over a fixed grid for
+    buffers on the card, the plain version on the CPU. Nothing is read
+    back; the kernel does not check the table."""
+    wp_live = int(wp_live)
+    _check_pair("consolidate", src, dst, wp_live)
+    if tab.dtype != torch.int64 or tab.dim() != 2 or tab.shape[1] != 2 \
+            or tab.device != src.device or not tab.is_contiguous():
+        raise LightGBMError("consolidate: the table must be a contiguous "
+                            "int64 [K, 2] tensor on %s" % src.device)
+    if src.device.type == "cpu":
+        segs = [(st, ln) for st, ln in tab.tolist() if ln > 0]
+        consolidate_plain(src, dst, segs, wp_live)
+        if segs:
+            counters.bump(src.device, "consolidate")
+        return
+    if src.device.type != "cuda":
+        raise LightGBMError("consolidate: no kernel for device %s"
+                            % src.device)
+    _launch_consolidate(src, dst, wp_live, tab, -(-src.shape[1] // 1024))
+    consolidate_device.launches += 1
+
+
+consolidate_device.launches = 0
+
+
 def consolidate(src: torch.Tensor, dst: torch.Tensor, segs,
                 wp_live: int) -> None:
     """Copy rows < wp_live of the disjoint (start, length) segments `segs`
-    from `src` to `dst`: one launch of the CUDA kernel for buffers on the
+    from `src` to `dst`: one launch of the CUDA kernel (the segments
+    uploaded as :func:`consolidate_device`'s table) for buffers on the
     card, the plain version on the CPU. The grower's end-of-tree step: the
     odd-depth leaves' segments from the second buffer into the payload."""
     segs = [(int(st), int(ln)) for st, ln in segs]
@@ -409,10 +630,11 @@ def consolidate(src: torch.Tensor, dst: torch.Tensor, segs,
     if src.device.type == "cpu":
         consolidate_plain(src, dst, segs, wp_live)
         return
-    tables = _segment_tables(segs, src.device)
-    if len(tables[1]) == 0:
+    tiles = sum(-(-ln // 1024) for _, ln in segs)
+    if tiles == 0:
         return                            # no lanes: nothing to launch
-    _launch_consolidate(src, dst, wp_live, tables)
+    tab = torch.tensor(segs, dtype=torch.int64, device=src.device)
+    _launch_consolidate(src, dst, wp_live, tab, tiles)
     consolidate.launches += 1
 
 

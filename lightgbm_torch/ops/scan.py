@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..utils.log import LightGBMError
+from . import counters
 from .split import K_EPSILON, leaf_gain
 
 NEG_INF = float("-inf")
@@ -257,13 +258,12 @@ def _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx):
 
 
 def _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
-            B, Fp, Wp):
+            B, Fp, Wp, out, done):
     from .build import load
     fn = load("scan_pair").scan_pair_launch
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, P, L, P, P, P, P, I, P, I, I, I, P, P]
+    fn.argtypes = [P, P, P, P, P, L, P, P, P, P, I, P, I, I, I, P, P, P, P]
     fn.restype = I
-    out = torch.empty((B, 8, Fp), dtype=torch.float32, device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(scal.data_ptr(), g.data_ptr(), h.data_ptr(),
              None if rows is None else rows.data_ptr(),
@@ -271,15 +271,36 @@ def _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
              Fp * Wp if rows is None else g.shape[1],
              keep_r.data_ptr(), keep_f.data_ptr(), valid_r.data_ptr(),
              valid_f.data_ptr(), int(valid_r.dim() == 3), aux.data_ptr(),
-             B, Fp, Wp, out.data_ptr(), stream)
+             B, Fp, Wp, out.data_ptr(),
+             None if done is None else done.data_ptr(),
+             counters.ptr(g.device, "scan_pair"), stream)
     if err != 0:
         raise LightGBMError("scan_pair kernel launch failed: CUDA error %d"
                             % err)
     return out
 
 
+def check_out(name, out, shape, dev):
+    """The preallocated output (float32 `shape` on `dev`) and done flag
+    (int64 [1]) of a scan's device form."""
+    if tuple(out.shape) != tuple(shape) or out.dtype != torch.float32 \
+            or out.device != dev or not out.is_contiguous():
+        raise LightGBMError("%s: out is %s %s on %s; expected contiguous "
+                            "float32 %s on %s" % (name, tuple(out.shape),
+                                                   out.dtype, out.device,
+                                                   tuple(shape), dev))
+
+
+def check_done(name, done, dev):
+    if done is not None and (tuple(done.shape) != (1,)
+                             or done.dtype != torch.int64
+                             or done.device != dev):
+        raise LightGBMError("%s: done must be an int64 [1] tensor on %s"
+                            % (name, dev))
+
+
 def scan_pair(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows=None,
-              gidx=None):
+              gidx=None, out=None, done=None):
     """Best split per feature for B children: the CUDA kernel for tensors
     on the card, the plain version for tensors on the CPU.
 
@@ -291,21 +312,34 @@ def scan_pair(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows=None,
     already gathered (rows = arange(B), gidx the identity), and the function
     is :func:`scan_pair_plain`. scal [B, 8] (see :func:`pair_scalars`);
     keep masks [Fp, Wp]; valid masks [Fp, Wp] shared or [B, Fp, Wp]; aux
-    [8, Fp] with the penalty in row 0. Returns [B, 8, Fp] f32. The caller
-    keeps rows inside the planes (the kernel does not check them).
+    [8, Fp] with the penalty in row 0. Returns [B, 8, Fp] f32, written to
+    ``out`` where given. The scalars and rows are read on the device (the
+    persistent grower's step kernels write them there), and with ``done``
+    (int64 [1]) set nothing is written. The caller keeps rows inside the
+    planes (the kernel does not check them).
     """
     B, Fp, Wp = _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux,
                        rows, gidx)
+    if out is not None:
+        check_out("scan_pair", out, (B, 8, Fp), g.device)
+    check_done("scan_pair", done, g.device)
     if g.device.type == "cpu":
+        if done is not None and int(done[0]):
+            return out
         if rows is None:
-            return scan_pair_plain(scal, g, h, keep_r, keep_f, valid_r,
-                                   valid_f, aux)
-        return scan_pair_rows_plain(scal, g, h, rows, gidx, keep_r, keep_f,
-                                    valid_r, valid_f, aux)
+            res = scan_pair_plain(scal, g, h, keep_r, keep_f, valid_r,
+                                  valid_f, aux)
+        else:
+            res = scan_pair_rows_plain(scal, g, h, rows, gidx, keep_r, keep_f,
+                                       valid_r, valid_f, aux)
+        counters.bump(g.device, "scan_pair")
+        return res if out is None else out.copy_(res)
     if g.device.type != "cuda":
         raise LightGBMError("scan_pair: no kernel for device %s" % g.device)
-    out = _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows,
-                  gidx, B, Fp, Wp)
+    if out is None:
+        out = torch.empty((B, 8, Fp), dtype=torch.float32, device=g.device)
+    _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
+            B, Fp, Wp, out, done)
     scan_pair.launches += 1
     return out
 

@@ -196,14 +196,18 @@ class SerialTreeLearner:
         gradients, one tree, and the tree's score update, all on the
         payload, which stays on the learner (the carry). `score0()` returns
         the row-ordered [n] scores that seed the carry; it is called on the
-        first call only. Returns the tree's TreeArrays."""
+        first call only. Returns the tree's TreeArrays.
+
+        The iteration is the grower's (PersistGrower.iteration): on the
+        card without a level phase, its first iteration runs eagerly with
+        every synchronizing torch operation an error, and the later ones
+        replay one captured CUDA graph; the tree is read back once."""
         gr = self._persist_grower()
         if self._persist_carry is None:
             self._persist_carry = gr.init_carry(score0())
-        pay = self._persist_carry
-        gr.fill_grad(pay, objective.payload_grad_fn())
-        lstate, tree, num_leaves = gr.grow(pay, self.col_sampler.sample())
-        gr.apply_scores(pay, lstate, num_leaves, shrink)
+        lstate, tree, num_leaves = gr.iteration(
+            self._persist_carry, objective.payload_grad_fn(),
+            self.col_sampler.sample(), shrink)
         return gr.to_tree_arrays(lstate, tree, num_leaves)
 
     def persist_finalize_scores(self):

@@ -25,7 +25,8 @@ def test_every_kernel_has_a_source():
         assert (build.CSRC / (name + ".cu")).is_file(), name
     assert set(build.KERNELS) == {"hist_window", "scan_pair", "root_hist",
                                   "split_pass", "seg_hist", "scan_blocks",
-                                  "level_pass", "level_seg_hist"}
+                                  "level_pass", "level_seg_hist",
+                                  "grow_step"}
 
 
 @pytest.mark.parametrize("name", build.KERNELS)

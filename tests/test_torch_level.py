@@ -170,13 +170,17 @@ def test_bundled_routing():
 
 def test_block_scan_runs_on_bundled_data(monkeypatch):
     """Every scan of a bundled tree is one scan_blocks call: 1 for the root
-    and 1 per level program."""
+    and 1 per level program, and 1 per split of the device loop after it
+    (whose steps after the tree stops growing are no-ops, with the done
+    flag set, and not counted)."""
     X, y = _expo()
     calls = []
 
-    def spy(scal, *args):
-        calls.append(scal.shape[0])
-        return block_scan.scan_blocks(scal, *args)
+    def spy(scal, *args, **kw):
+        done = kw.get("done")
+        if done is None or int(done[0]) == 0:
+            calls.append(scal.shape[0])
+        return block_scan.scan_blocks(scal, *args, **kw)
     from lightgbm_torch.ops import grow_persist
     monkeypatch.setattr(grow_persist, "scan_blocks", spy)
     bp = _port(EXPO, X, y, rounds=3)

@@ -206,22 +206,29 @@ def test_grow_payload_equals_single_buffer_partition(name, monkeypatch):
     assert gr.second.dtype == torch.int32
     splits, merged = [], []
 
-    def spy_split(src, dst, scal, *args):
-        splits.append([int(v) for v in scal])
-        return pk.split_pass(src, dst, scal, *args)
+    def spy_split(src, dst, scal, *args, **kw):
+        # the device form: scalars in a tensor; a step with the done flag
+        # set is a no-op
+        if int(kw["done"][0]) == 0:
+            splits.append([int(v) for v in scal[:pk.N_SCALARS]])
+        return pk.split_pass_device(src, dst, scal, *args, **kw)
 
     def spy_level(src, dst, scal, *args):
         splits.extend([int(v) for v in row[:pk.N_SCALARS]]
                       for row in np.asarray(scal))
         return pk.level_pass(src, dst, scal, *args)
 
-    def spy_consolidate(src, dst, segs, wp_live):
-        merged.append(len(segs))
-        return pk.consolidate(src, dst, segs, wp_live)
+    def spy_consolidate(src, dst, tab, wp_live):
+        # the device form: a table of the tree's leaves, length 0 for the
+        # even-depth ones
+        odd_segs = int((tab[:, 1] > 0).sum())
+        if odd_segs:
+            merged.append(odd_segs)
+        return pk.consolidate_device(src, dst, tab, wp_live)
 
-    monkeypatch.setattr(grow_persist, "split_pass", spy_split)
+    monkeypatch.setattr(grow_persist, "split_pass_device", spy_split)
     monkeypatch.setattr(grow_persist, "level_pass", spy_level)
-    monkeypatch.setattr(grow_persist, "consolidate", spy_consolidate)
+    monkeypatch.setattr(grow_persist, "consolidate_device", spy_consolidate)
     pay = gr.init_carry(torch.zeros(3000, dtype=torch.float64))
     grad_fn = bst._booster.objective.payload_grad_fn()
     mask = np.ones(f, bool)

@@ -167,16 +167,19 @@ def test_persist_max_depth_matches_jax_per_split(monkeypatch):
 
 def test_persist_seg_hist_branch_matches_jax(monkeypatch):
     """24 groups > SEG_HIST_MIN_GROUPS: the smaller child's histogram comes
-    from seg_hist after split_pass, in both packages."""
+    from seg_hist after split_pass, in both packages (in the port, its
+    device form over the segment split_pass wrote; a call with the done
+    flag set is a no-op step and not counted)."""
     X, y = _data(n=3000, f=24, seed=7, missing=0.0)
     params = dict(BASE, num_leaves=7)
     ref = _jax(params, X, y, True, monkeypatch)
     calls = []
 
-    def spy(*args):
-        calls.append(args[3:])
-        return pk.seg_hist(*args)
-    monkeypatch.setattr(grow_persist, "seg_hist", spy)
+    def spy(*args, **kw):
+        if int(kw["done"][0]) == 0:
+            calls.append(args[3].tolist())
+        return pk.seg_hist_device(*args, **kw)
+    monkeypatch.setattr(grow_persist, "seg_hist_device", spy)
     bp = _port(params, X, y)
     assert bp._booster.tree_learner._persist_gr.inpass_hist is False
     assert len(calls) == sum(t.num_leaves - 1 for t in bp._booster.models)
