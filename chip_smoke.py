@@ -50,21 +50,34 @@ exits non-zero without printing a result:
               launches); split_pass's device form is also held to the host
               form, with the done flag set (nothing written or counted)
               and with the buffer parity flag (second buffer to payload).
+              split_pass and the consolidation also run at the
+              multiclass payload's width (wp_live 21: 5 score and 5
+              snapshot rows), held to their plain versions and timed.
               The grow_step kernels (pick, commit, planes, assemble, the
               consolidation table, the score update) are held bit for bit
               against their plain versions on random mid-tree states at
               the per-split shapes, and timed;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
-              features, max_bin=255, binary) on cuda with the default
-              routing, along three paths, each wrapper's launch count set
-              to 0 just before and read just after:
-              persist  num_leaves=255 (the per-split persistent grower),
-                       10 iterations;
-              v1       tpu_persist_scan=false, 3 iterations;
-              level    num_leaves=256, max_depth=8 (the level phase), 10
-                       iterations, then 3 with tpu_level_grow=off whose raw
-                       predictions must equal the first 3 trees' bit for
-                       bit;
+              features, max_bin=255) on cuda with the default routing,
+              along five paths, each wrapper's launch count set to 0 just
+              before and read just after:
+              persist  binary, num_leaves=255 (the per-split persistent
+                       grower), 10 iterations;
+              v1       binary, tpu_persist_scan=false, 3 iterations;
+              level    binary, num_leaves=256, max_depth=8 (the level
+                       phase), 10 iterations, then 3 with
+                       tpu_level_grow=off whose raw predictions must equal
+                       the first 3 trees' bit for bit;
+              multiclass  objective=multiclass, num_class=5 (upstream
+                       examples/multiclass_classification), the labels the
+                       quintiles of the latent make_higgs_like thresholds,
+                       num_leaves=255, 3 iterations of 5 class trees from
+                       one score snapshot (the payload carries 5 score and
+                       5 snapshot rows: wp_live 21); its multi_logloss
+                       must fall every iteration;
+              regression  objective=regression (L2) on the latent plus
+                       Gaussian noise, num_leaves=255, 3 iterations; its L2
+                       loss must fall every iteration;
               launch counts checked against the trees, splits, level
               programs and per-split splits grown (level programs at most
               max_depth per tree) and, for the consolidation, the trees
@@ -80,7 +93,8 @@ exits non-zero without printing a result:
               sha256 of each path's model text; training logloss falling every
               iteration, the device scores against the numpy walk (v1:
               1e-9; f32 payload scores: within 2 * (iterations + 1) f32 ulps
-              of the largest score), and a model-text round trip;
+              of the largest score), and a model-text round trip; on the
+              payload paths the second buffer's rows (wp_live) and bytes;
   5. bundled  the Expo shape (make_expo_like: 8 dense + 640 one-hot
               columns, EFB-bundled into 18 groups; 2M rows), scan_blocks
               against its plain version at B = 256 children read in place
@@ -91,15 +105,19 @@ exits non-zero without printing a result:
               in-pass histogram) bit-equal to the first 3 trees;
   6. parity   cuda against the CPU (the plain versions), 5 iterations, for
               the persistent (force) and v1 (false) growers and the level
-              path on 200k HIGGS rows, and the bundled path on 100k Expo
-              rows: equal tree structure and equal leaf values.
+              path on 200k HIGGS rows, the bundled path on 100k Expo
+              rows, Poisson on the persistent grower (counts of exp(latent
+              / 2)), and softmax and one-vs-all (3 classes, 2 iterations)
+              on the persistent, level and v1 routes: equal tree
+              structure, equal leaf values and equal model text.
 
 The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Options scale the run down for a quick check
-(--rows, --iters, --v1-iters, --level-iters, --off-iters, --expo-rows,
---expo-iters, --parity-rows, --expo-parity-rows, --parity-iters,
---skip-train, --skip-parity); the defaults are the full run. --profile
+(--rows, --iters, --v1-iters, --level-iters, --off-iters, --mc-iters,
+--reg-iters, --expo-rows, --parity-rows, --expo-parity-rows,
+--parity-iters, --mc-parity-iters, --skip-train, --skip-parity); the
+defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
 scan, scatter, consolidation; a copy-back kernel fails the run), the split
@@ -839,6 +857,76 @@ def check_split_device(pay, second0, scal, plan_d, nbw, wp_live, run,
     return 4
 
 
+def wide_partition(pay, plan_d, plan_c, nbw, n, scal, R, K=5):
+    """split_pass and the consolidation at the payload width of K classes
+    (the HIGGS multiclass path: wp_live = nbw + 4 + 2K moving rows, the K
+    score rows and their snapshot riding every partition): a payload of
+    that width (the HIGGS payload's rows, then random words), split_pass on
+    the same segment into a second buffer of wp_live rows, held to its
+    plain version on the CPU with every lane and row outside the segment
+    untouched, and the consolidation of 128 segments over all lanes held to
+    one copy_; both timed beside their bounds. Returns the numbers for
+    split_pass's record."""
+    import torch
+    from lightgbm_torch.ops import payload_kernels as pk
+    from lightgbm_torch.ops.payload import payload_weight_row
+    dev, NP = pay.device, pay.shape[1]
+    wp = payload_weight_row(nbw, K)
+    wide = sentinel((-(-wp // 8) * 8, NP), dev, 11)
+    wide[:nbw + 5] = pay[:nbw + 5]
+    second0 = sentinel((wp, NP), dev, 12)
+    d = second0.clone()
+    n_left = pk.split_pass(wide, d, scal, plan_d, nbw, wp, False)[0]
+    end = 777 + R + 1024
+    dst_c = second0[:, :end].cpu().contiguous()
+    p_left = pk.split_pass(wide[:, :end].cpu().contiguous(), dst_c, scal,
+                           plan_c, nbw, wp, False)[0]
+    if p_left != n_left:
+        raise AssertionError("split_pass at wp_live %d: n_left %d on the "
+                             "card, %d in the plain version"
+                             % (wp, n_left, p_left))
+    err = _same("split_pass at wp_live %d vs the plain version on the CPU"
+                % wp, d[:, :end], dst_c)
+    same_outside("split_pass at wp_live %d" % wp, d, second0, [(777, R)], wp)
+    del dst_c
+    scal_d = torch.tensor(scal, dtype=torch.int32, device=dev)
+    res = torch.empty(3, dtype=torch.int64, device=dev)
+    work = pk.split_scratch(wide)
+    ms = device_ms(lambda: pk._launch_split(wide, d, scal_d, res, wp, work))
+    plain_ms = device_ms(lambda: pk.split_pass_plain(wide, d, scal, plan_d,
+                                                     nbw, wp, False), reps=5)
+    b_ms, b_by = bound_ms(2.0 * wp * R * 4, float(R))
+    cover = random_segments(np.random.default_rng(2), n, 128)
+    ctab = torch.tensor(cover, dtype=torch.int64, device=dev)
+    c_dst = wide.clone()
+    pk.consolidate(d, c_dst, cover, wp)
+    ref = wide.clone()
+    ref[:wp, :n].copy_(d[:, :n])
+    _same("consolidate at wp_live %d vs one copy_" % wp, c_dst, ref)
+    del ref
+    c_ms = device_ms(lambda: pk._launch_consolidate(d, c_dst, wp, ctab,
+                                                    -(-NP // 1024), False))
+    c_plain = device_ms(lambda: pk.consolidate_plain(d, c_dst, cover, wp),
+                        reps=5)
+    c_lib = device_ms(lambda: c_dst[:wp, :n].copy_(d[:, :n]))
+    c_bound = bound_ms(2.0 * wp * n * 4, 0.0)[0]
+    log("split_pass at wp_live %d (the %d-class payload, [%d, %d] int32, "
+        "its second buffer %d bytes), %d lanes from lane 777: bit-identical "
+        "to the plain version on the CPU, every lane and row outside the "
+        "segment untouched; kernel %.4f ms, plain %.4f ms, bound %.4f ms "
+        "(%s); consolidate of 128 segments over all %d lanes: equal to one "
+        "copy_, kernel %.4f ms, plain %.4f ms, one copy_ %.4f ms, bound "
+        "%.4f ms" % (wp, K, wide.shape[0], NP, wp * NP * 4, R, ms, plain_ms,
+                     b_ms, b_by, n, c_ms, c_plain, c_lib, c_bound))
+    del wide, second0, d, c_dst, work
+    torch.cuda.empty_cache()
+    return {"wp_live_%d" % wp: {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err, "consolidate_ms": c_ms,
+        "consolidate_plain_ms": c_plain, "consolidate_library_ms": c_lib,
+        "consolidate_bound_ms": c_bound}}
+
+
 def check_root_hist(pay, cpu, plan, nbw, n, label):
     """root_hist over lanes [0, n) of the payload `pay` (and its CPU copy):
     two launches bit-identical, bit-identical to the plain version on the
@@ -1106,6 +1194,7 @@ def phase_payload_kernels(inner, meta, gc, params):
               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
               "library_ms": None, "inpass_hist_ms": hist_ms,
               "noop_ms": noop_ms, "device_form_checks": dev_err}
+    sp_rec.update(wide_partition(pay, plan_d, plan_c, nbw, n, scal, R))
     records.append(sp_rec)
     records.append(seg_rec)
     level_recs, cons, scan_b256 = phase_level_kernels(
@@ -1371,6 +1460,55 @@ def logloss(y, raw):
     return float(-(y * torch.log(p) + (1 - y) * torch.log(1 - p)).mean())
 
 
+def multi_logloss(y, raw):
+    """Multiclass logloss of [K, n] raw scores and [n] class labels
+    (tensors on one device), in f64: the mean of -log softmax[label]."""
+    import torch
+    lp = torch.log_softmax(raw.double(), dim=0)
+    return float(-lp.gather(0, y.long()[None]).mean())
+
+
+def l2_loss(y, raw):
+    """Mean squared error of raw scores, in f64."""
+    return float(((raw.double() - y.double()) ** 2).mean())
+
+
+LOSSES = {"multiclass": ("multi_logloss", multi_logloss),
+          "regression": ("l2 loss", l2_loss)}
+
+
+def higgs_latent(n, seed=7):
+    """(X, y, latent): make_higgs_like's rows and labels, and the f32
+    latent it thresholds at 0 (its logit plus its logistic noise, redrawn
+    from the same seed): the source of the multiclass and regression
+    targets."""
+    from lightgbm_torch.data.synth import make_higgs_like
+    X, y = make_higgs_like(n, seed=seed)
+    rng = np.random.default_rng(seed)
+    rng.normal(size=(n, X.shape[1]))            # the features' draw
+    x = X.astype(np.float32)
+    logit = (0.8 * x[:, 0] - 0.5 * x[:, 1] + 0.4 * x[:, 21]
+             - 0.3 * x[:, 22] + 0.5 * np.tanh(x[:, 4] * x[:, 5]))
+    del x
+    latent = logit + rng.logistic(size=n).astype(np.float32) * 0.8
+    if not np.array_equal(latent > 0, y > 0):
+        raise AssertionError("the redrawn latent does not threshold to "
+                             "make_higgs_like's labels")
+    return X, y, latent
+
+
+def quantile_classes(latent, K):
+    """K classes of equal size: the latent cut at its 1/K quantiles (the
+    upstream multiclass example's num_class, on HIGGS-shaped rows)."""
+    return np.digitize(latent, np.quantile(latent, np.arange(1, K) / K)) \
+        .astype(np.float64)
+
+
+def l2_target(latent, seed=13):
+    """The latent plus standard Gaussian noise."""
+    return latent + np.random.default_rng(seed).normal(size=len(latent))
+
+
 def phase_block_kernels(inner, meta, gc, params):
     """scan_blocks against its plain version at the bundled path's shape:
     B = 256 children (the 256 segments of the Expo payload cut as a tree
@@ -1498,6 +1636,13 @@ PATHS = {
                 ("hist_window", "scan_pair", "seg_hist", "level_seg_hist",
                  "grow_root")),
 }
+# the multiclass (K = 5, the upstream examples/multiclass_classification
+# train.conf's num_class) and regression paths take the per-split route
+PATHS["multiclass"] = ({"objective": "multiclass", "num_class": 5,
+                        "num_leaves": 255, "tpu_persist_scan": "auto"},
+                       ) + PATHS["persist"][1:]
+PATHS["regression"] = ({"objective": "regression", "num_leaves": 255,
+                        "tpu_persist_scan": "auto"},) + PATHS["persist"][1:]
 # the kernels whose launches a Python counter counts (they run eagerly on
 # every path); every other kernel of the paths counts its launches on the
 # device (ops/counters.py), replays of a CUDA graph included
@@ -1655,6 +1800,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
     reset_counts()
     torch.cuda.synchronize()
     wall, losses, kept, walls = 0.0, [], None, []
+    loss_name, loss = LOSSES.get(path, ("logloss", logloss))
     bst = None
     for i in range(iters):
         t = time.time()
@@ -1666,7 +1812,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
         walls.append(time.time() - t)
         wall += walls[-1]
         score = bst._booster.train_score.score
-        losses.append(logloss(y_d, score))
+        losses.append(loss(y_d, score))
         if i + 1 == off_iters:
             kept = score.cpu().numpy()
     counts = read_counts()
@@ -1693,11 +1839,22 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
         % (path, counts, len(trees), sum(splits), "/".join(PY_COUNTED)))
     log("train %s: model digest %s (sha256 of the model text without its "
         "parameters, after %d iterations)" % (path, digest, iters))
+    K = bst._booster.num_tree_per_iteration
     if bst._booster.use_persist:
+        from lightgbm_torch.ops.payload import payload_weight_row
         gr = bst._booster.tree_learner._persist_gr
         sec = gr.second
-        log("train %s: the second payload buffer [%d, %d] int32, %d bytes"
-            % (path, sec.shape[0], sec.shape[1], sec.numel() * 4))
+        log("train %s: the payload [%d, %d] int32 (%d bytes, %d score rows "
+            "and %d snapshot rows), the second payload buffer [%d, %d] "
+            "int32, %d bytes" % (path, gr.assets.geometry[0], sec.shape[1],
+                                 gr.assets.geometry[0] * sec.shape[1] * 4,
+                                 K, K if K > 1 else 0, sec.shape[0],
+                                 sec.shape[1], sec.numel() * 4))
+        if sec.shape[0] != payload_weight_row(gr.nbw, K) or gr.K != K:
+            raise AssertionError("train %s: the second buffer has %d rows "
+                                 "for %d trees per iteration, expected %d"
+                                 % (path, sec.shape[0], K,
+                                    payload_weight_row(gr.nbw, K)))
         check_graph(bst, gr, path, walls)
     if path in ("level", "bundled"):
         md = PATHS[path][0]["max_depth"]
@@ -1706,18 +1863,22 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
                                  "expected 1..%d" % (path, stats, md))
         log("train %s: (level programs, per-split splits) per tree %s"
             % (path, stats))
-    log("train %s: logloss per iteration (device scores) %s"
-        % (path, ["%.6f" % v for v in losses]))
+    log("train %s: %s per iteration (device scores) %s"
+        % (path, loss_name, ["%.6f" % v for v in losses]))
     if not all(b < a for a, b in zip(losses, losses[1:])):
-        raise AssertionError("training logloss does not fall monotonically")
+        raise AssertionError("training %s does not fall monotonically"
+                             % loss_name)
     sub = X[:WALK_ROWS]
     raw = bst.predict(sub, raw_score=True)
-    dev_score = bst._booster.train_score.score[:len(sub)].cpu().numpy()
+    dev_score = bst._booster.train_score.score[..., :len(sub)].cpu().numpy()
+    if K > 1:
+        dev_score = dev_score.T
     gap = float(np.abs(dev_score - raw).max())
     # v1 keeps f64 scores; the payload keeps f32 scores, each iteration
     # adding one rounded f32 product to a rounded f32 sum
     tol = (1e-9 if path == "v1" else
-           2 * (len(trees) + 1) * 1.1920929e-07 * max(1.0, np.abs(raw).max()))
+           2 * (len(trees) // K + 1) * 1.1920929e-07
+           * max(1.0, np.abs(raw).max()))
     log("train %s: device scores vs numpy walk on the first %d rows, max abs "
         "diff %.3g (limit %.3g)" % (path, len(sub), gap, tol))
     if not gap <= tol:
@@ -1774,6 +1935,13 @@ PROFILED = {
                 ("split_pass", "payload_ordered_partial<SplitPassHist")),
     "v1": (("hist_window", "hist_window_partial"),),
 }
+PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["persist"]
+# the kernels of the port's own sources (csrc/); every other kernel in a
+# profile is PyTorch's (the gradient fills, copies, the score snapshot)
+OWN_KERNELS = ("payload_ordered_partial", "hist_window", "split_", "level_",
+               "consolidate_copy", "gs_", "scan_pair", "scan_blocks",
+               "seg_hist", "root_hist", "ordered_", "payload_hist_reduce",
+               "empty_launch")
 
 
 # the partition's kernels: count, scan and scatter of split_pass and
@@ -1966,6 +2134,14 @@ def phase_profile(bst, card, path):
             sum(n for _, n, key in rows
                 if key.removeprefix("void ").startswith(k)))
         for w, k in PROFILED[path])))
+    theirs = [(ms, n, key) for ms, n, key in rows
+              if not key.removeprefix("void ").startswith(OWN_KERNELS)]
+    log("profile %s: PyTorch's kernels and copies (the gradient fills, the "
+        "score snapshot and the stash copies) %.2f ms in %d calls: %s" % (
+            path, sum(ms for ms, _, _ in theirs),
+            sum(n for _, n, _ in theirs),
+            "; ".join("%.2f ms / %d %s" % (ms, n, key[:70])
+                      for ms, n, key in theirs[:6])))
     steps = [(ms, n, key) for ms, n, key in rows
              if key.removeprefix("void ").startswith("gs_")]
     if steps:
@@ -1979,38 +2155,58 @@ def phase_profile(bst, card, path):
 
 
 PARITY = (
-    # path, data, parameters beyond COMMON
-    ("persist", "higgs", {"num_leaves": 255, "tpu_persist_scan": "force"}),
-    ("v1", "higgs", {"num_leaves": 255, "tpu_persist_scan": "false"}),
+    # name, data, parameters beyond COMMON, the route: persistent grower,
+    # level phase, block scan
+    ("persist", "higgs", {"num_leaves": 255, "tpu_persist_scan": "force"},
+     (True, False, False)),
+    ("v1", "higgs", {"num_leaves": 255, "tpu_persist_scan": "false"},
+     (False, False, False)),
     ("level", "higgs", {"num_leaves": 256, "max_depth": 8,
-                        "tpu_persist_scan": "force"}),
+                        "tpu_persist_scan": "force"}, (True, True, False)),
     ("bundled", "expo", {"num_leaves": 256, "max_depth": 8,
-                         "tpu_persist_scan": "force"}),
-)
+                         "tpu_persist_scan": "force"}, (True, True, True)),
+    ("poisson", "higgs-counts", {"objective": "poisson", "num_leaves": 255,
+                                 "tpu_persist_scan": "force"},
+     (True, False, False)),
+) + tuple(
+    ("%s %s" % (obj, name), "higgs-3", dict(extra, objective=obj,
+                                            num_class=3), route)
+    for obj in ("multiclass", "multiclassova")
+    for name, extra, route in (
+        ("persist", {"num_leaves": 255, "tpu_persist_scan": "force"},
+         (True, False, False)),
+        ("level", {"num_leaves": 256, "max_depth": 8,
+                   "tpu_persist_scan": "force"}, (True, True, False)),
+        ("v1", {"num_leaves": 255, "tpu_persist_scan": "false"},
+         (False, False, False))))
 
 
-def phase_parity(lgb, data, iters):
+def phase_parity(lgb, data, iters, mc_iters):
     """Each path on cuda and on the CPU grows the same trees, with the same
-    leaf values. `data` maps a PARITY data name to (X, y)."""
-    for path, name, extra in PARITY:
+    leaf values and the same model text (sha256 without the parameters).
+    `data` maps a PARITY data name to (X, y); the multiclass paths train
+    `mc_iters` iterations (3 trees each), the others `iters`."""
+    for path, name, extra, (persist, level, blocks) in PARITY:
         X, y = data[name]
         params = dict(COMMON, **extra)
-        out = {}
+        n_it = mc_iters if params.get("num_class", 1) > 1 else iters
+        out, digest = {}, {}
         for dev in ("cuda", "cpu"):
             p = dict(params, device_type=dev)
             t = time.time()
-            bst = lgb.train(p, lgb.Dataset(X, y, params=p), iters)
-            if bst._booster.use_persist != (path != "v1"):
+            bst = lgb.train(p, lgb.Dataset(X, y, params=p), n_it)
+            if bst._booster.use_persist != persist:
                 raise AssertionError("parity %s: wrong grower on %s"
                                      % (path, dev))
-            if path in ("level", "bundled"):
+            if level:
                 gr = bst._booster.tree_learner._persist_gr
                 if not sum(a for a, _ in gr.grow_stats) or \
-                        (gr.blocks is not None) != (path == "bundled"):
+                        (gr.blocks is not None) != blocks:
                     raise AssertionError("parity %s: the level phase or the "
                                          "block scan did not run on %s"
                                          % (path, dev))
             out[dev] = bst._booster.models
+            digest[dev] = model_digest(bst)
             log("parity %s: %s trained %d trees in %.1f s"
                 % (path, dev, len(out[dev]), time.time() - t))
         a, b = out["cuda"], out["cpu"]
@@ -2033,8 +2229,13 @@ def phase_parity(lgb, data, iters):
                     "parity %s: tree %d leaf values differ, max abs diff "
                     "%.3g" % (path, i, float(np.abs(
                         ta.leaf_value[:k + 1] - tb.leaf_value[:k + 1]).max())))
-        log("parity %s: %d rows x %d iterations: tree structure and leaf "
-            "values equal on cuda and cpu" % (path, X.shape[0], iters))
+        if digest["cuda"] != digest["cpu"]:
+            raise AssertionError("parity %s: model text differs (sha256 %s "
+                                 "on cuda, %s on cpu)"
+                                 % (path, digest["cuda"], digest["cpu"]))
+        log("parity %s: %d rows x %d iterations (%d trees): tree structure, "
+            "leaf values and model text (sha256 %s) equal on cuda and cpu"
+            % (path, X.shape[0], n_it, len(a), digest["cuda"][:16]))
 
 
 def make_dataset(lgb, X, y, params, what):
@@ -2061,10 +2262,18 @@ def main() -> int:
     ap.add_argument("--off-iters", type=int, default=3,
                     help="tpu_level_grow=off iterations held to the level "
                     "paths' first trees")
+    ap.add_argument("--mc-iters", type=int, default=3,
+                    help="iterations of the HIGGS multiclass path (5 "
+                    "classes, 5 trees per iteration)")
+    ap.add_argument("--reg-iters", type=int, default=3,
+                    help="iterations of the HIGGS regression path")
     ap.add_argument("--expo-rows", type=int, default=2_000_000)
     ap.add_argument("--parity-rows", type=int, default=200_000)
     ap.add_argument("--expo-parity-rows", type=int, default=100_000)
     ap.add_argument("--parity-iters", type=int, default=5)
+    ap.add_argument("--mc-parity-iters", type=int, default=2,
+                    help="iterations of the multiclass parity paths (3 "
+                    "classes)")
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
@@ -2078,15 +2287,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_torch as lgb
-    from lightgbm_torch.data.synth import make_expo_like, make_higgs_like
+    from lightgbm_torch.data.synth import make_expo_like
     from lightgbm_torch.treelearner.serial import feature_meta, grow_config
     from lightgbm_torch.ops.split import SplitParams
 
     card = phase_card()
     phase_build()
 
-    X, y = make_higgs_like(args.rows)
-    log("data: make_higgs_like(%d) -> %s" % (args.rows, X.shape))
+    X, y, latent = higgs_latent(args.rows)
+    log("data: make_higgs_like(%d) -> %s, and its latent (the multiclass "
+        "and regression targets)" % (args.rows, X.shape))
     params = dict(COMMON, num_leaves=255)
     ds, inner = make_dataset(lgb, X, y, params, "HIGGS")
     cfg = lgb.Config(params)
@@ -2107,7 +2317,21 @@ def main() -> int:
                                  args.profile, "v1")
         runs["level"] = phase_train(lgb, X, y, ds, args.level_iters, card,
                                     args.profile, "level", args.off_iters)
-    del X, y, ds, inner
+        # the same bins with multiclass labels, then with an L2 target
+        y5 = quantile_classes(latent, 5)
+        ds.set_label(y5)
+        log("data: the HIGGS rows relabelled: 5 classes, the latent's "
+            "quintiles, %s rows each" % np.bincount(y5.astype(np.int64)))
+        runs["multiclass"] = phase_train(lgb, X, y5, ds, args.mc_iters,
+                                         card, args.profile, "multiclass")
+        y_reg = l2_target(latent)
+        ds.set_label(y_reg)
+        log("data: the HIGGS rows relabelled: the latent plus Gaussian "
+            "noise (mean %.4f, sd %.4f)" % (y_reg.mean(), y_reg.std()))
+        runs["regression"] = phase_train(lgb, X, y_reg, ds, args.reg_iters,
+                                         card, args.profile, "regression")
+        del y5, y_reg
+    del X, y, latent, ds, inner
 
     X, y = make_expo_like(args.expo_rows)
     log("data: make_expo_like(%d) -> %s" % (args.expo_rows, X.shape))
@@ -2142,11 +2366,23 @@ def main() -> int:
                 rec["launches"] = run[rec["name"]]
             if "consolidate_launches" in rec:
                 rec["consolidate_launches"] = runs["persist"]["consolidate"]
+            # the per-split path's kernels in the HIGGS multiclass and
+            # regression runs too
+            if rec["name"] in runs["multiclass"] and \
+                    serves.get(rec["name"], "persist") == "persist":
+                rec["multiclass_launches"] = runs["multiclass"][rec["name"]]
+                rec["regression_launches"] = runs["regression"][rec["name"]]
+            if rec["name"] == "split_pass":
+                rec["multiclass_consolidate_launches"] = \
+                    runs["multiclass"]["consolidate"]
     del X, y, ds, inner
     if not args.skip_parity:
-        data = {"higgs": make_higgs_like(args.parity_rows, seed=11),
+        Xp, yp, lat = higgs_latent(args.parity_rows, seed=11)
+        counts = np.random.default_rng(17).poisson(np.exp(lat / 2))
+        data = {"higgs": (Xp, yp), "higgs-3": (Xp, quantile_classes(lat, 3)),
+                "higgs-counts": (Xp, counts.astype(np.float64)),
                 "expo": make_expo_like(args.expo_parity_rows, seed=11)}
-        phase_parity(lgb, data, args.parity_iters)
+        phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("kernels: " + ", ".join(k["name"] for k in kernels), flush=True)
     print(card, flush=True)

@@ -81,6 +81,14 @@ class Dataset:
             self.data = None
         return self
 
+    def set_label(self, label) -> "Dataset":
+        """Replace the labels (of the binned dataset too, once built): a
+        later Booster trains on them over the same bins."""
+        self.label = label
+        if self._inner is not None:
+            self._inner.metadata.set_label(label)
+        return self
+
     def num_data(self) -> int:
         return self.construct()._inner.num_data
 
@@ -132,6 +140,11 @@ class Booster:
 
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False, start_iteration: int = 0):
+        """Predictions of the first `num_iteration` iterations from
+        `start_iteration`: [n] for one tree per iteration, [n, K] for K
+        (multiclass); through the objective's output transform (softmax,
+        a sigmoid per class for one-vs-all, exp for the log-link
+        regressions) unless `raw_score`."""
         X = np.asarray(data, dtype=np.float64)
         nf = self._booster.max_feature_idx + 1
         if X.ndim != 2 or X.shape[1] != nf:

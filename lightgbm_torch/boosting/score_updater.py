@@ -1,10 +1,12 @@
 """Cached training scores on the device.
 
 The port of lightgbm_tpu/boosting/score_updater.py:ScoreUpdater (reference
-src/boosting/score_updater.hpp:21-150) for one tree per iteration: an
-[N] float64 tensor on the training device. A new tree's outputs are added
-through the grower's row -> leaf map instead of re-predicting
-(score_updater.hpp:84-99).
+src/boosting/score_updater.hpp:21-150): a [K, n] float64 tensor on the
+training device, one row per tree of an iteration (K > 1 for multiclass,
+class-major as the reference's ``num_data * k + i``). A new tree's outputs
+are added to its class's row through the grower's row -> leaf map instead
+of re-predicting (score_updater.hpp:84-99). :attr:`score` is the [n] row
+when K = 1 and the [K, n] matrix otherwise.
 
 Under the persistent-payload grower the scores live in the payload, in
 payload order, and the learner updates them there; :meth:`defer_to` hands
@@ -22,38 +24,52 @@ import torch
 
 class ScoreUpdater:
     def __init__(self, num_data: int, device,
-                 init_score: Optional[np.ndarray] = None):
+                 init_score: Optional[np.ndarray] = None,
+                 num_tree_per_iteration: int = 1):
+        K = int(num_tree_per_iteration)
+        self.num_tree_per_iteration = K
         self.has_init_score = init_score is not None
         if init_score is not None:
             init = np.asarray(init_score, dtype=np.float64).reshape(-1)
-            if init.size != num_data:
+            if init.size == num_data:
+                init = np.tile(init, K)
+            elif init.size != num_data * K:
                 raise ValueError("init_score size mismatch")
-            self._score = torch.as_tensor(init, device=device).clone()
+            self._score = torch.as_tensor(init.reshape(K, num_data),
+                                          device=device).clone()
         else:
-            self._score = torch.zeros(num_data, dtype=torch.float64,
+            self._score = torch.zeros((K, num_data), dtype=torch.float64,
                                       device=device)
         self._source = None
 
     @property
     def score(self) -> torch.Tensor:
-        """The [N] f64 row-ordered scores, synced from their owner first."""
+        """The f64 row-ordered scores ([n] for one tree per iteration,
+        else [K, n]), synced from their owner first."""
         if self._source is not None:
-            self._score = self._source()
+            self._score = self._source().reshape(self._score.shape)
             self._source = None
-        return self._score
+        return self._score[0] if self.num_tree_per_iteration == 1 \
+            else self._score
 
     def defer_to(self, source) -> None:
         """The scores are owned elsewhere until read: `source()` returns
         them in row order."""
         self._source = source
 
-    def add_const(self, val: float) -> None:
-        self.score.add_(val)
+    def _row(self, class_id: int) -> torch.Tensor:
+        self.score
+        return self._score[class_id]
+
+    def add_const(self, val: float, class_id: int = 0) -> None:
+        self._row(class_id).add_(val)
 
     def add_tree(self, leaf_value: np.ndarray, row_leaf: torch.Tensor,
-                 shrink: float) -> None:
-        """score += leaf_value[row_leaf] * shrink, with the f32 leaf
-        outputs widened to f64 first (as the JAX package's fast path)."""
+                 shrink: float, class_id: int = 0) -> None:
+        """score[class_id] += leaf_value[row_leaf] * shrink, with the f32
+        leaf outputs widened to f64 first (as the JAX package's fast
+        path)."""
+        row = self._row(class_id)
         lv = torch.as_tensor(np.asarray(leaf_value, np.float64),
-                             device=self.score.device)
-        self.score.add_(lv[row_leaf.long()] * shrink)
+                             device=row.device)
+        row.add_(lv[row_leaf.long()] * shrink)

@@ -542,6 +542,16 @@ class Config:
             Log.fatal("Unknown tpu_hist_quant %s (expected off|int16)"
                       % self.tpu_hist_quant)
         self.tpu_hist_quant = hq
+        # reference config.cpp CheckParamConflict: num_class goes with a
+        # multiclass objective, and only with one
+        if self.objective in ("multiclass", "multiclassova") or (
+                self.objective == "none" and self.num_class > 1):
+            if self.num_class <= 1:
+                Log.fatal("Number of classes should be specified and greater "
+                          "than 1 for multiclass training")
+        elif str(self.task).lower() == "train" and self.num_class != 1:
+            Log.fatal("Number of classes must be 1 for non-multiclass "
+                      "training")
         if self.boosting == "rf":
             if not (self.bagging_freq > 0 and 0.0 < self.bagging_fraction < 1.0):
                 Log.fatal("Random forest needs bagging_freq > 0 and "

@@ -19,7 +19,7 @@ from .base import K_EPSILON, ObjectiveFunction, register
 class BinaryLogloss(ObjectiveFunction):
     name = "binary"
 
-    def __init__(self, config):
+    def __init__(self, config, is_pos=None):
         super().__init__(config)
         self.sigmoid = float(config.sigmoid)
         if self.sigmoid <= 0.0:
@@ -30,12 +30,15 @@ class BinaryLogloss(ObjectiveFunction):
         if self.is_unbalance and abs(self.scale_pos_weight - 1.0) > 1e-6:
             Log.fatal("Cannot set is_unbalance and scale_pos_weight "
                       "at the same time")
+        # which labels are positives: label > 0, or one class of a
+        # one-vs-all objective (multiclass.py); works on numpy and torch
+        self.is_pos = is_pos if is_pos is not None else (lambda y: y > 0)
         self.need_train = True
         self._dev = {}
 
     def init(self, metadata, num_data):
         super().init(metadata, num_data)
-        pos_mask = self.label > 0
+        pos_mask = np.asarray(self.is_pos(self.label))
         cnt_positive = int(np.count_nonzero(pos_mask))
         cnt_negative = num_data - cnt_positive
         self.need_train = not (cnt_positive == 0 or cnt_negative == 0)
@@ -80,7 +83,7 @@ class BinaryLogloss(ObjectiveFunction):
     def payload_grad_fn(self):
         """The persistent grower's gradient (lightgbm_tpu/objectives/
         binary.py:63-98): fn(score, label) -> f32 (grad, hess) from the
-        payload's f32 score and label rows, positive where label > 0.
+        payload's f32 score and label rows, positive where ``is_pos(label)``.
         Sample weights ride the payload and multiply after it (the grower
         applies them). None when there is nothing to train, so the learner
         keeps the v1 grower.
@@ -94,9 +97,10 @@ class BinaryLogloss(ObjectiveFunction):
             return None
         sig = self.sigmoid
         w_neg, w_pos = self.label_weights
+        is_pos = self.is_pos
 
         def fn(score, label):
-            pos = label > 0
+            pos = is_pos(label)
             g, h = self._logloss_grad(score.double(), pos, sig, w_neg, w_pos)
             return g.float(), h.float()
         return fn

@@ -21,7 +21,15 @@ per-row gather or scatter runs between iterations:
   * scores are a payload row: gradients are computed in payload order from
     the label and score rows (:func:`PersistGrower.fill_grad`), a tree's
     outputs are added to its leaves' segments (:meth:`apply_scores`), and
-    scores return to row order only when read (:meth:`finalize_scores`).
+    scores return to row order only when read (:meth:`finalize_scores`);
+  * K trees per iteration (multiclass, make_scan_driver's class loop,
+    :2150-2166): K score rows and K snapshot rows; one iteration copies the
+    score rows into the snapshot (:meth:`snapshot_scores`), then for each
+    class computes its gradients from the snapshot
+    (:meth:`fill_grad_multi`), grows its tree and adds the tree's outputs
+    to its own score row. The snapshot rows move with every partition
+    (they are below ``wp_live``), so each class tree reads the scores of
+    the iteration's start in the payload's current order.
 
 Two payload buffers. The TPU kernels partition a segment in place; the
 port's partition kernels read a segment from one buffer and write both
@@ -72,7 +80,9 @@ tree, score update) is captured as one CUDA graph and replayed
 (:meth:`PersistGrower.iteration`); on the CPU the same loop runs eagerly
 with the plain versions. Leaf counts are the kernel's exact n_left
 (``stat_from_scan=False``). The level phase keeps its host loop (one
-read-back per level) and hands its leaves to the device loop. Not ported
+read-back per level) and hands its leaves to the device loop. With K class
+trees per iteration each tree's state is copied into its row of a stash at
+the tree's end, and the K trees are read back with one copy. Not ported
 here: sharding, voting, quantization, bagging and the health vector.
 """
 from __future__ import annotations
@@ -169,9 +179,13 @@ class PersistGrower:
         self.params = params
         self.device = dev = torch.device(device)
         self.n, self.nbw, self.G, self.C = n, nbw, G, C
+        self.K = K
         self.wp_live = payload_weight_row(nbw, K) + (1 if has_w else 0)
         self.weight_row = payload_weight_row(nbw, K) if has_w else None
+        # class k's score row, and its snapshot row when K > 1
+        # (grow_persist.py:836-837)
         self.score_row = nbw + 4
+        self.snap_row = nbw + 4 + K
         self.inpass_hist = G <= SEG_HIST_MIN_GROUPS
         self.plan = plan_tensor(plan, dev)
         group_of, ls, nb = assets.efb[0], assets.efb[1], assets.efb[2]
@@ -222,8 +236,19 @@ class PersistGrower:
             fr, rows = self.layout.forced_right, self.layout.Fp
         self.feat = gs.feature_table(assets, fr, rows, dev)
         self._mask_key = np.ones(len(nb), bool).tobytes()
+        # K > 1: each class tree's feature mask, staged on the device
+        # before the iteration and copied into the scan's layout before its
+        # tree (inside the graph)
+        if K > 1:
+            self._stage = [tuple(t.clone() for t in self._layout_masks())
+                           for _ in range(K)]
+            self._stage_keys = [self._mask_key] * K
+        # every class tree's state at its end, read back with one copy
+        self.stash = torch.zeros((K, self.state.blob.numel()),
+                                 dtype=torch.uint8, device=dev)
         counters.counts(dev)
         self._levels = (0, 1)         # (level programs, s after them)
+        self._body_levels = []        # _levels of each tree of _body
         self._graph = None            # (CUDAGraph, its key)
         self._checked = None          # key of the sync-checked iteration
         self.graph_stats = {}
@@ -236,23 +261,42 @@ class PersistGrower:
     def _f32_row(self, pay, r):
         return pay[r].view(torch.float32)
 
+    def _scores(self, pay, row0: int) -> torch.Tensor:
+        """The [K, n] f32 view of the K rows from `row0` (the scores or
+        their snapshot)."""
+        return pay[row0:row0 + self.K, :self.n].view(torch.float32)
+
     def init_carry(self, score0_row) -> torch.Tensor:
-        """A fresh payload on the device from the pristine ``pay0`` and a
-        row-ordered score vector ([n], any float dtype; stored as f32)."""
+        """A fresh payload on the device from the pristine ``pay0`` and the
+        row-ordered scores ([n] or [K, n], any float dtype; stored as
+        f32)."""
         pay = torch.as_tensor(self.assets.pay0.view(np.int32),
                               device=self.device).clone()
         sc = torch.as_tensor(score0_row, device=self.device) \
-            .to(torch.float32).reshape(-1)
-        self._f32_row(pay, self.score_row)[:self.n] = sc
+            .to(torch.float32).reshape(self.K, self.n)
+        self._scores(pay, self.score_row).copy_(sc)
         return pay
 
     def finalize_scores(self, pay) -> torch.Tensor:
-        """[n] f64 scores in row order, scattered through the row-id row
-        (the f32 payload scores, widened)."""
+        """The f64 scores in row order, [n] (K = 1) or [K, n], scattered
+        through the row-id row (the f32 payload scores, widened)."""
         rid = pay[self.nbw + 1, :self.n].to(torch.int64)
-        out = torch.empty(self.n, dtype=torch.float64, device=pay.device)
-        out[rid] = self._f32_row(pay, self.score_row)[:self.n].double()
-        return out
+        out = torch.empty((self.K, self.n), dtype=torch.float64,
+                          device=pay.device)
+        out[:, rid] = self._scores(pay, self.score_row).double()
+        return out[0] if self.K == 1 else out
+
+    def add_const(self, pay, val: float, cls: int = 0) -> None:
+        """score row `cls` += val on the live lanes (f32), in place: the
+        constant tree of a class with nothing to train."""
+        self._f32_row(pay, self.score_row + cls)[:self.n] += val
+
+    def snapshot_scores(self, pay) -> None:
+        """The K score rows into the snapshot rows (in place; grow_persist.
+        py:1927): every class tree of an iteration reads the scores as
+        they were at its start."""
+        pay[self.snap_row:self.snap_row + self.K].copy_(
+            pay[self.score_row:self.score_row + self.K])
 
     def fill_grad(self, pay, payload_grad_fn) -> None:
         """Write the objective's gradients, computed in payload order from
@@ -263,7 +307,20 @@ class PersistGrower:
         n = self.n
         label = self._f32_row(pay, self.nbw)[:n]
         score = self._f32_row(pay, self.score_row)[:n]
-        g, h = payload_grad_fn(score, label)
+        self._write_grads(pay, *payload_grad_fn(score, label))
+
+    def fill_grad_multi(self, pay, payload_grad_fn_multi, cls: int) -> None:
+        """Class `cls`'s gradients from the snapshot rows and the label row
+        (the class index as f32) into the grad/hess rows (in place;
+        grow_persist.py:1934-1940)."""
+        label = self._f32_row(pay, self.nbw)[:self.n]
+        self._write_grads(pay, *payload_grad_fn_multi(
+            self._scores(pay, self.snap_row), label, cls))
+
+    def _write_grads(self, pay, g, h) -> None:
+        """g, h ([n] f32) into the grad/hess rows, times the weight row
+        when there is one; zeros on the padding lanes."""
+        n = self.n
         if self.weight_row is not None:
             w = self._f32_row(pay, self.weight_row)[:n]
             g, h = g * w, h * w
@@ -273,7 +330,7 @@ class PersistGrower:
         gh[1, :n] = h
 
     def apply_scores(self, pay, lstate: LeafState, num_leaves: int,
-                     shrink: float) -> None:
+                     shrink: float, cls: int = 0) -> None:
         """score += f32(leaf_value * shrink) on every leaf's segment of a
         host LeafState, one direct f32 add per row (in place): the leaves
         are uploaded into a leaf table and :func:`grow_step.apply_scores`
@@ -290,10 +347,26 @@ class PersistGrower:
         h["lf"][:, gs.LF_VALUE] = torch.as_tensor(lstate.value)
         h["st"][0, gs.ST_S] = int(num_leaves)
         S.blob.copy_(host)
-        gs.apply_scores(S, self._f32_row(pay, self.score_row)[:self.n],
+        gs.apply_scores(S, self._f32_row(pay, self.score_row + cls)[:self.n],
                         shrink)
 
     # ---- per tree: the host side --------------------------------------------
+    def _mask_tensors(self, feature_mask):
+        """The scan layout's mask tensors for a feature mask, on the
+        host."""
+        if self.blocks is not None:
+            return (self.blocks.tree_masks(feature_mask),)
+        meta, gc = self.meta, self.gc
+        lay = ScanLayout(self.win_start, self.win_end, meta.missing_type,
+                         meta.default_bin, meta.penalty, feature_mask,
+                         gc.scan_width, self.TBp, "cpu")
+        return lay.valid_r, lay.valid_f
+
+    def _layout_masks(self):
+        """The scan's mask tensors the kernels read."""
+        return (self.masks,) if self.blocks is not None else \
+            (self.layout.valid_r, self.layout.valid_f)
+
     def _prepare(self, feature_mask) -> None:
         """The tree's feature mask into the scan's static layout (host work
         and one copy, outside any captured region; nothing when the mask
@@ -301,16 +374,22 @@ class PersistGrower:
         key = np.asarray(feature_mask, bool).tobytes()
         if key == self._mask_key:
             return
-        if self.blocks is not None:
-            self.masks.copy_(self.blocks.tree_masks(feature_mask))
-        else:
-            meta, gc = self.meta, self.gc
-            lay = ScanLayout(self.win_start, self.win_end, meta.missing_type,
-                             meta.default_bin, meta.penalty, feature_mask,
-                             gc.scan_width, self.TBp, "cpu")
-            self.layout.valid_r.copy_(lay.valid_r)
-            self.layout.valid_f.copy_(lay.valid_f)
+        for dst, src in zip(self._layout_masks(),
+                            self._mask_tensors(feature_mask)):
+            dst.copy_(src)
         self._mask_key = key
+
+    def _stage_masks(self, feature_masks) -> None:
+        """K > 1: each class tree's feature mask into its staging buffers
+        (host work and copies outside any captured region; nothing for a
+        class whose mask is its last one's). :meth:`_body` copies class
+        j's into the layout before its tree, on the device."""
+        for j, fm in enumerate(feature_masks):
+            key = np.asarray(fm, bool).tobytes()
+            if key != self._stage_keys[j]:
+                for dst, src in zip(self._stage[j], self._mask_tensors(fm)):
+                    dst.copy_(src)
+                self._stage_keys[j] = key
 
     def _scalars(self, cand: SplitCandidate, s0: int, n_l: int,
                  smaller_is_left: bool):
@@ -580,7 +659,11 @@ class PersistGrower:
     def read_tree(self):
         """(LeafState, split records as a dict of [L-1] arrays, num_leaves)
         of the tree in the device state: one device-to-host copy."""
-        h = self.state.read()
+        return self._parse(self.state.read(), self._levels)
+
+    def _parse(self, h: dict, levels):
+        """The tree of a host copy of the state (numpy views by field),
+        its (level programs, s after them) recorded in grow_stats."""
         L = self.gc.num_leaves
         lf, li, rf, ri = h["lf"], h["li"], h["rf"][:L - 1], h["ri"][:L - 1]
         s = int(h["st"][0, gs.ST_S])
@@ -598,8 +681,8 @@ class PersistGrower:
                     gain=rf[:, gs.RF_GAIN].copy(),
                     internal_value=rf[:, gs.RF_IVAL].copy(),
                     internal_count=ri[:, gs.RI_ICNT].astype(np.int32))
-        levels, s_level = self._levels
-        self.grow_stats.append((levels, s - s_level))
+        n_levels, s_level = levels
+        self.grow_stats.append((n_levels, s - s_level))
         return st, tree, s
 
     def _tree(self, pay) -> None:
@@ -619,35 +702,64 @@ class PersistGrower:
         return self.read_tree()
 
     # ---- one boosting iteration -------------------------------------------
-    def _body(self, pay, grad_fn, shrink) -> None:
-        """fill_grad -> the tree -> apply_scores, queued with no read-back
-        (on the card: everything one CUDA graph captures)."""
-        with _range("grow::fill_grad"):
-            self.fill_grad(pay, grad_fn)
-        self._tree(pay)
-        with _range("grow::apply_scores"):
-            gs.apply_scores(self.state,
-                            self._f32_row(pay, self.score_row)[:self.n],
-                            shrink)
-        self.state.cnt.copy_(counters.counts(self.device))
+    def _body(self, pay, grad_fn, shrink, classes) -> None:
+        """The iteration queued with no read-back (on the card: everything
+        one CUDA graph captures): K = 1: fill_grad -> the tree ->
+        apply_scores; K > 1: the score snapshot, then for each class in
+        `classes` its feature mask into the layout, fill_grad_multi -> its
+        tree -> apply_scores on its score row (make_scan_driver's class
+        loop, grow_persist.py:2150-2166). Each tree's state is copied into
+        its row of the stash."""
+        if self.K > 1:
+            with _range("grow::snapshot"):
+                self.snapshot_scores(pay)
+        levels = []
+        for j, cls in enumerate(classes):
+            if self.K > 1:
+                for dst, src in zip(self._layout_masks(), self._stage[j]):
+                    dst.copy_(src)
+            with _range("grow::fill_grad"):
+                if self.K > 1:
+                    self.fill_grad_multi(pay, grad_fn, cls)
+                else:
+                    self.fill_grad(pay, grad_fn)
+            self._tree(pay)
+            levels.append(self._levels)
+            with _range("grow::apply_scores"):
+                gs.apply_scores(
+                    self.state,
+                    self._f32_row(pay, self.score_row + cls)[:self.n],
+                    shrink)
+            self.state.cnt.copy_(counters.counts(self.device))
+            self.stash[j].copy_(self.state.blob)
+        self._body_levels = levels
 
-    def iteration(self, pay, grad_fn, feature_mask, shrink: float):
-        """One boosting iteration on the payload: the objective's gradients
-        (``grad_fn``, a payload_grad_fn), one tree, its score update.
-        Returns the tree as :meth:`grow` does, read back once.
+    def iteration(self, pay, grad_fn, feature_masks, shrink: float,
+                  classes=(0,)):
+        """One boosting iteration on the payload: for each class in
+        `classes` (every class with something to train), its gradients
+        (``grad_fn``: a payload_grad_fn when K = 1, a payload_grad_fn_multi
+        otherwise), one tree on its feature mask (``feature_masks[j]`` for
+        ``classes[j]``), its score update. Returns one (LeafState, split
+        records, num_leaves) per class, as :meth:`grow` does, all read back
+        with one copy.
 
         On the CPU, and after a level phase, it runs eagerly. On the card
         without a level phase the first iteration runs eagerly under
         ``torch.cuda.set_sync_debug_mode("error")`` (any torch operation
         that waits for the card raises); the next one is captured as one
-        CUDA graph, and every later iteration on the same payload and
-        shrinkage replays it. The tree itself is the only read-back. A
-        failure raises: there is no fallback to an eager loop."""
-        self._prepare(feature_mask)
+        CUDA graph, and every later iteration on the same payload,
+        shrinkage and classes replays it. A failure raises: there is no
+        fallback to an eager loop."""
+        classes = tuple(int(c) for c in classes)
+        if self.K > 1:
+            self._stage_masks(feature_masks)
+        else:
+            self._prepare(feature_masks[0])
         if self.use_level or self.device.type != "cuda" or not self.capture:
-            self._body(pay, grad_fn, shrink)
-            return self.read_tree()
-        key = (pay.data_ptr(), float(shrink))
+            self._body(pay, grad_fn, shrink, classes)
+            return self._read_stash(len(classes))
+        key = (pay.data_ptr(), float(shrink), classes)
         if self._graph is not None and self._graph[1] == key:
             self._graph[0].replay()
             self.replays += 1
@@ -655,16 +767,24 @@ class PersistGrower:
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self._body(pay, grad_fn, shrink)
+                self._body(pay, grad_fn, shrink, classes)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
             self._checked = key
         else:
             self._capture(pay, grad_fn, shrink, key)
-        return self.read_tree()
+        return self._read_stash(len(classes))
+
+    def _read_stash(self, m: int):
+        """The first m trees of the stash, with one device-to-host copy."""
+        host = self.stash[:m].cpu()
+        return [self._parse({k: v.numpy() for k, v in
+                             self.state.views(host[j]).items()}, lv)
+                for j, lv in enumerate(self._body_levels[:m])]
 
     def _capture(self, pay, grad_fn, shrink, key) -> None:
-        """Capture one iteration as a CUDA graph, then replay it."""
+        """Capture one iteration (its classes: key[2]) as a CUDA graph,
+        then replay it."""
         import time
         try:
             g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -673,7 +793,7 @@ class PersistGrower:
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         with torch.cuda.graph(g):
-            self._body(pay, grad_fn, shrink)
+            self._body(pay, grad_fn, shrink, key[2])
         t1 = time.perf_counter()
         nodes = None
         if hasattr(g, "raw_cuda_graph"):

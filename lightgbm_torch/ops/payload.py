@@ -13,9 +13,17 @@ for bit (the tests compare the two):
   row  nbw + 1      row id     (n on the padding lanes)
   row  nbw + 2      gradient   (f32 bits, rewritten every iteration)
   row  nbw + 3      hessian    (f32 bits)
-  row  nbw + 4      score      (f32 bits; moves with its row)
-  [row nbw + 5      sample weight, when the dataset has weights]
+  rows nbw + 4 ..   score      (f32 bits; moves with its row): one row
+                    per tree of an iteration, K (num_scores), class k at
+                    nbw + 4 + k
+  [rows nbw + 4 + K ..  snapshot, K > 1 only: the K score rows as they
+                    were at the iteration's start, which every class
+                    tree's gradient reads (lightgbm_tpu/ops/
+                    grow_persist.py:836-837)]
+  [row payload_weight_row  sample weight, when the dataset has weights]
   rows .. WPA       zero padding to a multiple of 8
+
+For multiclass the label row holds the class index as f32.
 
 Lanes are rows of the data: lane ``i < n`` holds one training row, lanes
 ``n .. NP`` are padding. The geometry arithmetic (``C``, ``CR``, ``NP``,
@@ -159,10 +167,9 @@ def build_assets(dataset, labels: np.ndarray, C: int = 0, CR: int = 16384,
         raise LightGBMError("score64 (the f64 score rows of the JAX "
                             "package's widened XLA emulation) is not "
                             "ported: the port keeps f32 score rows")
-    if num_scores != 1:
-        raise LightGBMError("a payload with %d score rows (multiclass) is "
-                            "not ported yet (ROADMAP.md queue A, item 17: "
-                            "other objectives)" % num_scores)
+    if num_scores < 1:
+        raise LightGBMError("a payload needs at least one score row, got "
+                            "num_scores=%d" % num_scores)
     n = int(dataset.num_data)
     ok, why = persist_pack_ok(dataset)
     if not ok:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import Config
+from ..objectives.base import PORTED
 from ..ops.grow import GrowConfig, grow_tree_partitioned, tb_source_index
 from ..ops.grow_persist import PersistGrower
 from ..ops.payload import build_assets, persist_pack_ok
@@ -48,7 +49,7 @@ def check_fast_path(config: Config, dataset) -> None:
     JAX package's fast-path gate (resolve_scan_impl) plus the slice's own
     limits."""
     c = config
-    if c.objective != "binary":
+    if c.objective not in PORTED:
         _refuse("objective=%s" % c.objective,
                 "queue A, item 17: other objectives")
     if c.boosting == "goss":
@@ -163,12 +164,15 @@ class SerialTreeLearner:
         JAX package's gate (serial.py:479-539) for the port's routes:
         ``force`` asks for it on any device and raises when the objective
         has no payload gradient; ``auto`` takes it on the card for 65536
-        rows or more; both need a payload pack plan and an objective with
-        something to train."""
+        rows or more; both need a payload pack plan and an objective whose
+        ``device_gradients`` is not None (reg_sqrt and a binary objective
+        with nothing to train have none: they take the v1 grower)."""
         opt = str(self.config.tpu_persist_scan).lower()
         if opt in ("false", "0", "off"):
             return False
-        grad_fn = getattr(objective, "payload_grad_fn", None)
+        multi = getattr(objective, "num_model_per_iteration", 1) > 1
+        grad_fn = getattr(objective, "payload_grad_fn_multi" if multi
+                          else "payload_grad_fn", None)
         if opt == "force" and grad_fn is None:
             Log.fatal("tpu_persist_scan=force: objective '%s' has no payload "
                       "gradient (ROADMAP.md queue A, item 17: other "
@@ -179,40 +183,55 @@ class SerialTreeLearner:
             return False
         return (persist_pack_ok(self.dataset)[0]
                 and self.dataset.num_features > 0
-                and grad_fn is not None and grad_fn() is not None)
+                and grad_fn is not None
+                and objective.device_gradients() is not None)
 
-    def _persist_grower(self) -> PersistGrower:
+    def _persist_grower(self, num_scores: int = 1) -> PersistGrower:
+        """The grower over a payload of `num_scores` score rows (the
+        objective's trees per iteration), built once."""
         if self._persist_gr is None:
             level = str(self.config.tpu_level_grow).lower()
-            assets = build_assets(self.dataset, self.dataset.metadata.label)
+            assets = build_assets(self.dataset, self.dataset.metadata.label,
+                                  num_scores=num_scores)
             self._persist_gr = PersistGrower(
                 assets, self.meta, self.grow_config, self.params, self.device,
                 level_mode="off" if level in ("off", "false", "0")
                 else "auto")
         return self._persist_gr
 
-    def train_persist(self, objective, score0, shrink: float):
-        """One boosting iteration on the payload: the objective's
-        gradients, one tree, and the tree's score update, all on the
-        payload, which stays on the learner (the carry). `score0()` returns
-        the row-ordered [n] scores that seed the carry; it is called on the
-        first call only. Returns the tree's TreeArrays.
+    def train_persist(self, objective, score0, shrink: float,
+                      classes=(0,)):
+        """One boosting iteration on the payload: for each class in
+        `classes` (K = 1: the one tree), the objective's gradients, one
+        tree and its score update, all on the payload, which stays on the
+        learner (the carry). K > 1 trees all read the scores as they were
+        at the iteration's start (the payload's snapshot rows). `score0()`
+        returns the row-ordered scores ([n] or [K, n]) that seed the carry;
+        it is called on the first call only. Returns the trees' TreeArrays,
+        one per class in `classes`; the feature masks are drawn one per
+        tree, in class order (the JAX package's order, gbdt.py:404-417).
 
         The iteration is the grower's (PersistGrower.iteration): on the
         card without a level phase, its first iteration runs eagerly with
         every synchronizing torch operation an error, and the later ones
-        replay one captured CUDA graph; the tree is read back once."""
-        gr = self._persist_grower()
+        replay one captured CUDA graph; the trees are read back with one
+        copy."""
+        gr = self._persist_grower(objective.num_model_per_iteration)
         if self._persist_carry is None:
             self._persist_carry = gr.init_carry(score0())
-        lstate, tree, num_leaves = gr.iteration(
-            self._persist_carry, objective.payload_grad_fn(),
-            self.col_sampler.sample(), shrink)
-        return gr.to_tree_arrays(lstate, tree, num_leaves)
+        masks = [self.col_sampler.sample() for _ in classes]
+        out = gr.iteration(self._persist_carry,
+                           objective.device_gradients()[1], masks, shrink,
+                           classes)
+        return [gr.to_tree_arrays(*t) for t in out]
+
+    def persist_add_const(self, val: float, cls: int) -> None:
+        """score row `cls` of the carry += val (a constant tree)."""
+        self._persist_gr.add_const(self._persist_carry, val, cls)
 
     def persist_finalize_scores(self):
-        """Row-ordered [n] f64 scores from the carry (None without one);
-        the carry stays live."""
+        """Row-ordered f64 scores ([n] or [K, n]) from the carry (None
+        without one); the carry stays live."""
         if self._persist_carry is None:
             return None
         return self._persist_gr.finalize_scores(self._persist_carry)

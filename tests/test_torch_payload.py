@@ -109,8 +109,8 @@ def test_build_assets_refuses_what_is_not_ported():
         payload.build_assets(pd, y, num_shards=2)
     with pytest.raises(LightGBMError, match="score64"):
         payload.build_assets(pd, y, score64=True)
-    with pytest.raises(LightGBMError, match="item 17"):
-        payload.build_assets(pd, y, num_scores=3)
+    with pytest.raises(LightGBMError, match="num_scores=0"):
+        payload.build_assets(pd, y, num_scores=0)
     pd.binned = None
     assert not payload.persist_pack_ok(pd)[0]
     with pytest.raises(payload.PersistPackError):
