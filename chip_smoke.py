@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the nine CUDA kernels from csrc/, in parallel;
+  2. build    nvcc builds the ten CUDA kernels from csrc/, in parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
               scan_pair (the v1 grower), root_hist over all 10.5M payload
@@ -56,7 +56,11 @@ exits non-zero without printing a result:
               The grow_step kernels (pick, commit, planes, assemble, the
               consolidation table, the score update) are held bit for bit
               against their plain versions on random mid-tree states at
-              the per-split shapes, and timed;
+              the per-split shapes, and timed. valid_walk (the held-out
+              scores' tree walk) runs a 255-leaf HIGGS tree over the
+              500k held-out HIGGS rows (5% NaN) and an Expo tree over
+              200k bundled held-out rows: two launches and the plain
+              version on the CPU bit-identical, timed beside its bound;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255) on cuda with the default routing,
               along five paths, each wrapper's launch count set to 0 just
@@ -78,6 +82,19 @@ exits non-zero without printing a result:
               regression  objective=regression (L2) on the latent plus
                        Gaussian noise, num_leaves=255, 3 iterations; its L2
                        loss must fall every iteration;
+              valid    the persist path with a 500k-row held-out set
+                       (make_higgs_like seed 17, 5% NaN) binned with
+                       reference=, valid_sets=[train, valid],
+                       metric=[binary_logloss, auc],
+                       early_stopping_rounds=5, evals_result: the model
+                       text equal to the persist path's, the graph replayed,
+                       valid_walk once per tree, one more read (the metric
+                       values) and one more upload (the node arrays) per
+                       iteration, every record within 1e-12 relative of
+                       numpy's metric of predict(num_iteration=i) and of
+                       the training scores; wall, busy and idle share of an
+                       iteration with its evaluation beside the persist
+                       path's;
               launch counts checked against the trees, splits, level
               programs and per-split splits grown (level programs at most
               max_depth per tree) and, for the consolidation, the trees
@@ -109,14 +126,19 @@ exits non-zero without printing a result:
               rows, Poisson on the persistent grower (counts of exp(latent
               / 2)), and softmax and one-vs-all (3 classes, 2 iterations)
               on the persistent, level and v1 routes: equal tree
-              structure, equal leaf values and equal model text.
+              structure, equal leaf values and equal model text; then
+              early stopping (noisy labels, learning rate 0.5) on the
+              persist, v1 and softmax-persist routes: the same
+              best_iteration and trees, records within 1e-12 relative,
+              equal model text.
 
 The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Options scale the run down for a quick check
 (--rows, --iters, --v1-iters, --level-iters, --off-iters, --mc-iters,
 --reg-iters, --expo-rows, --parity-rows, --expo-parity-rows,
---parity-iters, --mc-parity-iters, --skip-train, --skip-parity); the
+--parity-iters, --mc-parity-iters, --valid-rows, --expo-valid-rows,
+--es-rows, --es-rounds, --skip-train, --skip-parity); the
 defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
@@ -1646,14 +1668,15 @@ PATHS["regression"] = ({"objective": "regression", "num_leaves": 255,
 # the kernels whose launches a Python counter counts (they run eagerly on
 # every path); every other kernel of the paths counts its launches on the
 # device (ops/counters.py), replays of a CUDA graph included
-PY_COUNTED = ("hist_window", "level_pass", "level_seg_hist")
+PY_COUNTED = ("hist_window", "level_pass", "level_seg_hist", "valid_walk")
 
 
 def _wrappers():
     from lightgbm_torch.ops.histogram import hist_window
     from lightgbm_torch.ops.payload_kernels import level_pass, level_seg_hist
+    from lightgbm_torch.ops.valid_walk import valid_walk
     return {"hist_window": hist_window, "level_pass": level_pass,
-            "level_seg_hist": level_seg_hist}
+            "level_seg_hist": level_seg_hist, "valid_walk": valid_walk}
 
 
 def reset_counts():
@@ -1723,10 +1746,12 @@ def expected_launches(bst, trees):
             "apply_scores": sum(t.num_leaves > 1 for t in trees)}, stats
 
 
-def model_digest(bst) -> str:
-    """sha256 of the model text without its parameters block."""
+def model_digest(bst, num_iteration=None) -> str:
+    """sha256 of the model text (of its first `num_iteration` iterations;
+    by default the Booster's) without its parameters block."""
     import hashlib
-    text = bst.model_to_string().split("\nparameters:")[0]
+    text = bst.model_to_string(num_iteration=num_iteration) \
+        .split("\nparameters:")[0]
     return hashlib.sha256(text.encode()).hexdigest()
 
 
@@ -1760,7 +1785,7 @@ def check_graph(bst, gr, path, walls):
     if gr.use_level:
         log("train %s: the level phase runs on the host; its iterations run "
             "eagerly (no graph)" % path)
-        return
+        return None
     if len(walls) >= 3 and (gr._graph is None or gr.replays != len(walls) - 2):
         raise AssertionError("train %s: %d iterations, %s graph, %d replays"
                              % (path, len(walls), "a" if gr._graph else "no",
@@ -1782,9 +1807,11 @@ def check_graph(bst, gr, path, walls):
         raise AssertionError("train %s: %d device-to-host reads in one "
                              "per-split iteration, expected 1"
                              % (path, dtoh))
+    return dtoh, htod
 
 
-def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
+def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
+                keep=None):
     """Train on the card along one path, one iteration at a time (train,
     then Booster.update); returns the launch counts of the run, each
     wrapper's count set to 0 just before it and read just after. The
@@ -1792,7 +1819,10 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
     the numpy walk over the first WALK_ROWS rows checks the final scores.
     With off_iters, then train that many iterations with
     tpu_level_grow=off and hold their scores and raw predictions to the
-    first trees' bit for bit."""
+    first trees' bit for bit. With a dict `keep`, fill it for later phases:
+    the model digest after each iteration ("digests"), the first tree
+    ("tree"), the host-to-device copies of one iteration ("htod") and one
+    more iteration timed and profiled ("iteration": profile_iteration)."""
     import torch
     extra, used, unused = PATHS[path]
     params = dict(COMMON, **extra)
@@ -1855,7 +1885,13 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
                                  "for %d trees per iteration, expected %d"
                                  % (path, sec.shape[0], K,
                                     payload_weight_row(gr.nbw, K)))
-        check_graph(bst, gr, path, walls)
+        copies = check_graph(bst, gr, path, walls)
+        if keep is not None and copies is not None:
+            keep["htod"] = copies[1]
+    if keep is not None:
+        keep["digests"] = {i: model_digest(bst, i)
+                           for i in range(1, iters + 1)}
+        keep["tree"] = bst._booster.models[0]
     if path in ("level", "bundled"):
         md = PATHS[path][0]["max_depth"]
         if any(not 0 < a <= md for a, _ in stats):
@@ -1889,6 +1925,8 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
         raise AssertionError("model text round trip changes predictions")
     log("train %s: model_to_string -> Booster(model_str) predicts identical "
         "raw scores" % path)
+    if keep is not None and path == "persist":
+        keep["iteration"] = profile_iteration(bst.update)
     if profile:
         phase_profile(bst, card, path)
     if off_iters:
@@ -1919,6 +1957,320 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0):
     del bst
     torch.cuda.empty_cache()
     return counts
+
+
+def np_logloss(y, raw):
+    """binary_logloss of raw scores in numpy, the JAX package's formula
+    (lightgbm_tpu/metrics/pointwise.py: sigmoid 1, probabilities clamped
+    at 1e-15), unweighted."""
+    prob = 1.0 / (1.0 + np.exp(-raw))
+    eps = 1e-15
+    pos = np.where(prob > eps, -np.log(np.maximum(prob, eps)), -np.log(eps))
+    neg = np.where(1.0 - prob > eps, -np.log(np.maximum(1.0 - prob, eps)),
+                   -np.log(eps))
+    return float(np.sum(np.where(y > 0, pos, neg))) / len(y)
+
+
+def np_auc(y, raw):
+    """AUC in numpy with the JAX package's tie rule (lightgbm_tpu/metrics/
+    pointwise.py:AUCMetric), unweighted."""
+    order = np.argsort(-raw, kind="stable")
+    s, pos = raw[order], (y[order] > 0).astype(np.float64)
+    new = np.empty(len(s), dtype=bool)
+    new[0] = True
+    new[1:] = s[1:] != s[:-1]
+    gid = np.cumsum(new) - 1
+    gp = np.bincount(gid, weights=pos)
+    gn = np.bincount(gid, weights=1.0 - pos)
+    before = np.concatenate([[0.0], np.cumsum(gp)[:-1]])
+    accum = float(np.sum(gn * (gp * 0.5 + before)))
+    sp, sw = float(pos.sum()), float(len(y))
+    return accum / (sp * (sw - sp)) if 0.0 < sp != sw else 1.0
+
+
+NP_METRICS = {"binary_logloss": np_logloss, "auc": np_auc}
+
+
+def profile_iteration(fn):
+    """fn (one boosting iteration, maybe with its evaluation) once timed
+    on the host clock, then once more under torch.profiler: (wall ms of
+    the first, device busy ms of the second, its device events, its
+    device-to-host and host-to-device copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = _device_events(prof)
+    dtoh = sum(n for _, n, key in rows if "Memcpy DtoH" in key)
+    htod = sum(n for _, n, key in rows if "Memcpy HtoD" in key)
+    return wall_ms, sum(r[0] for r in rows), rows, dtoh, htod
+
+
+def leaf_depths(tree):
+    """[num_leaves] depth of each leaf of a models.tree.Tree."""
+    depth = np.zeros(max(tree.num_leaves, 1), np.int64)
+    stack = [(0, 1)] if tree.num_leaves > 1 else []
+    while stack:
+        node, d = stack.pop()
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child < 0:
+                depth[~child] = d
+            else:
+                stack.append((child, d + 1))
+    return depth
+
+
+def phase_valid_walk(label, tree, train_inner, valid_inner, seed):
+    """valid_walk over a validation set on the card: two launches
+    bit-identical, bit-identical to the plain version on the CPU; timed
+    beside the plain version on the card and its bound (the bins read
+    once, the f64 scores read and written once, the node table and leaves
+    read once; the data's node visits at ~12 integer operations each).
+    Returns the kernel's record (launches filled in by main)."""
+    import torch
+    from lightgbm_torch.models.tree import walk_leaves_plain
+    from lightgbm_torch.ops.valid_walk import pack, valid_walk, \
+        valid_walk_plain
+    dev = torch.device("cuda")
+    L = tree.num_leaves
+    (pc,) = pack([tree], [tree.leaf_value[:L]], train_inner, "cpu")
+    (pd,) = pack([tree], [tree.leaf_value[:L]], train_inner, dev)
+    bins_c = torch.from_numpy(valid_inner.binned)
+    bins_d = valid_inner.to_device(dev).bins
+    n, G = bins_c.shape
+    base = np.random.default_rng(seed).normal(size=n)
+    ref = torch.as_tensor(base.copy())
+    valid_walk_plain(bins_c, pc.nodes, pc.leaves, ref)
+    outs = []
+    for _ in range(2):
+        s = torch.as_tensor(base, device=dev)
+        valid_walk(bins_d, pd.nodes, pd.leaves, s)
+        torch.cuda.synchronize()
+        outs.append(s.cpu())
+    _same("valid_walk %s: two launches" % label, outs[0], outs[1])
+    err = _same("valid_walk %s vs the plain version on the CPU" % label,
+                outs[0], ref)
+    leaves = walk_leaves_plain(bins_c, pc.nodes).numpy()
+    depth = leaf_depths(tree)
+    visits = int(depth[leaves].sum())
+    scratch = torch.as_tensor(base, device=dev)
+    ms = device_ms(lambda: valid_walk(bins_d, pd.nodes, pd.leaves, scratch),
+                   sleep_cycles=20_000_000)
+    plain_ms = device_ms(lambda: valid_walk_plain(bins_d, pd.nodes,
+                                                  pd.leaves, scratch),
+                         reps=3, warmup=1)
+    nbytes = n * G + 16 * n + pd.nodes.numel() * 4 + pd.leaves.numel() * 8
+    b_ms, b_by = bound_ms(nbytes, 12.0 * visits)
+    log("valid_walk %s: a %d-leaf tree (depth %d) over %d rows x %d groups "
+        "(%s): two launches bit-identical, bit-identical to the plain "
+        "version on the CPU; %d node visits (mean depth %.2f); median time "
+        "per call: kernel %.4f ms, plain (per-level torch walk on the card) "
+        "%.4f ms, no single PyTorch call computes it; bound %.6f ms (%s)"
+        % (label, L, int(depth.max()), n, G,
+           "EFB-bundled" if valid_inner.has_bundles else "one feature per "
+           "group", visits, visits / n, ms, plain_ms, b_ms, b_by))
+    return {"name": "valid_walk", "route": "cuda",
+            "source": "lightgbm_torch/csrc/valid_walk.cu",
+            "replaces": "lightgbm_tpu/models/tree.py:420 (predict_leaf_"
+                        "binned: the JAX package's host numpy walk; no "
+                        "Pallas kernel)",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "rows": n, "leaves": L}
+
+
+def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain):
+    """The HIGGS valid path: the persist path's parameters and Dataset with
+    a held-out set binned against it, valid_sets=[train, valid],
+    metric=[binary_logloss, auc], early_stopping_rounds=5, evals_result.
+    Gates: the model text equal to the persist path's after as many
+    iterations (`plain`: phase_train's keep of that path); the graph
+    captured once and replayed by every later iteration; valid_walk
+    launched once per tree with a split (every other kernel as the
+    persist path); one more iteration with its evaluation reads the card
+    twice (the trees, the metric values) and copies to it once more than
+    the persist path's iteration (the node arrays); every recorded value
+    within 1e-12 relative of numpy's metric of predict(Xv, raw_score=True,
+    num_iteration=i) and of the training scores after iteration i.
+    Returns (launch counts, the first tree, the validation set's
+    BinnedDataset)."""
+    import torch
+    params = dict(COMMON, **PATHS["persist"][0],
+                  metric=["binary_logloss", "auc"])
+    dv = lgb.Dataset(Xv, yv, reference=ds, params=params)
+    rec, train_scores = {}, []
+
+    def keep_scores(env):
+        train_scores.append(env.model._booster.train_score.score.cpu()
+                            .numpy())
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.time()
+    bst = lgb.train(params, ds, iters, valid_sets=[ds, dv],
+                    valid_names=["training", "valid"],
+                    early_stopping_rounds=5, evals_result=rec,
+                    verbose_eval=False, callbacks=[keep_scores])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    trees = bst._booster.models
+    n = len(rec["valid"]["auc"])
+    log("train valid: %d rows + a held-out set of %d rows, %d iterations "
+        "(best %d) in %.1f s with the evaluation and the numpy copies of "
+        "the training scores, %d trees, leaves per tree %s"
+        % (ds.num_data(), len(yv), n, bst.best_iteration, wall, len(trees),
+           [t_.num_leaves for t_ in trees]))
+    want, _ = expected_launches(bst, trees)
+    want["valid_walk"] = sum(t_.num_leaves > 1 for t_ in trees)
+    bad = {k: (counts[k], want.get(k, 0)) for k in counts
+           if counts[k] != want.get(k, 0)}
+    if bad or not counts["valid_walk"]:
+        raise AssertionError("train valid: launch counts (got, expected) "
+                             "%s, all %s" % (bad, counts))
+    log("train valid: launches %s (valid_walk once per tree with a split: "
+        "%d)" % (counts, counts["valid_walk"]))
+    digest = model_digest(bst, -1)
+    if digest != plain["digests"][n]:
+        raise AssertionError("train valid: the model differs from the "
+                             "persist path's after %d iterations (sha256 "
+                             "%s against %s)" % (n, digest,
+                                                 plain["digests"][n]))
+    log("train valid: model digest %s, equal to the persist path's after "
+        "%d iterations (validation changes no tree)" % (digest, n))
+    gr = bst._booster.tree_learner._persist_gr
+    if gr.use_level or gr._graph is None or gr.replays != n - 2:
+        raise AssertionError("train valid: %d iterations, %s graph, %d "
+                             "replays" % (n, "a" if gr._graph else "no",
+                                          gr.replays))
+    log("train valid: the graph (%s nodes) captured at iteration 2 and "
+        "replayed by the %d later iterations"
+        % (gr.graph_stats.get("nodes"), gr.replays))
+    # every record against numpy, iteration by iteration
+    raw = np.zeros(len(yv))
+    y_train = ds._inner.metadata.label
+    worst = 0.0
+    for i in range(1, n + 1):
+        raw = raw + trees[i - 1].predict(Xv)
+        for name, lab, sc in (("valid", yv, raw),
+                              ("training", y_train, train_scores[i - 1])):
+            for metric, fn in NP_METRICS.items():
+                want_v, got = fn(lab, sc), rec[name][metric][i - 1]
+                rel = abs(got - want_v) / abs(want_v)
+                worst = max(worst, rel)
+                if not rel <= 1e-12:
+                    raise AssertionError(
+                        "train valid: iteration %d %s %s recorded %r, numpy "
+                        "%r" % (i, name, metric, got, want_v))
+    if not np.array_equal(raw, bst.predict(Xv, raw_score=True,
+                                           num_iteration=n)):
+        raise AssertionError("train valid: the summed trees differ from "
+                             "predict(num_iteration=%d)" % n)
+    log("train valid: %d records x 2 sets x 2 metrics within %.3g relative "
+        "of numpy's metrics of predict(Xv, raw_score=True, num_iteration=i) "
+        "and of the training scores (limit 1e-12); valid logloss %s, auc %s"
+        % (n, worst, ["%.6f" % v for v in rec["valid"]["binary_logloss"]],
+           ["%.6f" % v for v in rec["valid"]["auc"]]))
+    # one more iteration with its evaluation, as the engine runs it
+    it = profile_iteration(lambda: (bst.update(),
+                                    bst._evaluate(True, None)))
+    ev = profile_iteration(lambda: bst._evaluate(True, None))
+    wall_ms, busy, rows, dtoh, htod = it
+    p_wall, p_busy, _, _, _ = plain["iteration"]
+    walk_ms = sum(ms for ms, _, key in rows if "valid_walk" in key)
+    log("train valid: one iteration with its evaluation %.1f ms wall, %.1f "
+        "ms busy, idle %.3f; the persist path's iteration %.1f / %.1f / "
+        "%.3f; valid_walk %.3f ms of it, the evaluation alone %.2f ms busy "
+        "(%.1f ms wall) (%s)"
+        % (wall_ms, busy, 1 - busy / wall_ms, p_wall, p_busy,
+           1 - p_busy / p_wall, walk_ms, ev[1], ev[0], card))
+    log("train valid: the evaluation's device time by kernel: %s"
+        % "; ".join("%.2f ms / %d %s" % (ms, n_, key[:60])
+                    for ms, n_, key in ev[2][:6]))
+    log("train valid: device-to-host reads in that iteration: %d (the "
+        "trees, the metric values); host-to-device copies: %d (the persist "
+        "path's: %d, + the node arrays)" % (dtoh, htod, plain["htod"]))
+    if dtoh != 2 or htod != plain["htod"] + 1:
+        raise AssertionError("train valid: %d reads and %d uploads in one "
+                             "iteration with validation" % (dtoh, htod))
+    first, vinner = trees[0], dv._inner
+    del bst, train_scores
+    torch.cuda.empty_cache()
+    return counts, first, vinner
+
+
+ES_ROUTES = (
+    ("persist", {"objective": "binary", "num_leaves": 63,
+                 "tpu_persist_scan": "force"}, True),
+    ("v1", {"objective": "binary", "num_leaves": 63,
+            "tpu_persist_scan": "false"}, False),
+    ("softmax persist", {"objective": "multiclass", "num_class": 3,
+                         "metric": ["multi_logloss", "multi_error"],
+                         "num_leaves": 31, "tpu_persist_scan": "force"},
+     True),
+)
+
+
+def phase_parity_es(lgb, data, rounds):
+    """Early stopping on cuda and on the CPU: each route of ES_ROUTES with
+    noisy labels and learning_rate 0.5, valid_sets=[train, valid],
+    early_stopping_rounds=3, at most `rounds` rounds; the same
+    best_iteration and number of trees (the stop must fire), records
+    within 1e-12 relative, equal model text."""
+    for route, extra, persist in ES_ROUTES:
+        X, y, Xv, yv = data["multi" if "num_class" in extra else "binary"]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = dict(COMMON, learning_rate=0.5, **extra, device_type=dev)
+            p.setdefault("metric", ["binary_logloss", "auc"])
+            t = time.time()
+            dt = lgb.Dataset(X, y, params=p)
+            dv = lgb.Dataset(Xv, yv, reference=dt, params=p)
+            rec = {}
+            bst = lgb.train(p, dt, rounds, valid_sets=[dt, dv],
+                            early_stopping_rounds=3, evals_result=rec,
+                            verbose_eval=False)
+            if bst._booster.use_persist != persist:
+                raise AssertionError("parity es %s: wrong grower on %s"
+                                     % (route, dev))
+            out[dev] = (bst.best_iteration, bst.num_trees(), rec,
+                        model_digest(bst, -1))
+            log("parity es %s: %s stopped after %d rounds (best %d, %d "
+                "trees) in %.1f s" % (route, dev, len(rec["valid_1"][
+                    p["metric"][0]]), bst.best_iteration, bst.num_trees(),
+                    time.time() - t))
+        (bc, tc, rc, dc), (bp, tp, rp, dp) = out["cuda"], out["cpu"]
+        if not 0 < bc < len(rc["valid_1"][p["metric"][0]]) < rounds:
+            raise AssertionError("parity es %s: early stopping did not fire "
+                                 "(best %d)" % (route, bc))
+        if (bc, tc) != (bp, tp) or dc != dp:
+            raise AssertionError("parity es %s: best %d / %d trees / %s on "
+                                 "cuda, %d / %d / %s on cpu"
+                                 % (route, bc, tc, dc[:16], bp, tp, dp[:16]))
+        worst = 0.0
+        for name in rc:
+            for metric in rc[name]:
+                a, b = np.array(rc[name][metric]), np.array(rp[name][metric])
+                if a.shape != b.shape:
+                    raise AssertionError("parity es %s: %s %s has %d records "
+                                         "on cuda, %d on cpu" % (
+                                             route, name, metric, len(a),
+                                             len(b)))
+                rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+                worst = max(worst, float(rel.max()))
+        if not worst <= 1e-12:
+            raise AssertionError("parity es %s: records differ by %.3g "
+                                 "relative" % (route, worst))
+        log("parity es %s: best_iteration %d, %d trees, model text (sha256 "
+            "%s) equal on cuda and cpu; records within %.3g relative"
+            % (route, bc, tc, dc[:16], worst))
 
 
 # per path: each wrapper whose every launch runs one histogram partial
@@ -2238,6 +2590,36 @@ def phase_parity(lgb, data, iters, mc_iters):
             % (path, X.shape[0], n_it, len(a), digest["cuda"][:16]))
 
 
+def held_out_higgs(n):
+    """A held-out HIGGS set: make_higgs_like(n, seed=17) with 5% of its
+    values NaN (rows the training set never showed)."""
+    from lightgbm_torch.data.synth import make_higgs_like
+    Xv, yv = make_higgs_like(n, seed=17)
+    Xv[np.random.default_rng(18).random(Xv.shape) < 0.05] = np.nan
+    return Xv, yv
+
+
+def es_data(n):
+    """The early-stopping parity data: HIGGS rows and a held-out quarter,
+    binary labels with 30% flipped and 3 latent classes with 30% redrawn,
+    so that the held-out loss turns within a few rounds."""
+    out = {}
+    for name in ("binary", "multi"):
+        parts = []
+        for rows, seed in ((n, 21), (n // 4, 22)):
+            X, y, lat = higgs_latent(rows, seed=seed)
+            rng = np.random.default_rng(seed + 100)
+            if name == "binary":
+                y = np.where(rng.random(rows) < 0.3, 1.0 - y, y)
+            else:
+                y = quantile_classes(lat, 3)
+                flip = rng.random(rows) < 0.3
+                y[flip] = rng.integers(0, 3, int(flip.sum()))
+            parts += [X, y]
+        out[name] = tuple(parts)
+    return out
+
+
 def make_dataset(lgb, X, y, params, what):
     t = time.time()
     ds = lgb.Dataset(X, y, params=params, free_raw_data=False).construct()
@@ -2274,6 +2656,16 @@ def main() -> int:
     ap.add_argument("--mc-parity-iters", type=int, default=2,
                     help="iterations of the multiclass parity paths (3 "
                     "classes)")
+    ap.add_argument("--valid-rows", type=int, default=500_000,
+                    help="held-out HIGGS rows of the HIGGS valid path (it "
+                    "trains --iters iterations)")
+    ap.add_argument("--expo-valid-rows", type=int, default=200_000,
+                    help="held-out Expo rows the valid_walk phase walks")
+    ap.add_argument("--es-rows", type=int, default=50_000,
+                    help="training rows of the early-stopping parity "
+                    "routes (a quarter as many held out)")
+    ap.add_argument("--es-rounds", type=int, default=40,
+                    help="the most rounds of an early-stopping parity run")
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
@@ -2309,10 +2701,23 @@ def main() -> int:
     kernels[1].update(scan_b256)                    # scan_pair's record
     kernels += payload_recs
     kernels.append(phase_grow_step())
-    runs = {}
+    runs, persist_keep = {}, {}
+    Xv, yv = held_out_higgs(args.valid_rows)
+    log("data: make_higgs_like(%d, seed=17) held out, %d NaN values"
+        % (args.valid_rows, int(np.isnan(Xv).sum())))
     if not args.skip_train:
         runs["persist"] = phase_train(lgb, X, y, ds, args.iters, card,
-                                      args.profile, "persist")
+                                      args.profile, "persist",
+                                      keep=persist_keep)
+        runs["valid"], tree, vinner = phase_train_valid(
+            lgb, ds, Xv, yv, args.iters, card, persist_keep)
+    else:
+        tree = lgb.train(dict(COMMON, **PATHS["persist"][0]), ds, 1) \
+            ._booster.models[0]
+        vinner = lgb.Dataset(Xv, yv, reference=ds).construct()._inner
+    kernels.append(phase_valid_walk("HIGGS", tree, inner, vinner, 1))
+    del Xv, yv, tree, vinner
+    if not args.skip_train:
         runs["v1"] = phase_train(lgb, X, y, ds, args.v1_iters, card,
                                  args.profile, "v1")
         runs["level"] = phase_train(lgb, X, y, ds, args.level_iters, card,
@@ -2343,10 +2748,21 @@ def main() -> int:
     kernels.append(phase_block_kernels(inner, feature_meta(inner),
                                        grow_config(cfg, inner),
                                        SplitParams.from_config(cfg)))
+    expo_keep = {}
     if not args.skip_train:
         runs["bundled"] = phase_train(lgb, X, y, ds, args.level_iters, card,
                                       args.profile, "bundled",
-                                      args.off_iters)
+                                      args.off_iters, keep=expo_keep)
+    else:
+        expo_keep["tree"] = lgb.train(params, ds, 1)._booster.models[0]
+    Xe, ye = make_expo_like(args.expo_valid_rows, seed=9)
+    erec = phase_valid_walk("Expo", expo_keep["tree"], inner, lgb.Dataset(
+        Xe, ye, reference=ds).construct()._inner, 2)
+    walk_rec = next(k for k in kernels if k["name"] == "valid_walk")
+    walk_rec.update({"expo_" + k: erec[k] for k in (
+        "ms", "plain_ms", "bound_ms", "max_abs_err", "rows", "leaves")})
+    del Xe, ye, expo_keep
+    if not args.skip_train:
         # each kernel's count from the run of the path it serves: the v1
         # grower's for hist_window, the per-split persistent grower's for
         # scan_pair, root_hist, split_pass and seg_hist, the level path's
@@ -2355,7 +2771,8 @@ def main() -> int:
         # (grow_step: its splits, one commit each; its other kernels'
         # counts beside them)
         serves = {"hist_window": "v1", "level_pass": "level",
-                  "level_seg_hist": "level", "scan_blocks": "bundled"}
+                  "level_seg_hist": "level", "scan_blocks": "bundled",
+                  "valid_walk": "valid"}
         for rec in kernels:
             run = runs[serves.get(rec["name"], "persist")]
             if rec["name"] == "grow_step":
@@ -2383,6 +2800,7 @@ def main() -> int:
                 "higgs-counts": (Xp, counts.astype(np.float64)),
                 "expo": make_expo_like(args.expo_parity_rows, seed=11)}
         phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters)
+        phase_parity_es(lgb, es_data(args.es_rows), args.es_rounds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("kernels: " + ", ".join(k["name"] for k in kernels), flush=True)
     print(card, flush=True)

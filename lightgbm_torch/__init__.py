@@ -12,11 +12,22 @@ neither JAX nor anything of that package.
     bst.predict(X)
 
 ``device_type=cpu`` runs the kernels' plain PyTorch versions on the host.
+
+Validation sets, metrics, early stopping and the callbacks:
+
+    dv = lgb.Dataset(Xv, yv, reference=ds)
+    rec = {}
+    bst = lgb.train(params, ds, 100, valid_sets=[ds, dv],
+                    early_stopping_rounds=5, evals_result=rec)
 """
 from .basic import Booster, Dataset
+from .callback import (EarlyStopException, early_stopping, print_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .engine import train
 from .utils.log import LightGBMError, Log
 
-__all__ = ["Booster", "Config", "Dataset", "LightGBMError", "Log", "train"]
+__all__ = ["Booster", "Config", "Dataset", "EarlyStopException",
+           "LightGBMError", "Log", "early_stopping", "print_evaluation",
+           "record_evaluation", "reset_parameter", "train"]
 __version__ = "0.1.0"

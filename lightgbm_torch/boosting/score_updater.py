@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.valid_walk import valid_walk
+
 
 class ScoreUpdater:
     def __init__(self, num_data: int, device,
@@ -73,3 +75,43 @@ class ScoreUpdater:
         lv = torch.as_tensor(np.asarray(leaf_value, np.float64),
                              device=row.device)
         row.add_(lv[row_leaf.long()] * shrink)
+
+
+class ValidScoreUpdater:
+    """The scores of one validation set: a [K, n] float64 tensor on the
+    training device, started from the set's init_score (one value per row,
+    repeated for every class, or n * K class-major values), as the JAX
+    package's HostScoreUpdater (boosting/score_updater.py:114-144). A tree
+    is added by the binned walk (ops/valid_walk.py), one launch per tree on
+    the card; :attr:`score` is the [n] row when K = 1 and the [K, n]
+    matrix otherwise."""
+
+    def __init__(self, dataset, num_tree_per_iteration: int, device):
+        K = int(num_tree_per_iteration)
+        n = dataset.num_data
+        self.dataset = dataset
+        self.num_tree_per_iteration = K
+        self.bins = dataset.to_device(device).bins
+        init = dataset.metadata.init_score
+        if init is not None:
+            init = np.asarray(init, dtype=np.float64).reshape(-1)
+            init = (init.reshape(K, n) if init.size == n * K
+                    else np.tile(init.reshape(1, n), (K, 1)))
+            self._score = torch.as_tensor(init, device=device).clone()
+        else:
+            self._score = torch.zeros((K, n), dtype=torch.float64,
+                                      device=device)
+
+    @property
+    def score(self) -> torch.Tensor:
+        return self._score[0] if self.num_tree_per_iteration == 1 \
+            else self._score
+
+    def add_const(self, val: float, class_id: int = 0) -> None:
+        self._score[class_id].add_(val)
+
+    def add_tree(self, packed, class_id: int = 0) -> None:
+        """score[class_id] += the leaf value of each row's leaf under a
+        packed tree (ops/valid_walk.py:pack)."""
+        valid_walk(self.bins, packed.nodes, packed.leaves,
+                   self._score[class_id])

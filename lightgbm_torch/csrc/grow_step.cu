@@ -374,12 +374,15 @@ gs_cons_table(GsState S, long long* __restrict__ tab) {
 
 // score += f32(value * shrink) on every lane of each of the tree's s
 // leaves (none when s <= 1), one add per lane; `score` is the payload's
-// f32 score row. A fixed grid; each leaf's lanes are spread over all of
-// it.
-__global__ void gs_apply(GsState S, float* __restrict__ score, float shrink,
+// f32 score row, `shrink` the learning rate in device memory (written by
+// the host before the iteration, so one captured graph serves any rate).
+// A fixed grid; each leaf's lanes are spread over all of it.
+__global__ void gs_apply(GsState S, float* __restrict__ score,
+                         const float* __restrict__ shrink_p,
                          long long* counter) {
   const long long s = S.st[ST_S];
   if (s <= 1) return;
+  const float shrink = *shrink_p;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long q = 0; q < s; ++q) {
     const long long start = S.li[q * GS_LI + LI_START];
@@ -482,14 +485,14 @@ extern "C" int gs_cons_table_launch(GS_ARGS, void* tab, void* stream) {
 
 // A fixed grid of four blocks of 256 threads per multiprocessor (fewer for
 // a payload of fewer lanes).
-extern "C" int gs_apply_launch(GS_ARGS, void* score, float shrink,
+extern "C" int gs_apply_launch(GS_ARGS, void* score, const void* shrink,
                                long long n, void* counter, void* stream) {
   const long long want = (n + 255) / 256;
   const int grid = (int)(want < 4LL * gs_sms() ? (want < 1 ? 1 : want)
                                                 : 4LL * gs_sms());
   gs_apply<<<grid, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      GS_STATE, static_cast<float*>(score), shrink,
-      static_cast<long long*>(counter));
+      GS_STATE, static_cast<float*>(score),
+      static_cast<const float*>(shrink), static_cast<long long*>(counter));
   return gs_err();
 }
 

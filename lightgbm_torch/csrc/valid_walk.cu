@@ -1,0 +1,108 @@
+// The binned tree walk of the validation scores: score[r] += leaf_value[
+// leaf(r)] for every row r of a validation set, for one tree.
+//
+// No Pallas counterpart: the JAX package walks each new tree over the
+// binned validation rows on the host, in numpy
+// (lightgbm_tpu/boosting/score_updater.py:114-144 -> models/tree.py:420-481
+// predict_leaf_binned). Here one launch walks one tree over all rows.
+//
+// Rows: bins [n, G] uint8, row-major, the group-local bins of the
+// validation set (binned against the training set's mappers and groups).
+// Nodes: [num_nodes, VW_COLS] int32 records of the tree's internal nodes,
+// each with its feature's group metadata folded in by the host
+// (ops/valid_walk.py:node_records): the group column, the feature's
+// group-local bin range [lo, hi), its most frequent bin (the bin of a row
+// outside the range, an EFB bundle's other features), its default bin,
+// its last bin (the NaN bin), the threshold bin, the decision type
+// (bits 2-3 the missing type, bit 1 default-left) and the children
+// (~leaf for a leaf). Leaves: [num_nodes + 1] f64 leaf values.
+//
+// Design: one thread per row walks from the root; the node table sits in
+// shared memory when it fits (255 leaves: 10 KB), else it is read from
+// global memory. The decision is integer compares only and each row gets
+// one f64 add, so the result is the plain version's (and the JAX package's
+// numpy walk's) bit for bit. A tree without a split (num_nodes = 0) adds
+// leaf 0 to every row.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define VW_COLS 10
+#define VW_THREADS 256
+#define VW_SMEM_MAX (48 * 1024)
+
+enum { VW_G = 0, VW_LO, VW_HI, VW_MFB, VW_DB, VW_NB1, VW_THR, VW_DT,
+       VW_LEFT, VW_RIGHT };
+
+template <bool SMEM>
+__global__ void __launch_bounds__(VW_THREADS)
+valid_walk(const uint8_t* __restrict__ bins, long long n, int G,
+           const int* __restrict__ nodes, const double* __restrict__ leaves,
+           int num_nodes, double* __restrict__ score) {
+  extern __shared__ int vw_smem[];
+  const int* nd = nodes;
+  if (SMEM) {
+    for (int i = threadIdx.x; i < num_nodes * VW_COLS; i += blockDim.x)
+      vw_smem[i] = nodes[i];
+    __syncthreads();
+    nd = vw_smem;
+  }
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       r < n; r += stride) {
+    int node = 0;
+    if (num_nodes > 0) {
+      const uint8_t* row = bins + r * G;
+      while (node >= 0) {
+        const int* rec = nd + node * VW_COLS;
+        const int col = row[rec[VW_G]];
+        const int b = (col >= rec[VW_LO] && col < rec[VW_HI])
+                          ? col - rec[VW_LO] : rec[VW_MFB];
+        const int dt = rec[VW_DT];
+        const int mt = (dt >> 2) & 3;
+        const bool dflt = (mt == 1 && b == rec[VW_DB]) ||
+                          (mt == 2 && b == rec[VW_NB1]);
+        const bool left = dflt ? (dt & 2) != 0 : b <= rec[VW_THR];
+        node = left ? rec[VW_LEFT] : rec[VW_RIGHT];
+      }
+      node = ~node;
+    }
+    score[r] = score[r] + __ldg(leaves + node);
+  }
+}
+
+static int vw_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms < 1)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Queues the walk of one tree on `stream`; returns the CUDA error of the
+// launch, 0 on success. A grid of at most four blocks per multiprocessor,
+// each striding over the rows, so the node table is staged into shared
+// memory once per block.
+extern "C" int valid_walk_launch(const void* bins, long long n, int G,
+                                 const void* nodes, const void* leaves,
+                                 int num_nodes, void* score, void* stream) {
+  if (n <= 0) return 0;
+  const long long want = (n + VW_THREADS - 1) / VW_THREADS;
+  const int grid = (int)(want < 4LL * vw_sms() ? want : 4LL * vw_sms());
+  const size_t smem = (size_t)num_nodes * VW_COLS * sizeof(int);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (smem <= VW_SMEM_MAX)
+    valid_walk<true><<<grid, VW_THREADS, smem, s>>>(
+        static_cast<const uint8_t*>(bins), n, G,
+        static_cast<const int*>(nodes), static_cast<const double*>(leaves),
+        num_nodes, static_cast<double*>(score));
+  else
+    valid_walk<false><<<grid, VW_THREADS, 0, s>>>(
+        static_cast<const uint8_t*>(bins), n, G,
+        static_cast<const int*>(nodes), static_cast<const double*>(leaves),
+        num_nodes, static_cast<double*>(score));
+  return (int)cudaGetLastError();
+}

@@ -12,18 +12,33 @@ other's models.
 decision_type byte (tree.h:19-23): bit0 categorical, bit1 default_left,
 bits 2-3 missing type (0 none / 1 zero / 2 nan). Categorical splits are not
 in this slice: a model text holding one is refused.
+
+The binned walk (the JAX package's predict_leaf_binned, tree.py:420-481,
+the reference's AddPredictionToScore over a Dataset) walks the rows of a
+BinnedDataset aligned with the training set: :meth:`Tree.node_records`
+folds each internal node's feature metadata (its group, its group-local
+bin range, most frequent, default and NaN bins) into one int32 record,
+and :func:`walk_leaves_plain` walks those records over the [n, G] uint8
+bins level by level in plain PyTorch. The CUDA kernel of
+ops/valid_walk.py walks the same records.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..utils.log import Log
 
 kCategoricalMask = 1
 kDefaultLeftMask = 2
 kZeroThreshold = 1e-35
+
+# columns of a node record of the binned walk (csrc/valid_walk.cu)
+(VW_G, VW_LO, VW_HI, VW_MFB, VW_DB, VW_NB1, VW_THR, VW_DT, VW_LEFT,
+ VW_RIGHT) = range(10)
+VW_COLS = 10
 
 
 def _fmt(x: float) -> str:
@@ -165,6 +180,52 @@ class Tree:
             return np.full(X.shape[0], self.leaf_value[0])
         return self.leaf_value[self.predict_leaf(X)]
 
+    # -- binned (inner) prediction: the validation scores ---------------
+    def node_records(self, dataset) -> np.ndarray:
+        """[num_leaves - 1, VW_COLS] int32 records of the internal nodes
+        for the binned walk over rows of `dataset` (a BinnedDataset with
+        this tree's inner features): per node its feature's group, the
+        feature's group-local bin range [lo, hi), most frequent bin (the
+        bin of a row outside the range), default bin and last bin, then
+        the threshold bin, the decision type and the children."""
+        ni = max(self.num_leaves - 1, 0)
+        rec = np.zeros((ni, VW_COLS), np.int32)
+        if ni == 0:
+            return rec
+        dt = self.decision_type[:ni].astype(np.int32)
+        if (dt & kCategoricalMask).any():
+            Log.fatal("the binned walk has no categorical decision "
+                      "(ROADMAP.md queue A, item 4: general split scan)")
+        f = self.split_feature_inner[:ni]
+        g = np.asarray(dataset.group_of)[f]
+        goff = np.asarray(dataset.group_offset)[g]
+        start = np.asarray(dataset.bin_start)[f]
+        end = np.asarray(dataset.bin_end)[f]
+        rec[:, VW_G] = g
+        rec[:, VW_LO] = start - goff
+        rec[:, VW_HI] = end - goff
+        rec[:, VW_MFB] = np.asarray(dataset.most_freq_bin)[f]
+        rec[:, VW_DB] = np.asarray(dataset.default_bin)[f]
+        rec[:, VW_NB1] = end - start - 1
+        rec[:, VW_THR] = self.threshold_in_bin[:ni]
+        rec[:, VW_DT] = dt
+        rec[:, VW_LEFT] = self.left_child[:ni]
+        rec[:, VW_RIGHT] = self.right_child[:ni]
+        return rec
+
+    def predict_leaf_binned(self, dataset) -> np.ndarray:
+        """Leaf index [n] of each row of a BinnedDataset aligned with this
+        tree's inner features (the plain walk on the host)."""
+        leaves = walk_leaves_plain(torch.from_numpy(dataset.binned),
+                                   torch.from_numpy(
+                                       self.node_records(dataset)))
+        return leaves.numpy().astype(np.int32)
+
+    def predict_binned(self, dataset) -> np.ndarray:
+        if self.num_leaves <= 1:
+            return np.full(dataset.num_data, self.leaf_value[0])
+        return self.leaf_value[self.predict_leaf_binned(dataset)]
+
     # ------------------------------------------------------------------
     def to_string(self) -> str:
         """Tree::ToString (src/io/tree.cpp) — byte-compatible field list."""
@@ -233,3 +294,33 @@ class Tree:
         if "leaf_count" in kv:
             t.leaf_count = parse("leaf_count", np.int32, n)[:max(n, 1)]
         return t
+
+
+def walk_leaves_plain(bins: torch.Tensor, nodes: torch.Tensor
+                      ) -> torch.Tensor:
+    """The leaf index (int64 [n]) of each row of the [n, G] uint8 bins
+    under the node records `nodes` [num_nodes, VW_COLS] int32 (leaf 0 when
+    there is no node), by a vectorized walk, one level per step over the
+    rows still at an internal node: the JAX package's
+    predict_leaf_binned / _decision_inner for numerical nodes."""
+    n = bins.shape[0]
+    node = torch.zeros(n, dtype=torch.int64, device=bins.device)
+    if nodes.shape[0] == 0:
+        return node
+    active = torch.arange(n, device=bins.device)
+    while active.numel():
+        rec = nodes[node[active]]
+        col = bins[active, rec[:, VW_G].long()].to(torch.int32)
+        lo = rec[:, VW_LO]
+        inr = (col >= lo) & (col < rec[:, VW_HI])
+        b = torch.where(inr, col - lo, rec[:, VW_MFB])
+        dt = rec[:, VW_DT]
+        mt = (dt >> 2) & 3
+        dflt = ((mt == 1) & (b == rec[:, VW_DB])) | \
+            ((mt == 2) & (b == rec[:, VW_NB1]))
+        left = torch.where(dflt, (dt & kDefaultLeftMask) != 0,
+                           b <= rec[:, VW_THR])
+        nxt = torch.where(left, rec[:, VW_LEFT], rec[:, VW_RIGHT]).long()
+        node[active] = nxt
+        active = active[nxt >= 0]
+    return ~node

@@ -16,6 +16,9 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
+import torch
+
 from ..utils.log import Log
 
 # reference include/LightGBM/meta.h:51
@@ -35,6 +38,12 @@ PORTED = ("binary", "multiclass", "multiclassova", "regression", "huber",
           "fair", "poisson", "gamma", "tweedie")
 
 _REGISTRY: Dict[str, type] = {}
+
+
+def exp(x):
+    """exp of a numpy array or a torch tensor (``convert_output`` serves
+    both: predictions on the host, metrics on the scores' device)."""
+    return torch.exp(x) if isinstance(x, torch.Tensor) else np.exp(x)
 
 
 def register(cls):
@@ -101,6 +110,8 @@ class ObjectiveFunction:
         return 0.0
 
     def convert_output(self, raw):
+        """Raw scores -> predictions (ConvertOutput), for a numpy array or
+        a torch tensor."""
         return raw
 
     def to_string(self) -> str:

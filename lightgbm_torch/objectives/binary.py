@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..utils.log import Log
-from .base import K_EPSILON, ObjectiveFunction, register
+from .base import K_EPSILON, ObjectiveFunction, exp, register
 
 
 @register
@@ -130,7 +130,7 @@ class BinaryLogloss(ObjectiveFunction):
         return self.need_train
 
     def convert_output(self, raw):
-        return 1.0 / (1.0 + np.exp(-self.sigmoid * raw))
+        return 1.0 / (1.0 + exp(-self.sigmoid * raw))
 
     def to_string(self):
         return "%s sigmoid:%g" % (self.name, self.sigmoid)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.log import Log
-from .base import K_EPSILON, ObjectiveFunction, register
+from .base import K_EPSILON, ObjectiveFunction, exp, register
 from .binary import BinaryLogloss
 
 
@@ -123,6 +123,9 @@ class MulticlassSoftmax(ObjectiveFunction):
 
     def convert_output(self, raw):
         """[..., K] raw scores -> softmax probabilities."""
+        if isinstance(raw, torch.Tensor):
+            e = torch.exp(raw - raw.amax(-1, keepdim=True))
+            return e / e.sum(-1, keepdim=True)
         m = np.max(raw, axis=-1, keepdims=True)
         e = np.exp(raw - m)
         return e / np.sum(e, axis=-1, keepdims=True)
@@ -176,7 +179,7 @@ class MulticlassOVA(ObjectiveFunction):
         return self.binary_losses[class_id].class_need_train(0)
 
     def convert_output(self, raw):
-        return 1.0 / (1.0 + np.exp(-self.sigmoid * raw))
+        return 1.0 / (1.0 + exp(-self.sigmoid * raw))
 
     def to_string(self):
         return "%s num_class:%d sigmoid:%g" % (self.name, self.num_class,

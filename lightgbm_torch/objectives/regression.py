@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.log import Log
-from .base import ObjectiveFunction, register
+from .base import ObjectiveFunction, exp, register
 
 
 def _sign(x):
@@ -103,7 +103,8 @@ class RegressionL2Loss(ObjectiveFunction):
 
     def convert_output(self, raw):
         if self.sqrt:
-            return np.sign(raw) * raw * raw
+            sign = torch.sign if isinstance(raw, torch.Tensor) else np.sign
+            return sign(raw) * raw * raw
         return raw
 
     def to_string(self):
@@ -205,7 +206,7 @@ class _Exp(_NoSqrt):
         return float(np.log(mean)) if mean > 0 else -np.inf
 
     def convert_output(self, raw):
-        return np.exp(raw)
+        return exp(raw)
 
 
 @register

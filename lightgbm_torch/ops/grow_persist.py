@@ -702,14 +702,15 @@ class PersistGrower:
         return self.read_tree()
 
     # ---- one boosting iteration -------------------------------------------
-    def _body(self, pay, grad_fn, shrink, classes) -> None:
+    def _body(self, pay, grad_fn, classes) -> None:
         """The iteration queued with no read-back (on the card: everything
         one CUDA graph captures): K = 1: fill_grad -> the tree ->
         apply_scores; K > 1: the score snapshot, then for each class in
         `classes` its feature mask into the layout, fill_grad_multi -> its
         tree -> apply_scores on its score row (make_scan_driver's class
         loop, grow_persist.py:2150-2166). Each tree's state is copied into
-        its row of the stash."""
+        its row of the stash. The learning rate is read from the state's
+        device scalar, which :meth:`iteration` writes before the body."""
         if self.K > 1:
             with _range("grow::snapshot"):
                 self.snapshot_scores(pay)
@@ -728,8 +729,7 @@ class PersistGrower:
             with _range("grow::apply_scores"):
                 gs.apply_scores(
                     self.state,
-                    self._f32_row(pay, self.score_row + cls)[:self.n],
-                    shrink)
+                    self._f32_row(pay, self.score_row + cls)[:self.n])
             self.state.cnt.copy_(counters.counts(self.device))
             self.stash[j].copy_(self.state.blob)
         self._body_levels = levels
@@ -748,18 +748,22 @@ class PersistGrower:
         without a level phase the first iteration runs eagerly under
         ``torch.cuda.set_sync_debug_mode("error")`` (any torch operation
         that waits for the card raises); the next one is captured as one
-        CUDA graph, and every later iteration on the same payload,
-        shrinkage and classes replays it. A failure raises: there is no
-        fallback to an eager loop."""
+        CUDA graph, and every later iteration on the same payload and
+        classes replays it: the learning rate is written into the state's
+        device scalar before the body or the replay (gs.set_shrink), so a
+        rate that changes between iterations (``learning_rates=``) replays
+        the same graph. A failure raises: there is no fallback to an eager
+        loop."""
         classes = tuple(int(c) for c in classes)
         if self.K > 1:
             self._stage_masks(feature_masks)
         else:
             self._prepare(feature_masks[0])
+        gs.set_shrink(self.state, shrink)
         if self.use_level or self.device.type != "cuda" or not self.capture:
-            self._body(pay, grad_fn, shrink, classes)
+            self._body(pay, grad_fn, classes)
             return self._read_stash(len(classes))
-        key = (pay.data_ptr(), float(shrink), classes)
+        key = (pay.data_ptr(), classes)
         if self._graph is not None and self._graph[1] == key:
             self._graph[0].replay()
             self.replays += 1
@@ -767,12 +771,12 @@ class PersistGrower:
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self._body(pay, grad_fn, shrink, classes)
+                self._body(pay, grad_fn, classes)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
             self._checked = key
         else:
-            self._capture(pay, grad_fn, shrink, key)
+            self._capture(pay, grad_fn, key)
         return self._read_stash(len(classes))
 
     def _read_stash(self, m: int):
@@ -782,7 +786,7 @@ class PersistGrower:
                              self.state.views(host[j]).items()}, lv)
                 for j, lv in enumerate(self._body_levels[:m])]
 
-    def _capture(self, pay, grad_fn, shrink, key) -> None:
+    def _capture(self, pay, grad_fn, key) -> None:
         """Capture one iteration (its classes: key[2]) as a CUDA graph,
         then replay it."""
         import time
@@ -793,7 +797,7 @@ class PersistGrower:
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         with torch.cuda.graph(g):
-            self._body(pay, grad_fn, shrink, key[2])
+            self._body(pay, grad_fn, key[1])
         t1 = time.perf_counter()
         nodes = None
         if hasattr(g, "raw_cuda_graph"):

@@ -136,6 +136,10 @@ class GrowState:
         self.scal = self.scal.reshape(16)
         self.rows = self.rows.reshape(2)
         self.cnt = self.cnt.reshape(-1)
+        # the learning rate apply_scores multiplies by, an f32 the host
+        # writes before each iteration (so a captured graph serves every
+        # rate)
+        self.shrink = torch.zeros(1, dtype=torch.float32, device=self.device)
         self.done = self.st[ST_DONE:ST_DONE + 1]
         self.parity = self.st[ST_PARITY:ST_PARITY + 1]
         self.res = self.st[ST_NLEFT:ST_NLEFT + 3]
@@ -352,11 +356,11 @@ def cons_table_plain(S: GrowState) -> None:
     S.tab[:, 1] = torch.where(odd, li[:, LI_NROWS], 0)
 
 
-def apply_plain(S: GrowState, score: torch.Tensor, shrink) -> None:
+def apply_plain(S: GrowState, score: torch.Tensor) -> None:
     s = int(S.st[ST_S])
     if s <= 1:
         return
-    sh = _f32(F32(shrink))
+    sh = S.shrink[0]
     for q in range(s):
         st, nr = int(S.li[q, LI_START]), int(S.li[q, LI_NROWS])
         score[st:st + nr] += S.lf[q, LF_VALUE] * sh
@@ -476,13 +480,24 @@ def cons_table(S: GrowState) -> None:
     cons_table.launches += 1
 
 
-def apply_scores(S: GrowState, score: torch.Tensor, shrink: float) -> None:
-    """score += f32(value * f32(shrink)) on every lane of the tree's
-    leaves, `score` the payload's f32 score row (a view)."""
+def set_shrink(S: GrowState, shrink: float) -> None:
+    """The learning rate of the next apply_scores, f32(shrink), into the
+    state's device scalar (a fill, queued on the card; no copy)."""
+    S.shrink.fill_(float(F32(shrink)))
+
+
+def apply_scores(S: GrowState, score: torch.Tensor, shrink=None) -> None:
+    """score += f32(value * shrink) on every lane of the tree's leaves,
+    `score` the payload's f32 score row (a view). The kernel reads the
+    learning rate from the state's device scalar ``S.shrink``; a float
+    `shrink` is written there first (:func:`set_shrink`)."""
+    if shrink is not None:
+        set_shrink(S, shrink)
     if not _on(S, score):
-        return apply_plain(S, score, shrink)
-    _launch("gs_apply_launch", [_P, _F, _LL, _P], S,
-            ctypes.c_void_p(score.data_ptr()), ctypes.c_float(F32(shrink)),
+        return apply_plain(S, score)
+    _launch("gs_apply_launch", [_P, _P, _LL, _P], S,
+            ctypes.c_void_p(score.data_ptr()),
+            ctypes.c_void_p(S.shrink.data_ptr()),
             score.shape[0], _cnt(S, "apply_scores"))
     apply_scores.launches += 1
 

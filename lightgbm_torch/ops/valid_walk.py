@@ -1,0 +1,118 @@
+"""The binned tree walk of the validation scores on the device.
+
+No Pallas counterpart: the JAX package walks each new tree over the binned
+validation rows on the host, in numpy
+(lightgbm_tpu/boosting/score_updater.py:114-144 -> models/tree.py:420-481).
+Here :func:`valid_walk` adds one tree's leaf values to a validation set's
+f64 score row, ``score[r] += leaf_value[leaf(r)]``: one launch of the CUDA
+kernel (``csrc/valid_walk.cu``) per tree and validation set for tensors on
+the card, :func:`valid_walk_plain` (the vectorized per-level walk of
+models/tree.py) for tensors on the CPU. Nothing else: a tensor elsewhere
+raises, and a failed build or launch raises.
+
+:func:`pack` lays an iteration's trees out in one int32 host buffer (their
+f64 leaf values first, then their node records, models/tree.py:
+Tree.node_records) and uploads it with one copy; each tree's operands are
+views of it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..models.tree import VW_COLS, walk_leaves_plain
+from ..utils.log import LightGBMError
+
+
+class PackedTree(NamedTuple):
+    nodes: torch.Tensor     # [num_leaves - 1, VW_COLS] int32
+    leaves: torch.Tensor    # [num_leaves] f64
+
+
+def pack(trees: Sequence, leaf_values: Sequence[np.ndarray], dataset,
+         device) -> List[PackedTree]:
+    """The walk operands of `trees` (models.tree.Tree) with the leaf values
+    `leaf_values[i]` (f64, one per leaf of tree i), for rows binned like
+    `dataset`, in one buffer on `device` (one host-to-device copy)."""
+    recs = [t.node_records(dataset) for t in trees]
+    lvs = [np.ascontiguousarray(v, np.float64).reshape(-1)
+           for v in leaf_values]
+    for r, v in zip(recs, lvs):
+        if len(v) != r.shape[0] + 1:
+            raise LightGBMError("valid_walk.pack: %d leaf values for %d "
+                                "nodes" % (len(v), r.shape[0]))
+    n_leaf = sum(len(v) for v in lvs)
+    buf = np.empty(2 * n_leaf + sum(r.size for r in recs), np.int32)
+    if n_leaf:
+        buf[:2 * n_leaf].view(np.float64)[:] = np.concatenate(lvs)
+    if recs:
+        buf[2 * n_leaf:] = np.concatenate([r.reshape(-1) for r in recs])
+    dev = torch.as_tensor(buf, device=device)
+    leaves = dev[:2 * n_leaf].view(torch.float64)
+    out, lo, no = [], 0, 2 * n_leaf
+    for r, v in zip(recs, lvs):
+        out.append(PackedTree(dev[no:no + r.size].view(-1, VW_COLS),
+                              leaves[lo:lo + len(v)]))
+        lo += len(v)
+        no += r.size
+    return out
+
+
+def valid_walk_plain(bins: torch.Tensor, nodes: torch.Tensor,
+                     leaves: torch.Tensor, score: torch.Tensor) -> None:
+    """score += leaves[leaf(row)] in plain PyTorch (one f64 add per row)."""
+    score.add_(leaves[walk_leaves_plain(bins, nodes)])
+
+
+def _launch(bins, nodes, leaves, score) -> None:
+    from .build import load
+    fn = load("valid_walk").valid_walk_launch
+    P = ctypes.c_void_p
+    fn.argtypes = [P, ctypes.c_longlong, ctypes.c_int, P, P, ctypes.c_int,
+                   P, P]
+    fn.restype = ctypes.c_int
+    err = fn(P(bins.data_ptr()), bins.shape[0], bins.shape[1],
+             P(nodes.data_ptr()), P(leaves.data_ptr()), nodes.shape[0],
+             P(score.data_ptr()),
+             P(torch.cuda.current_stream(bins.device).cuda_stream))
+    if err != 0:
+        raise LightGBMError("valid_walk launch failed: CUDA error %d" % err)
+
+
+def valid_walk(bins: torch.Tensor, nodes: torch.Tensor,
+               leaves: torch.Tensor, score: torch.Tensor) -> None:
+    """score[r] += leaves[leaf(r)] for every row r of `bins` ([n, G]
+    uint8, binned like the training set), walking the tree of node records
+    `nodes` ([num_nodes, VW_COLS] int32) with leaf values `leaves`
+    ([num_nodes + 1] f64); `score` is an f64 [n] row, in place."""
+    n = bins.shape[0]
+    if bins.dtype != torch.uint8 or bins.dim() != 2 \
+            or not bins.is_contiguous():
+        raise LightGBMError("valid_walk: bins must be a contiguous [n, G] "
+                            "uint8 tensor")
+    if nodes.dtype != torch.int32 or nodes.dim() != 2 \
+            or nodes.shape[1] != VW_COLS or not nodes.is_contiguous():
+        raise LightGBMError("valid_walk: nodes must be a contiguous "
+                            "[num_nodes, %d] int32 tensor" % VW_COLS)
+    if leaves.dtype != torch.float64 or leaves.numel() != nodes.shape[0] + 1:
+        raise LightGBMError("valid_walk: leaves must hold num_nodes + 1 "
+                            "f64 values")
+    if score.dtype != torch.float64 or score.shape != (n,) \
+            or not score.is_contiguous():
+        raise LightGBMError("valid_walk: score must be a contiguous [n] "
+                            "f64 tensor")
+    dev = bins.device
+    if any(t.device != dev for t in (nodes, leaves, score)):
+        raise LightGBMError("valid_walk: operands on different devices")
+    if dev.type == "cpu":
+        return valid_walk_plain(bins, nodes, leaves, score)
+    if dev.type != "cuda":
+        raise LightGBMError("valid_walk: no kernel for device %s" % dev)
+    _launch(bins, nodes, leaves, score)
+    valid_walk.launches += 1
+
+
+valid_walk.launches = 0
