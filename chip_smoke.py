@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the ten CUDA kernels from csrc/, in parallel;
+  2. build    nvcc builds the eleven CUDA kernels from csrc/, in parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
               scan_pair (the v1 grower), root_hist over all 10.5M payload
@@ -63,7 +63,7 @@ exits non-zero without printing a result:
               version on the CPU bit-identical, timed beside its bound;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255) on cuda with the default routing,
-              along five paths, each wrapper's launch count set to 0 just
+              along these paths, each wrapper's launch count set to 0 just
               before and read just after:
               persist  binary, num_leaves=255 (the per-split persistent
                        grower), 10 iterations;
@@ -82,6 +82,18 @@ exits non-zero without printing a result:
               regression  objective=regression (L2) on the latent plus
                        Gaussian noise, num_leaves=255, 3 iterations; its L2
                        loss must fall every iteration;
+              l1       objective=regression_l1 on the same target, 3
+                       iterations: leaf renewal inside the per-split graph
+                       (the renew_leaf kernel once per tree); its L1 loss
+                       must fall every iteration, and one more iteration's
+                       tree must carry, leaf for leaf, the median of its
+                       rows' residuals (numpy on the host, over the payload
+                       segments' rows); then renew_leaf against its plain
+                       version on random segments (ties, -0.0, empty and
+                       one-row segments, both clamps, weights) and on that
+                       tree's segments over all lanes, timed beside its
+                       bound, its plain version, the two stable sorts that
+                       order the rows and the grower's whole renewal step;
               valid    the persist path with a 500k-row held-out set
                        (make_higgs_like seed 17, 5% NaN) binned with
                        reference=, valid_sets=[train, valid],
@@ -125,7 +137,12 @@ exits non-zero without printing a result:
               path on 200k HIGGS rows, the bundled path on 100k Expo
               rows, Poisson on the persistent grower (counts of exp(latent
               / 2)), and softmax and one-vs-all (3 classes, 2 iterations)
-              on the persistent, level and v1 routes: equal tree
+              on the persistent, level and v1 routes, L1 on the
+              persistent and v1 growers, quantile at alpha 0.9 with
+              sample weights, MAPE, cross_entropy on labels in [0, 1],
+              cross_entropy_lambda with weights and reg_sqrt (the last
+              five on the persistent grower; these seven at 63 leaves):
+              equal tree
               structure, equal leaf values and equal model text; then
               early stopping (noisy labels, learning rate 0.5) on the
               persist, v1 and softmax-persist routes: the same
@@ -136,7 +153,7 @@ The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
 {"ok": true, "device": {...}}. Options scale the run down for a quick check
 (--rows, --iters, --v1-iters, --level-iters, --off-iters, --mc-iters,
---reg-iters, --expo-rows, --parity-rows, --expo-parity-rows,
+--reg-iters, --l1-iters, --expo-rows, --parity-rows, --expo-parity-rows,
 --parity-iters, --mc-parity-iters, --valid-rows, --expo-valid-rows,
 --es-rows, --es-rounds, --skip-train, --skip-parity); the
 defaults are the full run. --profile
@@ -1495,8 +1512,13 @@ def l2_loss(y, raw):
     return float(((raw.double() - y.double()) ** 2).mean())
 
 
+def l1_loss(y, raw):
+    """Mean absolute error of raw scores, in f64."""
+    return float((raw.double() - y.double()).abs().mean())
+
+
 LOSSES = {"multiclass": ("multi_logloss", multi_logloss),
-          "regression": ("l2 loss", l2_loss)}
+          "regression": ("l2 loss", l2_loss), "l1": ("l1 loss", l1_loss)}
 
 
 def higgs_latent(n, seed=7):
@@ -1665,6 +1687,11 @@ PATHS["multiclass"] = ({"objective": "multiclass", "num_class": 5,
                        ) + PATHS["persist"][1:]
 PATHS["regression"] = ({"objective": "regression", "num_leaves": 255,
                         "tpu_persist_scan": "auto"},) + PATHS["persist"][1:]
+# L1 (upstream examples/regression with objective=regression_l1) renews
+# every tree's leaves inside the per-split graph
+PATHS["l1"] = ({"objective": "regression_l1", "num_leaves": 255,
+                "tpu_persist_scan": "auto"},
+               PATHS["persist"][1] + ("renew_leaf",), PATHS["persist"][2])
 # the kernels whose launches a Python counter counts (they run eagerly on
 # every path); every other kernel of the paths counts its launches on the
 # device (ops/counters.py), replays of a CUDA graph included
@@ -1721,11 +1748,15 @@ def expected_launches(bst, trees):
     growing do nothing and count nothing), the grow_step kernels once per
     split (grow_root and the root's assembly once per tree without a level
     phase), one consolidate per tree with a leaf at an odd depth and one
-    score update per tree with a split. Returns (counts, per-tree (level
-    programs, per-split splits))."""
+    score update per tree with a split; with leaf renewal one renew_leaf
+    per tree with a split, on either grower. Returns (counts, per-tree
+    (level programs, per-split splits))."""
     nodes = sum(t.num_leaves for t in trees)
+    renew = sum(t.num_leaves > 1 for t in trees) \
+        if bst._booster.objective.is_renew_tree_output else 0
     if not bst._booster.use_persist:
-        return {"hist_window": nodes, "scan_pair": nodes}, []
+        return {"hist_window": nodes, "scan_pair": nodes,
+                "renew_leaf": renew}, []
     gr = bst._booster.tree_learner._persist_gr
     stats = gr.grow_stats
     if len(stats) != len(trees):
@@ -1743,7 +1774,8 @@ def expected_launches(bst, trees):
             "consolidate": sum(has_odd_leaf(t) for t in trees),
             "grow_root": roots, "grow_pick": fb, "grow_commit": fb,
             "grow_planes": fb, "grow_assemble": fb + roots,
-            "apply_scores": sum(t.num_leaves > 1 for t in trees)}, stats
+            "apply_scores": sum(t.num_leaves > 1 for t in trees),
+            "renew_leaf": renew}, stats
 
 
 def model_digest(bst, num_iteration=None) -> str:
@@ -1808,6 +1840,45 @@ def check_graph(bst, gr, path, walls):
                              "per-split iteration, expected 1"
                              % (path, dtoh))
     return dtoh, htod
+
+
+def check_renewed_leaves(bst):
+    """One more iteration of a renewal path: each leaf value of its tree
+    read back must be the median of label - score over the leaf's rows
+    (the payload segment of the device leaf table, mapped to rows through
+    the row-id row; the scores before the iteration), computed on the host
+    by the port's numpy PercentileFun, rounded to the leaf table's f32 and
+    times the learning rate: the renewed values are the ones the tree
+    carries."""
+    import torch
+    from lightgbm_torch.objectives.base import percentile
+    b = bst._booster
+    gr, pay = b.tree_learner._persist_gr, b.tree_learner._persist_carry
+    before = b.train_score.score.cpu().numpy()
+    label = b.objective.raw_label.astype(np.float64)
+    t = time.time()
+    bst.update()
+    torch.cuda.synchronize()
+    tree = b.models[-1]
+    li = gr.state.li.cpu().numpy()
+    rid = pay[gr.nbw + 1, :gr.n].cpu().numpy()
+    lr = b.shrinkage_rate
+    from lightgbm_torch.ops import grow_step as gs
+    for leaf in range(tree.num_leaves):
+        st, nr = int(li[leaf, gs.LI_START]), int(li[leaf, gs.LI_NROWS])
+        rows = rid[st:st + nr]
+        want = float(np.float32(percentile(label[rows] - before[rows],
+                                           b.objective.renew_alpha))) * lr
+        if tree.leaf_value[leaf] != want:
+            raise AssertionError(
+                "train l1: leaf %d of the last tree is %r, the median of its "
+                "%d rows' residuals gives %r" % (leaf, tree.leaf_value[leaf],
+                                                 nr, want))
+    log("train l1: one more iteration (%.1f s with the host check): every "
+        "one of the %d leaves read back is its rows' residual median "
+        "(numpy PercentileFun over the payload segment's rows, f32, times "
+        "the learning rate), bit for bit" % (time.time() - t,
+                                             tree.num_leaves))
 
 
 def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
@@ -1925,8 +1996,12 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         raise AssertionError("model text round trip changes predictions")
     log("train %s: model_to_string -> Booster(model_str) predicts identical "
         "raw scores" % path)
-    if keep is not None and path == "persist":
+    if path == "l1":
+        check_renewed_leaves(bst)
+    if keep is not None and path in ("persist", "l1"):
         keep["iteration"] = profile_iteration(bst.update)
+    if keep is not None and path == "l1":
+        keep["bst"] = bst
     if profile:
         phase_profile(bst, card, path)
     if off_iters:
@@ -2084,6 +2159,132 @@ def phase_valid_walk(label, tree, train_inner, valid_inner, seed):
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "rows": n, "leaves": L}
+
+
+RENEW_SIZES = (0, 1, 2, 3, 7, 40, 0, 1, 2, 513, 4096, 5, 100_003)
+
+
+def phase_renew_kernel(bst):
+    """renew_leaf against its plain version on the CPU, bit for bit: on
+    random segments (RENEW_SIZES rows: empty, one-row, two-row, large)
+    with tied integer residuals (-0.0 beside +0.0) and f32 weights, at
+    alphas that reach both clamps, into f32 and f64 outputs; then on the
+    segments of a real HIGGS L1 tree (`bst`: the L1 path's Booster, its
+    last tree's device leaf table over all lanes, the payload's scores),
+    unweighted as the path runs it (f32 leaf table, nseg the tree's leaf
+    count) and with random weights. Times (median per call on the card):
+    the kernel, its plain version on the card, the two stable sorts that
+    order the rows (the library sort the design uses), and the whole
+    renewal step of the grower (scatter to row order, segment keys, sorts,
+    kernel). Bound: unweighted, each segment's two lanes (order and
+    residual), its (start, count) and its output; weighted, every lane's
+    order entry and weight, read once. No single PyTorch call computes a
+    per-segment percentile: library_ms is null. Returns the kernel's
+    record (launches filled in by main)."""
+    import torch
+    from lightgbm_torch.ops.renew import (renew_leaf, renew_leaf_plain,
+                                          renew_segments, segment_order)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    key = np.repeat(np.arange(len(RENEW_SIZES)), RENEW_SIZES)
+    rng.shuffle(key)
+    n = len(key)
+    res = rng.integers(-4, 5, n).astype(np.float64)
+    res[(res == 0) & (rng.random(n) < 0.5)] = -0.0
+    w = rng.uniform(0.2, 3.0, n).astype(np.float32)
+    sz = torch.as_tensor(np.asarray(RENEW_SIZES, np.int64))
+    seg = torch.stack([torch.cumsum(sz, 0) - sz, sz], 1)
+    cases = 0
+    for alpha in (0.5, 0.1, 0.9, 0.0001, 0.9999):
+        for weighted in (False, True):
+            for dt in (torch.float64, torch.float32):
+                out = {}
+                for d in ("cuda", "cpu"):
+                    o = torch.full((len(RENEW_SIZES),), 9.5, dtype=dt,
+                                   device=d)
+                    renew_segments(torch.as_tensor(res, device=d),
+                                   torch.as_tensor(key, device=d),
+                                   torch.as_tensor(w, device=d)
+                                   if weighted else None, seg.to(d), o,
+                                   alpha)
+                    out[d] = o
+                torch.cuda.synchronize()
+                _same("renew_leaf random segments alpha %g %s" % (
+                    alpha, "weighted" if weighted else "unweighted"),
+                    out["cuda"], out["cpu"])
+                cases += 1
+    log("renew_leaf: %d random-segment cases (%d segments, %d rows, tied "
+        "integer residuals with -0.0, empty/one/two-row segments, alphas "
+        "0.5/0.1/0.9/1e-4/0.9999, f32 and f64 outputs) bit-identical to "
+        "the plain version on the CPU" % (cases, len(RENEW_SIZES), n))
+    # a real tree: the L1 path's last tree over all 10.5M lanes
+    b = bst._booster
+    gr, pay = b.tree_learner._persist_gr, b.tree_learner._persist_carry
+    obj = b.objective
+    cap = {}
+
+    def grab(rs, key_, seg_, out_, nseg_):
+        cap.update(rs=rs.clone(), key=key_.clone(), seg=seg_.clone(),
+                   out=out_.clone(), nseg=nseg_.clone())
+    gr.renew(pay, grab)
+    label = torch.as_tensor(obj.raw_label, device=dev)
+    resid = (label.double() - cap["rs"]) + 0.0
+    order = segment_order(resid, cap["key"])
+    wts = torch.as_tensor(np.random.default_rng(42).uniform(
+        0.5, 2.0, gr.n).astype(np.float32), device=dev)
+    S = int(cap["nseg"].item())
+    counts = cap["seg"][:, 1].cpu().numpy()[:S]
+    cpu = {k: v.cpu() for k, v in (("order", order), ("resid", resid),
+                                   ("seg", cap["seg"]), ("nseg", cap["nseg"]),
+                                   ("w", wts))}
+    err = 0.0
+    for weighted in (False, True):
+        out_d = cap["out"].clone()
+        renew_leaf(order, resid, wts if weighted else None, cap["seg"],
+                   out_d, obj.renew_alpha, cap["nseg"])
+        out_c = cap["out"].cpu().clone()
+        renew_leaf_plain(cpu["order"], cpu["resid"],
+                         cpu["w"] if weighted else None, cpu["seg"], out_c,
+                         obj.renew_alpha, cpu["nseg"])
+        torch.cuda.synchronize()
+        err = max(err, _same("renew_leaf HIGGS tree %s" % (
+            "weighted" if weighted else "unweighted"), out_d, out_c))
+    scratch = cap["out"].clone()
+    ms = device_ms(lambda: renew_leaf(order, resid, None, cap["seg"],
+                                      scratch, obj.renew_alpha, cap["nseg"]),
+                   sleep_cycles=20_000_000)
+    w_ms = device_ms(lambda: renew_leaf(order, resid, wts, cap["seg"],
+                                        scratch, obj.renew_alpha,
+                                        cap["nseg"]), reps=5, warmup=1)
+    plain_ms = device_ms(lambda: renew_leaf_plain(
+        order, resid, None, cap["seg"], scratch, obj.renew_alpha,
+        cap["nseg"]), reps=3, warmup=1)
+    sort_ms = device_ms(lambda: segment_order(resid, cap["key"]), reps=5,
+                        warmup=1)
+    step_ms = device_ms(lambda: gr.renew(pay, obj.renew_tree_output), reps=5,
+                        warmup=1)
+    b_ms, b_by = bound_ms(S * (2 * 16 + 16 + 4), 10.0 * S)
+    wb_ms, wb_by = bound_ms(12.0 * gr.n + S * (2 * 8 + 16 + 4), 1.0 * gr.n)
+    log("renew_leaf: a %d-leaf HIGGS L1 tree's segments over %d lanes "
+        "(largest %d, smallest %d rows): unweighted (the path's call) and "
+        "with random weights bit-identical to the plain version on the CPU; "
+        "median time per call: kernel %.4f ms (weighted %.4f), plain "
+        "(a loop over segments on the card) %.2f ms, the two stable sorts "
+        "that order the rows %.4f ms, the grower's whole renewal step %.4f "
+        "ms; bound %.6f ms (%s; weighted %.4f ms, %s); no single PyTorch "
+        "call computes it" % (S, gr.n, int(counts.max()), int(counts.min()),
+                              ms, w_ms, plain_ms, sort_ms, step_ms, b_ms,
+                              b_by, wb_ms, wb_by))
+    return {"name": "renew_leaf", "route": "cuda",
+            "source": "lightgbm_torch/csrc/renew_leaf.cu",
+            "replaces": "lightgbm_tpu/boosting/gbdt.py:747 (_renew_tree_"
+                        "output: the JAX package's host numpy percentiles, "
+                        "objectives/base.py:214-256; no Pallas kernel)",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "sort_ms": sort_ms, "step_ms": step_ms,
+            "weighted_ms": w_ms, "weighted_bound_ms": wb_ms,
+            "lanes": gr.n, "segments": S}
 
 
 def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain):
@@ -2287,13 +2488,14 @@ PROFILED = {
                 ("split_pass", "payload_ordered_partial<SplitPassHist")),
     "v1": (("hist_window", "hist_window_partial"),),
 }
-PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["persist"]
+PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["l1"] = \
+    PROFILED["persist"]
 # the kernels of the port's own sources (csrc/); every other kernel in a
 # profile is PyTorch's (the gradient fills, copies, the score snapshot)
 OWN_KERNELS = ("payload_ordered_partial", "hist_window", "split_", "level_",
                "consolidate_copy", "gs_", "scan_pair", "scan_blocks",
                "seg_hist", "root_hist", "ordered_", "payload_hist_reduce",
-               "empty_launch")
+               "empty_launch", "renew_leaf")
 
 
 # the partition's kernels: count, scan and scatter of split_pass and
@@ -2494,6 +2696,14 @@ def phase_profile(bst, card, path):
             sum(n for _, n, _ in theirs),
             "; ".join("%.2f ms / %d %s" % (ms, n, key[:70])
                       for ms, n, key in theirs[:6])))
+    if path == "l1":
+        renew = [(ms, n) for ms, n, key in rows if "renew_leaf" in key]
+        sorts = [(ms, n) for ms, n, key in rows if "sort" in key.lower()]
+        log("profile l1: the renewal's kernels: renew_leaf %.3f ms in %d "
+            "calls, sort kernels %.3f ms in %d calls (%.1f%% of busy)"
+            % (sum(m for m, _ in renew), sum(c for _, c in renew),
+               sum(m for m, _ in sorts), sum(c for _, c in sorts),
+               100 * sum(m for m, _ in renew + sorts) / busy))
     steps = [(ms, n, key) for ms, n, key in rows
              if key.removeprefix("void ").startswith("gs_")]
     if steps:
@@ -2530,7 +2740,24 @@ PARITY = (
         ("level", {"num_leaves": 256, "max_depth": 8,
                    "tpu_persist_scan": "force"}, (True, True, False)),
         ("v1", {"num_leaves": 255, "tpu_persist_scan": "false"},
-         (False, False, False))))
+         (False, False, False)))) + tuple(
+    # leaf renewal on both growers, the row gradient mode (MAPE,
+    # cross-entropy, reg_sqrt) on the persistent one; "-w": sample weights.
+    # 63 leaves: the CPU side of a 255-leaf path takes ~15 s
+    (path, name, dict(extra, num_leaves=63,
+                      tpu_persist_scan="false" if path.endswith("v1")
+                      else "force"), (not path.endswith("v1"), False, False))
+    for path, name, extra in (
+        ("l1 persist", "higgs-l2", {"objective": "regression_l1"}),
+        ("l1 v1", "higgs-l2", {"objective": "regression_l1"}),
+        ("quantile 0.9 weighted", "higgs-l2-w", {"objective": "quantile",
+                                                 "alpha": 0.9}),
+        ("mape", "higgs-mape", {"objective": "mape"}),
+        ("cross_entropy", "higgs-01", {"objective": "cross_entropy"}),
+        ("cross_entropy_lambda weighted", "higgs-01-w",
+         {"objective": "cross_entropy_lambda"}),
+        ("reg_sqrt persist", "higgs-abs", {"objective": "regression",
+                                           "reg_sqrt": True})))
 
 
 def phase_parity(lgb, data, iters, mc_iters):
@@ -2539,14 +2766,15 @@ def phase_parity(lgb, data, iters, mc_iters):
     `data` maps a PARITY data name to (X, y); the multiclass paths train
     `mc_iters` iterations (3 trees each), the others `iters`."""
     for path, name, extra, (persist, level, blocks) in PARITY:
-        X, y = data[name]
+        X, y, *w = data[name]
         params = dict(COMMON, **extra)
         n_it = mc_iters if params.get("num_class", 1) > 1 else iters
         out, digest = {}, {}
         for dev in ("cuda", "cpu"):
             p = dict(params, device_type=dev)
             t = time.time()
-            bst = lgb.train(p, lgb.Dataset(X, y, params=p), n_it)
+            bst = lgb.train(p, lgb.Dataset(X, y, weight=w[0] if w else None,
+                                           params=p), n_it)
             if bst._booster.use_persist != persist:
                 raise AssertionError("parity %s: wrong grower on %s"
                                      % (path, dev))
@@ -2649,6 +2877,8 @@ def main() -> int:
                     "classes, 5 trees per iteration)")
     ap.add_argument("--reg-iters", type=int, default=3,
                     help="iterations of the HIGGS regression path")
+    ap.add_argument("--l1-iters", type=int, default=3,
+                    help="iterations of the HIGGS L1 path (leaf renewal)")
     ap.add_argument("--expo-rows", type=int, default=2_000_000)
     ap.add_argument("--parity-rows", type=int, default=200_000)
     ap.add_argument("--expo-parity-rows", type=int, default=100_000)
@@ -2735,7 +2965,23 @@ def main() -> int:
             "noise (mean %.4f, sd %.4f)" % (y_reg.mean(), y_reg.std()))
         runs["regression"] = phase_train(lgb, X, y_reg, ds, args.reg_iters,
                                          card, args.profile, "regression")
-        del y5, y_reg
+        l1_keep = {}
+        runs["l1"] = phase_train(lgb, X, y_reg, ds, args.l1_iters, card,
+                                 args.profile, "l1", keep=l1_keep)
+        wall, busy, _, _, _ = l1_keep["iteration"]
+        rec = phase_renew_kernel(l1_keep["bst"])
+        log("train l1: one more iteration %.1f ms wall, %.1f ms busy, idle "
+            "%.3f; the grower's renewal step %.4f ms, %.1f%% of busy (the "
+            "regression path's iteration: see its profile)"
+            % (wall, busy, 1 - busy / wall, rec["step_ms"],
+               100 * rec["step_ms"] / busy))
+        rec.update(l1_wall_ms=wall, l1_busy_ms=busy)
+        kernels.append(rec)
+        del y5, y_reg, l1_keep
+    else:
+        ds.set_label(l2_target(latent))
+        kernels.append(phase_renew_kernel(lgb.train(
+            dict(COMMON, **PATHS["l1"][0]), ds, 2)))
     del X, y, latent, ds, inner
 
     X, y = make_expo_like(args.expo_rows)
@@ -2772,7 +3018,7 @@ def main() -> int:
         # counts beside them)
         serves = {"hist_window": "v1", "level_pass": "level",
                   "level_seg_hist": "level", "scan_blocks": "bundled",
-                  "valid_walk": "valid"}
+                  "valid_walk": "valid", "renew_leaf": "l1"}
         for rec in kernels:
             run = runs[serves.get(rec["name"], "persist")]
             if rec["name"] == "grow_step":
@@ -2789,6 +3035,7 @@ def main() -> int:
                     serves.get(rec["name"], "persist") == "persist":
                 rec["multiclass_launches"] = runs["multiclass"][rec["name"]]
                 rec["regression_launches"] = runs["regression"][rec["name"]]
+                rec["l1_launches"] = runs["l1"][rec["name"]]
             if rec["name"] == "split_pass":
                 rec["multiclass_consolidate_launches"] = \
                     runs["multiclass"]["consolidate"]
@@ -2796,9 +3043,16 @@ def main() -> int:
     if not args.skip_parity:
         Xp, yp, lat = higgs_latent(args.parity_rows, seed=11)
         counts = np.random.default_rng(17).poisson(np.exp(lat / 2))
+        y_l2 = l2_target(lat, seed=19)
+        wp = np.random.default_rng(23).uniform(0.5, 2.0, len(yp))
+        y01 = 1.0 / (1.0 + np.exp(-lat.astype(np.float64)))
         data = {"higgs": (Xp, yp), "higgs-3": (Xp, quantile_classes(lat, 3)),
                 "higgs-counts": (Xp, counts.astype(np.float64)),
-                "expo": make_expo_like(args.expo_parity_rows, seed=11)}
+                "expo": make_expo_like(args.expo_parity_rows, seed=11),
+                "higgs-l2": (Xp, y_l2), "higgs-l2-w": (Xp, y_l2, wp),
+                "higgs-mape": (Xp, 3.0 * y_l2),
+                "higgs-abs": (Xp, np.abs(y_l2)),
+                "higgs-01": (Xp, y01), "higgs-01-w": (Xp, y01, wp)}
         phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters)
         phase_parity_es(lgb, es_data(args.es_rows), args.es_rounds)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,10 +28,18 @@ the JAX package's per-class path does (gbdt.py:154-172, 720-775). The
 trees of an iteration are uploaded together, once, after the iteration's
 one tree read; the per-split CUDA graph does not change.
 
+Leaf renewal (L1, quantile, MAPE; the JAX package's gbdt.py:747-766):
+each tree's leaf outputs are re-fit to a percentile of their rows'
+residuals before its score update, on the device by the ``renew_leaf``
+kernel (ops/renew.py): on the v1 grower from the row -> leaf map
+(:meth:`GBDT._renew_v1`), on the persistent grower inside its iteration
+from the leaf table's payload segments. Such an objective takes the JAX
+package's per-class path (its stop rule and first-iteration constant
+trees), as ``_fast_path_ok`` routes it.
+
 Not in this slice (ROADMAP.md queue A): the K-iteration fused scan, which
 the JAX package runs in batches of 16 iterations on its persistent path (a
-CUDA graph per iteration in the port, item 15), bagging/GOSS/DART/RF,
-leaf renewal.
+CUDA graph per iteration in the port, item 15), bagging/GOSS/DART/RF.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import json
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..config import _BY_NAME, Config, alias_transform
 from ..models.tree import Tree
@@ -136,25 +145,30 @@ class GBDT:
 
     def _fast_path(self) -> bool:
         """The JAX package's ``_fast_path_ok`` (gbdt.py:311-324) for the
-        port's objectives: every class trainable and no validation set.
-        (Its training-metric term is always false under ``train``: the
-        Booster gives its GBDT no training metrics.)"""
-        return all(self.class_need_train) and not self.valid_score
+        port's objectives: no leaf renewal, every class trainable and no
+        validation set. (Its training-metric term is always false under
+        ``train``: the Booster gives its GBDT no training metrics.)"""
+        return (not self.objective.is_renew_tree_output
+                and all(self.class_need_train) and not self.valid_score)
 
     def boost_from_average(self, class_id: int) -> float:
         """gbdt.cpp:302-336: the constant class `class_id` starts from,
         added to the training and validation scores."""
         if (not self.models and not self.train_score.has_init_score
-                and self.objective is not None
-                and (self.config.boost_from_average
-                     or self.train_data.num_features == 0)):
-            init_score = self.objective.boost_from_score(class_id)
-            if abs(init_score) > K_EPSILON:
-                self.train_score.add_const(init_score, class_id)
-                for su in self.valid_score:
-                    su.add_const(init_score, class_id)
-                Log.info("Start training from score %f" % init_score)
-                return init_score
+                and self.objective is not None):
+            if (self.config.boost_from_average
+                    or self.train_data.num_features == 0):
+                init_score = self.objective.boost_from_score(class_id)
+                if abs(init_score) > K_EPSILON:
+                    self.train_score.add_const(init_score, class_id)
+                    for su in self.valid_score:
+                        su.add_const(init_score, class_id)
+                    Log.info("Start training from score %f" % init_score)
+                    return init_score
+            elif self.objective.name in ("regression_l1", "quantile",
+                                         "mape"):
+                Log.warning("Disabling boost_from_average in %s may cause "
+                            "the slow convergence" % self.objective.name)
         return 0.0
 
     def reset_config(self, updates: dict) -> None:
@@ -191,11 +205,34 @@ class GBDT:
             arrays, row_leaf = self.tree_learner.train_arrays(grad[k],
                                                               hess[k])
             if arrays.num_leaves > 1:
+                if self.objective.is_renew_tree_output:
+                    arrays = self._renew_v1(arrays, row_leaf, k)
                 self.train_score.add_tree(
                     arrays.leaf_value[:arrays.num_leaves], row_leaf,
                     self.shrinkage_rate, k)
             out.append(arrays)
         return out
+
+    def _renew_v1(self, arrays, row_leaf, class_id: int):
+        """The v1 tree's leaf outputs re-fit from its rows (the JAX
+        package's _renew_tree_output, gbdt.py:747-766): the rows grouped
+        by leaf through the row -> leaf map, the f64 training scores before
+        the tree's update, one renew_leaf launch; the renewed f64 values
+        are read back once and replace the grower's f32 leaf values."""
+        L = arrays.num_leaves
+        key = row_leaf.to(torch.int64)
+        count = torch.zeros(L, dtype=torch.int64, device=key.device) \
+            .scatter_add_(0, key, torch.ones_like(key))
+        seg = torch.stack([torch.cumsum(count, 0) - count, count], 1)
+        value = torch.as_tensor(
+            np.asarray(arrays.leaf_value[:L], np.float64), device=key.device)
+        score = self.train_score.score
+        self.objective.renew_tree_output(
+            score if self.num_tree_per_iteration == 1 else score[class_id],
+            key, seg, value)
+        leaf_value = np.asarray(arrays.leaf_value, np.float64).copy()
+        leaf_value[:L] = value.cpu().numpy()
+        return arrays._replace(leaf_value=leaf_value)
 
     def _add_const(self, val: float, class_id: int) -> None:
         """score row `class_id` += val, in the payload when it owns the

@@ -22,6 +22,17 @@ per-row gather or scatter runs between iterations:
     the label and score rows (:func:`PersistGrower.fill_grad`), a tree's
     outputs are added to its leaves' segments (:meth:`apply_scores`), and
     scores return to row order only when read (:meth:`finalize_scores`);
+  * objectives whose gradients need more than the label (reg_sqrt's
+    transformed label, MAPE's label weights, cross-entropy's weights) fill
+    in row order (:meth:`PersistGrower.fill_grad_row`): the scores go to
+    row order through the row-id row, the objective's own gradient runs
+    there, and the results come back to the payload's lanes; such a
+    payload has no weight row;
+  * objectives with leaf renewal (L1, quantile, MAPE) re-fit each leaf's
+    output after its tree and before the score update
+    (:meth:`PersistGrower.renew`, the ``renew_leaf`` kernel over the
+    device leaf table's segments), so the renewed values are both added
+    to the scores and read back with the tree;
   * K trees per iteration (multiclass, make_scan_driver's class loop,
     :2150-2166): K score rows and K snapshot rows; one iteration copies the
     score rows into the snapshot (:meth:`snapshot_scores`), then for each
@@ -256,6 +267,10 @@ class PersistGrower:
         # False: every iteration on the card runs eagerly (a probe that
         # must see each launch, as the smoke test's per-call timing does)
         self.capture = True
+        # the row-order buffers of fill_grad_row and renew ([n] f64 scores,
+        # [n + 1] int32 segment marks, [n] int32 segment keys), allocated
+        # at their first use (an eager iteration), then at fixed addresses
+        self._rows = None
 
     # ---- payload <-> row order ---------------------------------------------
     def _f32_row(self, pay, r):
@@ -316,6 +331,60 @@ class PersistGrower:
         label = self._f32_row(pay, self.nbw)[:self.n]
         self._write_grads(pay, *payload_grad_fn_multi(
             self._scores(pay, self.snap_row), label, cls))
+
+    def _row_buffers(self, dev):
+        if self._rows is None:
+            n = self.n
+            self._rows = (
+                torch.empty(n, dtype=torch.float64, device=dev),
+                torch.empty(n + 1, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.arange(self.gc.num_leaves, device=dev))
+        return self._rows
+
+    def _row_scores(self, pay):
+        """(the [n] f64 row-ordered scores, the row-id row as int64): the
+        f32 payload scores scattered through the row-id row into a buffer
+        at a fixed address."""
+        rid = pay[self.nbw + 1, :self.n].to(torch.int64)
+        rs = self._row_buffers(pay.device)[0]
+        rs.index_copy_(0, rid, self._f32_row(pay, self.score_row)[:self.n]
+                       .double())
+        return rs, rid
+
+    def fill_grad_row(self, pay, row_grad_fn) -> None:
+        """The "row" gradient mode (grow_persist.py:1988-2006): the scores
+        to row order (f64), the objective's gradient ``row_grad_fn(score)``
+        there (its own row-ordered label and weights), the f32 results
+        gathered back onto the live lanes through the row-id row. The
+        payload has no weight row in this mode: the objective weights its
+        gradients itself."""
+        rs, rid = self._row_scores(pay)
+        g, h = row_grad_fn(rs)
+        self._write_grads(pay, g.to(torch.float32).index_select(0, rid),
+                          h.to(torch.float32).index_select(0, rid))
+
+    def renew(self, pay, renew_fn) -> None:
+        """Re-fit the leaves of the tree in the device state: each leaf's
+        LF_VALUE becomes ``renew_fn``'s value for its payload segment
+        (an objective's renew_tree_output), from the row-ordered scores
+        before the tree's update. A row's segment key is the rank of its
+        lane's segment in lane order (a cumulative count of the segment
+        starts), scattered to row order, so that the renewal's order by
+        (key, residual, row) lays each leaf's rows over its segment's
+        lanes [start, start + nrows). Leaves past the tree's s (and a
+        tree of one leaf) keep their values; nothing is read back."""
+        S = self.state
+        rs, rid = self._row_scores(pay)
+        _, mark, key, leaf_ids = self._row_buffers(pay.device)
+        li = S.li
+        live = (leaf_ids < S.st[gs.ST_S]) & (li[:, gs.LI_NROWS] > 0)
+        mark.zero_()
+        mark.scatter_add_(0, li[:, gs.LI_START], live.to(torch.int32))
+        key.index_copy_(0, rid, torch.cumsum(mark[:self.n], 0,
+                                             dtype=torch.int32))
+        renew_fn(rs, key, li[:, gs.LI_START:gs.LI_NROWS + 1],
+                 S.lf[:, gs.LF_VALUE], S.st[gs.ST_S:gs.ST_S + 1])
 
     def _write_grads(self, pay, g, h) -> None:
         """g, h ([n] f32) into the grad/hess rows, times the weight row
@@ -702,10 +771,12 @@ class PersistGrower:
         return self.read_tree()
 
     # ---- one boosting iteration -------------------------------------------
-    def _body(self, pay, grad_fn, classes) -> None:
+    def _body(self, pay, grad_fn, classes, mode="payload",
+              renew=None) -> None:
         """The iteration queued with no read-back (on the card: everything
-        one CUDA graph captures): K = 1: fill_grad -> the tree ->
-        apply_scores; K > 1: the score snapshot, then for each class in
+        one CUDA graph captures): K = 1: fill_grad (fill_grad_row in the
+        "row" `mode`) -> the tree -> the renewal (with a `renew` function)
+        -> apply_scores; K > 1: the score snapshot, then for each class in
         `classes` its feature mask into the layout, fill_grad_multi -> its
         tree -> apply_scores on its score row (make_scan_driver's class
         loop, grow_persist.py:2150-2166). Each tree's state is copied into
@@ -722,10 +793,15 @@ class PersistGrower:
             with _range("grow::fill_grad"):
                 if self.K > 1:
                     self.fill_grad_multi(pay, grad_fn, cls)
+                elif mode == "row":
+                    self.fill_grad_row(pay, grad_fn)
                 else:
                     self.fill_grad(pay, grad_fn)
             self._tree(pay)
             levels.append(self._levels)
+            if renew is not None:
+                with _range("grow::renew"):
+                    self.renew(pay, renew)
             with _range("grow::apply_scores"):
                 gs.apply_scores(
                     self.state,
@@ -735,12 +811,14 @@ class PersistGrower:
         self._body_levels = levels
 
     def iteration(self, pay, grad_fn, feature_masks, shrink: float,
-                  classes=(0,)):
+                  classes=(0,), mode="payload", renew=None):
         """One boosting iteration on the payload: for each class in
         `classes` (every class with something to train), its gradients
         (``grad_fn``: a payload_grad_fn when K = 1, a payload_grad_fn_multi
-        otherwise), one tree on its feature mask (``feature_masks[j]`` for
-        ``classes[j]``), its score update. Returns one (LeafState, split
+        otherwise; in the "row" `mode` a function of the row-ordered
+        scores), one tree on its feature mask (``feature_masks[j]`` for
+        ``classes[j]``), with `renew` (an objective's renew_tree_output)
+        its leaves re-fit, its score update. Returns one (LeafState, split
         records, num_leaves) per class, as :meth:`grow` does, all read back
         with one copy.
 
@@ -761,22 +839,22 @@ class PersistGrower:
             self._prepare(feature_masks[0])
         gs.set_shrink(self.state, shrink)
         if self.use_level or self.device.type != "cuda" or not self.capture:
-            self._body(pay, grad_fn, classes)
+            self._body(pay, grad_fn, classes, mode, renew)
             return self._read_stash(len(classes))
         key = (pay.data_ptr(), classes)
         if self._graph is not None and self._graph[1] == key:
             self._graph[0].replay()
             self.replays += 1
         elif self._checked != key:
-            mode = torch.cuda.get_sync_debug_mode()
+            sync = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self._body(pay, grad_fn, classes)
+                self._body(pay, grad_fn, classes, mode, renew)
             finally:
-                torch.cuda.set_sync_debug_mode(mode)
+                torch.cuda.set_sync_debug_mode(sync)
             self._checked = key
         else:
-            self._capture(pay, grad_fn, key)
+            self._capture(pay, key, grad_fn, mode, renew)
         return self._read_stash(len(classes))
 
     def _read_stash(self, m: int):
@@ -786,8 +864,8 @@ class PersistGrower:
                              self.state.views(host[j]).items()}, lv)
                 for j, lv in enumerate(self._body_levels[:m])]
 
-    def _capture(self, pay, grad_fn, key) -> None:
-        """Capture one iteration (its classes: key[2]) as a CUDA graph,
+    def _capture(self, pay, key, grad_fn, mode, renew) -> None:
+        """Capture one iteration (its classes: key[1]) as a CUDA graph,
         then replay it."""
         import time
         try:
@@ -797,7 +875,7 @@ class PersistGrower:
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         with torch.cuda.graph(g):
-            self._body(pay, grad_fn, key[1])
+            self._body(pay, grad_fn, key[1], mode, renew)
         t1 = time.perf_counter()
         nodes = None
         if hasattr(g, "raw_cuda_graph"):

@@ -50,8 +50,7 @@ def check_fast_path(config: Config, dataset) -> None:
     limits."""
     c = config
     if c.objective not in PORTED:
-        _refuse("objective=%s" % c.objective,
-                "queue A, item 17: other objectives")
+        _refuse("objective=%s" % c.objective, "queue A, item 17.4: ranking")
     if c.boosting == "goss":
         _refuse("boosting=goss", "queue A, item 16: bagging and GOSS")
     if c.boosting != "gbdt":
@@ -161,38 +160,38 @@ class SerialTreeLearner:
 
     def can_persist_scan(self, objective) -> bool:
         """Does this learner grow with the persistent-payload grower? The
-        JAX package's gate (serial.py:479-539) for the port's routes:
-        ``force`` asks for it on any device and raises when the objective
-        has no payload gradient; ``auto`` takes it on the card for 65536
-        rows or more; both need a payload pack plan and an objective whose
-        ``device_gradients`` is not None (reg_sqrt and a binary objective
-        with nothing to train have none: they take the v1 grower)."""
+        JAX package's gate (serial.py:479-539) for the port's routes,
+        decided by the objective's ``device_gradients`` (its "payload" or
+        "row" gradient mode): ``force`` asks for it on any device and
+        raises when the objective has none; ``auto`` takes it on the card
+        for 65536 rows or more; both need a payload pack plan."""
         opt = str(self.config.tpu_persist_scan).lower()
         if opt in ("false", "0", "off"):
             return False
-        multi = getattr(objective, "num_model_per_iteration", 1) > 1
-        grad_fn = getattr(objective, "payload_grad_fn_multi" if multi
-                          else "payload_grad_fn", None)
-        if opt == "force" and grad_fn is None:
-            Log.fatal("tpu_persist_scan=force: objective '%s' has no payload "
-                      "gradient (ROADMAP.md queue A, item 17: other "
-                      "objectives)" % getattr(objective, "name",
-                                              type(objective).__name__))
+        dg = objective.device_gradients()
+        if opt == "force" and dg is None:
+            Log.fatal("tpu_persist_scan=force: objective '%s' has no device "
+                      "gradient" % getattr(objective, "name",
+                                           type(objective).__name__))
         if opt != "force" and (self.device.type != "cuda" or
                                self.dataset.num_data < PARTITION_MIN_ROWS):
             return False
         return (persist_pack_ok(self.dataset)[0]
                 and self.dataset.num_features > 0
-                and grad_fn is not None
-                and objective.device_gradients() is not None)
+                and dg is not None)
 
-    def _persist_grower(self, num_scores: int = 1) -> PersistGrower:
+    def _persist_grower(self, num_scores: int = 1,
+                        weight_row: bool = True) -> PersistGrower:
         """The grower over a payload of `num_scores` score rows (the
-        objective's trees per iteration), built once."""
+        objective's trees per iteration), with the sample weights as a
+        payload row when `weight_row` (the "payload" gradient mode; the
+        "row" mode weights its gradients itself, serial.py:594), built
+        once."""
         if self._persist_gr is None:
             level = str(self.config.tpu_level_grow).lower()
             assets = build_assets(self.dataset, self.dataset.metadata.label,
-                                  num_scores=num_scores)
+                                  num_scores=num_scores,
+                                  use_weight_row=weight_row)
             self._persist_gr = PersistGrower(
                 assets, self.meta, self.grow_config, self.params, self.device,
                 level_mode="off" if level in ("off", "false", "0")
@@ -215,14 +214,19 @@ class SerialTreeLearner:
         card without a level phase, its first iteration runs eagerly with
         every synchronizing torch operation an error, and the later ones
         replay one captured CUDA graph; the trees are read back with one
-        copy."""
-        gr = self._persist_grower(objective.num_model_per_iteration)
+        copy. An objective with leaf renewal re-fits each tree's leaves
+        inside the iteration, before its score update."""
+        mode, grad_fn = objective.device_gradients()
+        gr = self._persist_grower(objective.num_model_per_iteration,
+                                  mode == "payload")
         if self._persist_carry is None:
             self._persist_carry = gr.init_carry(score0())
+        objective.upload(self.device)
         masks = [self.col_sampler.sample() for _ in classes]
-        out = gr.iteration(self._persist_carry,
-                           objective.device_gradients()[1], masks, shrink,
-                           classes)
+        renew = (objective.renew_tree_output
+                 if objective.is_renew_tree_output else None)
+        out = gr.iteration(self._persist_carry, grad_fn, masks, shrink,
+                           classes, mode, renew)
         return [gr.to_tree_arrays(*t) for t in out]
 
     def persist_add_const(self, val: float, cls: int) -> None:

@@ -129,7 +129,7 @@ def test_config_matches_jax(params):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"objective": "regression_l1"}, "item 17"),
+    ({"objective": "lambdarank"}, "item 17"),
     ({"boosting": "goss"}, "item 16"),
     ({"boosting": "dart"}, "item 7"),
     ({"bagging_fraction": 0.5, "bagging_freq": 1}, "item 16"),

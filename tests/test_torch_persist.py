@@ -214,9 +214,9 @@ def test_persist_matches_v1_grower():
 
 def test_routing(monkeypatch):
     """auto keeps the v1 grower on the CPU, force takes the persistent one,
-    false/off/0 never do; force with an objective that has no payload
-    gradient raises; with max_depth the level phase runs (auto), and
-    tpu_level_grow=off keeps it off."""
+    false/off/0 never do; force with an objective that has no device
+    gradient (neither a payload nor a row mode) raises; with max_depth the
+    level phase runs (auto), and tpu_level_grow=off keeps it off."""
     X, y = _data(n=2000)
     for opt, want in (("auto", False), ("force", True), ("false", False),
                       ("off", False), ("0", False)):
@@ -226,9 +226,9 @@ def test_routing(monkeypatch):
     p = dict(BASE, device_type="cpu")
     bst = lp.Booster(p, lp.Dataset(X, y, params=p))
     learner = bst._booster.tree_learner
-    monkeypatch.setattr(type(bst._booster.objective), "payload_grad_fn",
-                        None)
-    with pytest.raises(LightGBMError, match="payload gradient"):
+    monkeypatch.setattr(type(bst._booster.objective), "device_gradients",
+                        lambda self: None)
+    with pytest.raises(LightGBMError, match="device gradient"):
         learner.can_persist_scan(bst._booster.objective)
     monkeypatch.undo()
     for level, runs in (("auto", True), ("off", False)):

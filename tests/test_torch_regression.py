@@ -108,13 +108,14 @@ def test_weighted_regression_matches_jax(objective, monkeypatch):
 
 
 def test_reg_sqrt_trains_on_v1():
-    """reg_sqrt has no payload gradient: even with tpu_persist_scan=force
-    the port grows on the v1 grower, from the square-rooted label, and
-    predicts sign(raw) * raw^2, as the JAX package."""
+    """reg_sqrt on the v1 grower (tpu_persist_scan=off) grows from the
+    square-rooted label and predicts sign(raw) * raw^2, as the JAX
+    package. (On the persistent grower it takes the row gradient mode:
+    tests/test_torch_persist_renew.py.)"""
     params = dict(BASE, objective="regression", reg_sqrt=True,
-                  tpu_persist_scan="force")
+                  tpu_persist_scan="off")
     X, y = reg_data("regression", seed=6)
-    bj = train_jax(dict(params, tpu_persist_scan="off"), X, y, 5)
+    bj = train_jax(params, X, y, 5)
     p = dict(params, device_type="cpu")
     bp = lp.train(p, lp.Dataset(X, y, params=p), 5)
     assert not bp._booster.use_persist
