@@ -8,7 +8,8 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the eleven CUDA kernels from csrc/, in parallel;
+  2. build    nvcc builds the twelve CUDA kernel libraries from csrc/, in
+              parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
               scan_pair (the v1 grower), root_hist over all 10.5M payload
@@ -60,7 +61,21 @@ exits non-zero without printing a result:
               scores' tree walk) runs a 255-leaf HIGGS tree over the
               500k held-out HIGGS rows (5% NaN) and an Expo tree over
               200k bundled held-out rows: two launches and the plain
-              version on the CPU bit-identical, timed beside its bound;
+              version on the CPU bit-identical, timed beside its bound.
+              At the MSLR shape (make_ltr_like: 137 features in 137
+              groups, 31,095 queries of 73 rows): root_hist over 1M
+              lanes, seg_hist and split_pass on a 500k-lane segment and
+              scan_pair over the 137 features, each against its plain
+              version on the CPU bit for bit; the ranking gradient kernels
+              lambdarank_grad and xendcg_grad at that shape and on 50k
+              rows in variable-length queries up to 1250 rows (past the
+              lambda kernel's shared memory), without and with weights:
+              two launches equal, bit for bit equal to the plain version
+              on the card, equal to the plain version on the CPU (over
+              the first 4000 queries) but for at most 1 value in 10^5 one
+              f32 ulp off (the card's f64 exp and log2), timed beside the
+              plain version and the bound (f64 operations over the card's
+              f64 rate, or bytes);
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255) on cuda with the default routing,
               along these paths, each wrapper's launch count set to 0 just
@@ -79,6 +94,23 @@ exits non-zero without printing a result:
                        one score snapshot (the payload carries 5 score and
                        5 snapshot rows: wp_live 21); its multi_logloss
                        must fall every iteration;
+              ltr      (after the Expo phase) objective=lambdarank on the
+                       MSLR shape (make_ltr_like: 2,269,935 rows x 137
+                       features, labels 0-4, 73-row queries; num_leaves
+                       255, lambdarank_truncation_level 30;
+                       bench_full.py:101-120), 10 iterations on the
+                       per-split persistent grower: its graph gates,
+                       lambdarank_grad once per iteration, training
+                       NDCG@10 (numpy) after the last iteration above the
+                       first's; then the same with the 227k held-out rows
+                       of the same make_ltr_like draw, metric=ndcg,
+                       eval_at=[1, 3, 5, 10], early_stopping_rounds=5: the
+                       valid path's gates, records against numpy's NDCG;
+              xendcg   objective=rank_xendcg on the same rows, 3
+                       iterations on the v1 grower: xendcg_grad once per
+                       iteration, one get_gradients call per iteration,
+                       the draws bit-equal to a sequential numpy replay of
+                       the reference's LCG, NDCG@10 rising;
               regression  objective=regression (L2) on the latent plus
                        Gaussian noise, num_leaves=255, 3 iterations; its L2
                        loss must fall every iteration;
@@ -132,22 +164,25 @@ exits non-zero without printing a result:
               iterations; scan_blocks, no scan_pair) with the same checks
               and 3 iterations with tpu_level_grow=off (split_pass's
               in-pass histogram) bit-equal to the first 3 trees;
-  6. parity   cuda against the CPU (the plain versions), 5 iterations, for
+  6. parity   cuda against the CPU (the plain versions), 2 iterations, for
               the persistent (force) and v1 (false) growers and the level
               path on 200k HIGGS rows, the bundled path on 100k Expo
               rows, Poisson on the persistent grower (counts of exp(latent
-              / 2)), and softmax and one-vs-all (3 classes, 2 iterations)
+              / 2)), and softmax and one-vs-all (3 classes, 1 iteration)
               on the persistent, level and v1 routes, L1 on the
               persistent and v1 growers, quantile at alpha 0.9 with
               sample weights, MAPE, cross_entropy on labels in [0, 1],
               cross_entropy_lambda with weights and reg_sqrt (the last
-              five on the persistent grower; these seven at 63 leaves):
-              equal tree
+              five on the persistent grower; these seven at 63 leaves);
+              lambdarank on the persistent and v1 growers and rank_xendcg
+              on v1, weighted, on 200k make_ltr_like rows in seeded
+              variable-length queries (63 leaves): equal tree
               structure, equal leaf values and equal model text; then
               early stopping (noisy labels, learning rate 0.5) on the
-              persist, v1 and softmax-persist routes: the same
-              best_iteration and trees, records within 1e-12 relative,
-              equal model text.
+              persist, v1 and softmax-persist routes and lambdarank on
+              ndcg@5 (persist; half the early-stopping rows, in
+              variable-length queries): the same best_iteration and trees,
+              records within 1e-12 relative, equal model text.
 
 The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
@@ -155,7 +190,8 @@ kernels, the card's name and power limit, and the result line
 (--rows, --iters, --v1-iters, --level-iters, --off-iters, --mc-iters,
 --reg-iters, --l1-iters, --expo-rows, --parity-rows, --expo-parity-rows,
 --parity-iters, --mc-parity-iters, --valid-rows, --expo-valid-rows,
---es-rows, --es-rounds, --skip-train, --skip-parity); the
+--es-rows, --es-rounds, --ltr-rows, --ltr-valid-rows, --ltr-iters,
+--xendcg-iters, --rank-parity-rows, --skip-train, --skip-parity); the
 defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
@@ -178,6 +214,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+H100_F64_OPS_PER_S = 34e12      # f64 outside the tensor cores (data sheet)
 T0 = time.time()
 
 
@@ -222,9 +259,11 @@ def device_ms(fn, reps: int = 20, warmup: int = 3,
                             for i in range(reps)]))
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, f64: bool = False):
+    """The least time for `nbytes` moved and `ops` operations (f32, or f64
+    with `f64`): (ms, what bounds it)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    t_ops = ops / (H100_F64_OPS_PER_S if f64 else H100_F32_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -339,8 +378,6 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
     in by the train phase)."""
     import torch
     from lightgbm_torch.ops.histogram import hist_window, hist_window_plain
-    from lightgbm_torch.ops.scan import (ScanLayout, pair_scalars, scan_pair,
-                                         scan_pair_plain)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     R = min(1_000_000, binned.shape[0])
@@ -399,7 +436,26 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
         del full, gf
         torch.cuda.empty_cache()
 
-    # ---- scan_pair at B=2 on real child histograms --------------------
+    return [
+        {"name": "hist_window", "route": "cuda",
+         "source": "lightgbm_torch/csrc/hist_window.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
+         "launches": 0, "max_abs_err": max(err_h, err_r), "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": library_ms},
+        check_scan_pair(bins, grad, hess, R, meta, gc, params)]
+
+
+def check_scan_pair(bins, grad, hess, R, meta, gc, params):
+    """scan_pair at B = 2 on real child histograms (hist_window of rows
+    [0, R/3) and [R/3, R)) against its plain version, timed; returns its
+    kernel record."""
+    import torch
+    from lightgbm_torch.ops.histogram import hist_window
+    from lightgbm_torch.ops.scan import (ScanLayout, pair_scalars, scan_pair,
+                                         scan_pair_plain)
+    dev = bins.device
+    G, W = bins.shape[1], gc.hist_width
     # the two children sit at rows 5 and 2 of the grower's [L, TB] planes;
     # the kernel reads them through rows and the layout's gidx
     layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
@@ -476,21 +532,13 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
         "PyTorch call computes it; launch floor (an empty kernel) %.4f ms; "
         "bound %.6f ms (%s)" % (s_ms, PREVIOUS_MS["scan_pair"], old_ms,
                                 s_plain, floor_ms, s_bound, s_by))
-    return [
-        {"name": "hist_window", "route": "cuda",
-         "source": "lightgbm_torch/csrc/hist_window.cu",
-         "replaces": "lightgbm_tpu/ops/pallas_histogram.py:170",
-         "launches": 0, "max_abs_err": max(err_h, err_r), "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-         "library_ms": library_ms},
-        {"name": "scan_pair", "route": "cuda",
-         "source": "lightgbm_torch/csrc/scan_pair.cu",
-         "replaces": "lightgbm_tpu/ops/pallas_scan.py:262",
-         "launches": 0, "max_abs_err": err_s, "ms": s_ms,
-         "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None, "launch_floor_ms": floor_ms,
-         "gathers_and_kernel_ms": old_ms},
-    ]
+    return {"name": "scan_pair", "route": "cuda",
+            "source": "lightgbm_torch/csrc/scan_pair.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_scan.py:262",
+            "launches": 0, "max_abs_err": err_s, "ms": s_ms,
+            "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
+            "library_ms": None, "launch_floor_ms": floor_ms,
+            "gathers_and_kernel_ms": old_ms}
 
 
 def phase_grow_step():
@@ -1692,6 +1740,19 @@ PATHS["regression"] = ({"objective": "regression", "num_leaves": 255,
 PATHS["l1"] = ({"objective": "regression_l1", "num_leaves": 255,
                 "tpu_persist_scan": "auto"},
                PATHS["persist"][1] + ("renew_leaf",), PATHS["persist"][2])
+# MSLR lambdarank (bench_full.py:101-120: MSLR-WEB30K's width, truncation
+# level 30; the per-split persistent grower, the pairwise lambdas in its
+# graph) and rank_xendcg on the same rows (the v1 grower)
+LTR = {"objective": "lambdarank", "num_leaves": 255,
+       "lambdarank_truncation_level": 30}
+RANK_PATHS = ("ltr", "xendcg")
+V1_PATHS = ("v1", "xendcg")
+PATHS["ltr"] = (dict(LTR, tpu_persist_scan="auto"),
+                PATHS["persist"][1] + ("lambdarank_grad",),
+                PATHS["persist"][2] + ("xendcg_grad",))
+PATHS["xendcg"] = (dict(LTR, objective="rank_xendcg", tpu_persist_scan="auto"),
+                   PATHS["v1"][1] + ("xendcg_grad",),
+                   PATHS["v1"][2] + ("lambdarank_grad",))
 # the kernels whose launches a Python counter counts (they run eagerly on
 # every path); every other kernel of the paths counts its launches on the
 # device (ops/counters.py), replays of a CUDA graph included
@@ -1749,14 +1810,20 @@ def expected_launches(bst, trees):
     split (grow_root and the root's assembly once per tree without a level
     phase), one consolidate per tree with a leaf at an odd depth and one
     score update per tree with a split; with leaf renewal one renew_leaf
-    per tree with a split, on either grower. Returns (counts, per-tree
-    (level programs, per-split splits))."""
+    per tree with a split, on either grower; with a ranking objective its
+    gradient kernel once per iteration. Returns (counts, per-tree (level
+    programs, per-split splits))."""
     nodes = sum(t.num_leaves for t in trees)
     renew = sum(t.num_leaves > 1 for t in trees) \
         if bst._booster.objective.is_renew_tree_output else 0
+    # a ranking objective's gradient pass: once per iteration
+    grad = {"lambdarank": "lambdarank_grad", "rank_xendcg": "xendcg_grad"}
+    rank = {grad[bst._booster.objective.name]: len(trees)
+            // bst._booster.num_tree_per_iteration} \
+        if bst._booster.objective.name in grad else {}
     if not bst._booster.use_persist:
-        return {"hist_window": nodes, "scan_pair": nodes,
-                "renew_leaf": renew}, []
+        return dict({"hist_window": nodes, "scan_pair": nodes,
+                     "renew_leaf": renew}, **rank), []
     gr = bst._booster.tree_learner._persist_gr
     stats = gr.grow_stats
     if len(stats) != len(trees):
@@ -1775,7 +1842,7 @@ def expected_launches(bst, trees):
             "grow_root": roots, "grow_pick": fb, "grow_commit": fb,
             "grow_planes": fb, "grow_assemble": fb + roots,
             "apply_scores": sum(t.num_leaves > 1 for t in trees),
-            "renew_leaf": renew}, stats
+            "renew_leaf": renew, **rank}, stats
 
 
 def model_digest(bst, num_iteration=None) -> str:
@@ -1898,27 +1965,52 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
     extra, used, unused = PATHS[path]
     params = dict(COMMON, **extra)
     y_d = torch.as_tensor(y, device="cuda")
-    reset_counts()
-    torch.cuda.synchronize()
     wall, losses, kept, walls = 0.0, [], None, []
     loss_name, loss = LOSSES.get(path, ("logloss", logloss))
+    if path in RANK_PATHS:
+        # NDCG@10 of the device scores in numpy: it must rise
+        md = ds._inner.metadata
+        ndcg10 = np_ndcg(md.label.astype(np.float64), md.query_boundaries,
+                         [10])
+        loss_name = "ndcg@10"
+
+        def loss(_y, sc):
+            return ndcg10(sc.cpu().numpy())[0]
+    draws = []
+    if path == "xendcg":
+        # record each iteration's uniform draws (check_xendcg_draws)
+        from lightgbm_torch.objectives.rank import RankXENDCG
+        next_floats = RankXENDCG._next_floats
+
+        def recorded(self):
+            draws.append(next_floats(self))
+            return draws[-1]
+        RankXENDCG._next_floats = recorded
+    reset_counts()
+    torch.cuda.synchronize()
     bst = None
-    for i in range(iters):
-        t = time.time()
-        if bst is None:
-            bst = lgb.train(params, ds, 1)
-        else:
-            bst.update()
-        torch.cuda.synchronize()
-        walls.append(time.time() - t)
-        wall += walls[-1]
-        score = bst._booster.train_score.score
-        losses.append(loss(y_d, score))
-        if i + 1 == off_iters:
-            kept = score.cpu().numpy()
-    counts = read_counts()
+    try:
+        for i in range(iters):
+            t = time.time()
+            if bst is None:
+                bst = lgb.train(params, ds, 1)
+            else:
+                bst.update()
+            torch.cuda.synchronize()
+            walls.append(time.time() - t)
+            wall += walls[-1]
+            score = bst._booster.train_score.score
+            losses.append(loss(y_d, score))
+            if i + 1 == off_iters:
+                kept = score.cpu().numpy()
+        counts = read_counts()
+    finally:
+        if path == "xendcg":
+            RankXENDCG._next_floats = next_floats
     digest = model_digest(bst)
-    if bst._booster.use_persist != (path != "v1"):
+    if path == "xendcg":
+        check_xendcg_draws(bst, draws, iters)
+    if bst._booster.use_persist != (path not in V1_PATHS):
         raise AssertionError("train %s: the learner took the wrong grower "
                              "(use_persist=%s)"
                              % (path, bst._booster.use_persist))
@@ -1972,7 +2064,11 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
             % (path, stats))
     log("train %s: %s per iteration (device scores) %s"
         % (path, loss_name, ["%.6f" % v for v in losses]))
-    if not all(b < a for a, b in zip(losses, losses[1:])):
+    if path in RANK_PATHS:
+        if not losses[-1] > losses[0]:
+            raise AssertionError("training %s after the last iteration is "
+                                 "not above the first's" % loss_name)
+    elif not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError("training %s does not fall monotonically"
                              % loss_name)
     sub = X[:WALK_ROWS]
@@ -1983,7 +2079,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
     gap = float(np.abs(dev_score - raw).max())
     # v1 keeps f64 scores; the payload keeps f32 scores, each iteration
     # adding one rounded f32 product to a rounded f32 sum
-    tol = (1e-9 if path == "v1" else
+    tol = (1e-9 if path in V1_PATHS else
            2 * (len(trees) // K + 1) * 1.1920929e-07
            * max(1.0, np.abs(raw).max()))
     log("train %s: device scores vs numpy walk on the first %d rows, max abs "
@@ -1998,7 +2094,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         "raw scores" % path)
     if path == "l1":
         check_renewed_leaves(bst)
-    if keep is not None and path in ("persist", "l1"):
+    if keep is not None and path in ("persist", "l1", "ltr"):
         keep["iteration"] = profile_iteration(bst.update)
     if keep is not None and path == "l1":
         keep["bst"] = bst
@@ -2287,10 +2383,30 @@ def phase_renew_kernel(bst):
             "lanes": gr.n, "segments": S}
 
 
-def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain):
-    """The HIGGS valid path: the persist path's parameters and Dataset with
-    a held-out set binned against it, valid_sets=[train, valid],
-    metric=[binary_logloss, auc], early_stopping_rounds=5, evals_result.
+def np_eval_binary(lab, qb):
+    return lambda sc: {m: fn(lab, sc) for m, fn in NP_METRICS.items()}
+
+
+def np_eval_ndcg(lab, qb):
+    fn = np_ndcg(lab, qb, [1, 3, 5, 10])
+    return lambda sc: dict(zip(("ndcg@1", "ndcg@3", "ndcg@5", "ndcg@10"),
+                               fn(sc)))
+
+
+# a path with a held-out set: (its metric parameters, numpy's metrics by
+# record name: a function of (labels, query boundaries) that returns one of
+# the raw scores)
+VALID = {"persist": ({"metric": ["binary_logloss", "auc"]}, np_eval_binary),
+         "ltr": ({"metric": ["ndcg"], "eval_at": [1, 3, 5, 10]},
+                 np_eval_ndcg)}
+
+
+def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain, path="persist",
+                      gv=None):
+    """A valid path: the `path`'s parameters and Dataset with a held-out
+    set (query sizes `gv`) binned against it, valid_sets=[train, valid],
+    VALID's metrics (HIGGS: binary_logloss and auc; MSLR: ndcg at 1, 3, 5
+    and 10), early_stopping_rounds=5, evals_result.
     Gates: the model text equal to the persist path's after as many
     iterations (`plain`: phase_train's keep of that path); the graph
     captured once and replayed by every later iteration; valid_walk
@@ -2303,9 +2419,9 @@ def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain):
     Returns (launch counts, the first tree, the validation set's
     BinnedDataset)."""
     import torch
-    params = dict(COMMON, **PATHS["persist"][0],
-                  metric=["binary_logloss", "auc"])
-    dv = lgb.Dataset(Xv, yv, reference=ds, params=params)
+    metric_params, np_eval = VALID[path]
+    params = dict(COMMON, **PATHS[path][0], **metric_params)
+    dv = lgb.Dataset(Xv, yv, group=gv, reference=ds, params=params)
     rec, train_scores = {}, []
 
     def keep_scores(env):
@@ -2323,62 +2439,66 @@ def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain):
     wall = time.time() - t
     counts = read_counts()
     trees = bst._booster.models
-    n = len(rec["valid"]["auc"])
-    log("train valid: %d rows + a held-out set of %d rows, %d iterations "
+    n = len(next(iter(rec["valid"].values())))
+    tag = "valid" if path == "persist" else path + " valid"
+    log("train %s: %d rows + a held-out set of %d rows, %d iterations "
         "(best %d) in %.1f s with the evaluation and the numpy copies of "
         "the training scores, %d trees, leaves per tree %s"
-        % (ds.num_data(), len(yv), n, bst.best_iteration, wall, len(trees),
-           [t_.num_leaves for t_ in trees]))
+        % (tag, ds.num_data(), len(yv), n, bst.best_iteration, wall,
+           len(trees), [t_.num_leaves for t_ in trees]))
     want, _ = expected_launches(bst, trees)
     want["valid_walk"] = sum(t_.num_leaves > 1 for t_ in trees)
     bad = {k: (counts[k], want.get(k, 0)) for k in counts
            if counts[k] != want.get(k, 0)}
     if bad or not counts["valid_walk"]:
-        raise AssertionError("train valid: launch counts (got, expected) "
-                             "%s, all %s" % (bad, counts))
-    log("train valid: launches %s (valid_walk once per tree with a split: "
-        "%d)" % (counts, counts["valid_walk"]))
+        raise AssertionError("train %s: launch counts (got, expected) "
+                             "%s, all %s" % (tag, bad, counts))
+    log("train %s: launches %s (valid_walk once per tree with a split: "
+        "%d)" % (tag, counts, counts["valid_walk"]))
     digest = model_digest(bst, -1)
     if digest != plain["digests"][n]:
-        raise AssertionError("train valid: the model differs from the "
+        raise AssertionError("train %s: the model differs from the "
                              "persist path's after %d iterations (sha256 "
-                             "%s against %s)" % (n, digest,
+                             "%s against %s)" % (tag, n, digest,
                                                  plain["digests"][n]))
-    log("train valid: model digest %s, equal to the persist path's after "
-        "%d iterations (validation changes no tree)" % (digest, n))
+    log("train %s: model digest %s, equal to the persist path's after "
+        "%d iterations (validation changes no tree)" % (tag, digest, n))
     gr = bst._booster.tree_learner._persist_gr
     if gr.use_level or gr._graph is None or gr.replays != n - 2:
-        raise AssertionError("train valid: %d iterations, %s graph, %d "
-                             "replays" % (n, "a" if gr._graph else "no",
+        raise AssertionError("train %s: %d iterations, %s graph, %d "
+                             "replays" % (tag, n, "a" if gr._graph else "no",
                                           gr.replays))
-    log("train valid: the graph (%s nodes) captured at iteration 2 and "
+    log("train %s: the graph (%s nodes) captured at iteration 2 and "
         "replayed by the %d later iterations"
-        % (gr.graph_stats.get("nodes"), gr.replays))
+        % (tag, gr.graph_stats.get("nodes"), gr.replays))
     # every record against numpy, iteration by iteration
     raw = np.zeros(len(yv))
     y_train = ds._inner.metadata.label
+    evals = {"valid": np_eval(yv, dv._inner.metadata.query_boundaries),
+             "training": np_eval(y_train,
+                                 ds._inner.metadata.query_boundaries)}
     worst = 0.0
     for i in range(1, n + 1):
         raw = raw + trees[i - 1].predict(Xv)
-        for name, lab, sc in (("valid", yv, raw),
-                              ("training", y_train, train_scores[i - 1])):
-            for metric, fn in NP_METRICS.items():
-                want_v, got = fn(lab, sc), rec[name][metric][i - 1]
+        for name, sc in (("valid", raw), ("training", train_scores[i - 1])):
+            for metric, want_v in evals[name](sc).items():
+                got = rec[name][metric][i - 1]
                 rel = abs(got - want_v) / abs(want_v)
                 worst = max(worst, rel)
                 if not rel <= 1e-12:
                     raise AssertionError(
-                        "train valid: iteration %d %s %s recorded %r, numpy "
-                        "%r" % (i, name, metric, got, want_v))
+                        "train %s: iteration %d %s %s recorded %r, numpy "
+                        "%r" % (tag, i, name, metric, got, want_v))
     if not np.array_equal(raw, bst.predict(Xv, raw_score=True,
                                            num_iteration=n)):
-        raise AssertionError("train valid: the summed trees differ from "
-                             "predict(num_iteration=%d)" % n)
-    log("train valid: %d records x 2 sets x 2 metrics within %.3g relative "
+        raise AssertionError("train %s: the summed trees differ from "
+                             "predict(num_iteration=%d)" % (tag, n))
+    log("train %s: %d records x 2 sets x %d metrics within %.3g relative "
         "of numpy's metrics of predict(Xv, raw_score=True, num_iteration=i) "
-        "and of the training scores (limit 1e-12); valid logloss %s, auc %s"
-        % (n, worst, ["%.6f" % v for v in rec["valid"]["binary_logloss"]],
-           ["%.6f" % v for v in rec["valid"]["auc"]]))
+        "and of the training scores (limit 1e-12); valid %s"
+        % (tag, n, len(rec["valid"]), worst, "; ".join(
+            "%s %s" % (m, ["%.6f" % v for v in vals])
+            for m, vals in rec["valid"].items())))
     # one more iteration with its evaluation, as the engine runs it
     it = profile_iteration(lambda: (bst.update(),
                                     bst._evaluate(True, None)))
@@ -2386,21 +2506,22 @@ def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain):
     wall_ms, busy, rows, dtoh, htod = it
     p_wall, p_busy, _, _, _ = plain["iteration"]
     walk_ms = sum(ms for ms, _, key in rows if "valid_walk" in key)
-    log("train valid: one iteration with its evaluation %.1f ms wall, %.1f "
+    log("train %s: one iteration with its evaluation %.1f ms wall, %.1f "
         "ms busy, idle %.3f; the persist path's iteration %.1f / %.1f / "
         "%.3f; valid_walk %.3f ms of it, the evaluation alone %.2f ms busy "
         "(%.1f ms wall) (%s)"
-        % (wall_ms, busy, 1 - busy / wall_ms, p_wall, p_busy,
+        % (tag, wall_ms, busy, 1 - busy / wall_ms, p_wall, p_busy,
            1 - p_busy / p_wall, walk_ms, ev[1], ev[0], card))
-    log("train valid: the evaluation's device time by kernel: %s"
-        % "; ".join("%.2f ms / %d %s" % (ms, n_, key[:60])
-                    for ms, n_, key in ev[2][:6]))
-    log("train valid: device-to-host reads in that iteration: %d (the "
+    log("train %s: the evaluation's device time by kernel: %s"
+        % (tag, "; ".join("%.2f ms / %d %s" % (ms, n_, key[:60])
+                          for ms, n_, key in ev[2][:6])))
+    log("train %s: device-to-host reads in that iteration: %d (the "
         "trees, the metric values); host-to-device copies: %d (the persist "
-        "path's: %d, + the node arrays)" % (dtoh, htod, plain["htod"]))
+        "path's: %d, + the node arrays)" % (tag, dtoh, htod,
+                                              plain["htod"]))
     if dtoh != 2 or htod != plain["htod"] + 1:
-        raise AssertionError("train valid: %d reads and %d uploads in one "
-                             "iteration with validation" % (dtoh, htod))
+        raise AssertionError("train %s: %d reads and %d uploads in one "
+                             "iteration with validation" % (tag, dtoh, htod))
     first, vinner = trees[0], dv._inner
     del bst, train_scores
     torch.cuda.empty_cache()
@@ -2409,13 +2530,16 @@ def phase_train_valid(lgb, ds, Xv, yv, iters, card, plain):
 
 ES_ROUTES = (
     ("persist", {"objective": "binary", "num_leaves": 63,
-                 "tpu_persist_scan": "force"}, True),
+                 "tpu_persist_scan": "force"}, True, "binary"),
     ("v1", {"objective": "binary", "num_leaves": 63,
-            "tpu_persist_scan": "false"}, False),
+            "tpu_persist_scan": "false"}, False, "binary"),
     ("softmax persist", {"objective": "multiclass", "num_class": 3,
                          "metric": ["multi_logloss", "multi_error"],
                          "num_leaves": 31, "tpu_persist_scan": "force"},
-     True),
+     True, "multi"),
+    ("lambdarank persist", {"objective": "lambdarank", "metric": ["ndcg"],
+                            "eval_at": [5], "num_leaves": 63,
+                            "tpu_persist_scan": "force"}, True, "rank"),
 )
 
 
@@ -2425,15 +2549,16 @@ def phase_parity_es(lgb, data, rounds):
     early_stopping_rounds=3, at most `rounds` rounds; the same
     best_iteration and number of trees (the stop must fire), records
     within 1e-12 relative, equal model text."""
-    for route, extra, persist in ES_ROUTES:
-        X, y, Xv, yv = data["multi" if "num_class" in extra else "binary"]
+    for route, extra, persist, key in ES_ROUTES:
+        X, y, Xv, yv, *groups = data[key]
+        g, gv = groups or (None, None)
         out = {}
         for dev in ("cuda", "cpu"):
             p = dict(COMMON, learning_rate=0.5, **extra, device_type=dev)
             p.setdefault("metric", ["binary_logloss", "auc"])
             t = time.time()
-            dt = lgb.Dataset(X, y, params=p)
-            dv = lgb.Dataset(Xv, yv, reference=dt, params=p)
+            dt = lgb.Dataset(X, y, group=g, params=p)
+            dv = lgb.Dataset(Xv, yv, group=gv, reference=dt, params=p)
             rec = {}
             bst = lgb.train(p, dt, rounds, valid_sets=[dt, dv],
                             early_stopping_rounds=3, evals_result=rec,
@@ -2443,12 +2568,13 @@ def phase_parity_es(lgb, data, rounds):
                                      % (route, dev))
             out[dev] = (bst.best_iteration, bst.num_trees(), rec,
                         model_digest(bst, -1))
+            first = next(iter(rec["valid_1"]))
             log("parity es %s: %s stopped after %d rounds (best %d, %d "
-                "trees) in %.1f s" % (route, dev, len(rec["valid_1"][
-                    p["metric"][0]]), bst.best_iteration, bst.num_trees(),
-                    time.time() - t))
+                "trees) in %.1f s" % (route, dev, len(rec["valid_1"][first]),
+                                      bst.best_iteration, bst.num_trees(),
+                                      time.time() - t))
         (bc, tc, rc, dc), (bp, tp, rp, dp) = out["cuda"], out["cpu"]
-        if not 0 < bc < len(rc["valid_1"][p["metric"][0]]) < rounds:
+        if not 0 < bc < len(rc["valid_1"][first]) < rounds:
             raise AssertionError("parity es %s: early stopping did not fire "
                                  "(best %d)" % (route, bc))
         if (bc, tc) != (bp, tp) or dc != dp:
@@ -2489,13 +2615,15 @@ PROFILED = {
     "v1": (("hist_window", "hist_window_partial"),),
 }
 PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["l1"] = \
-    PROFILED["persist"]
+    PROFILED["ltr"] = PROFILED["persist"]
+PROFILED["xendcg"] = PROFILED["v1"]
 # the kernels of the port's own sources (csrc/); every other kernel in a
 # profile is PyTorch's (the gradient fills, copies, the score snapshot)
 OWN_KERNELS = ("payload_ordered_partial", "hist_window", "split_", "level_",
                "consolidate_copy", "gs_", "scan_pair", "scan_blocks",
                "seg_hist", "root_hist", "ordered_", "payload_hist_reduce",
-               "empty_launch", "renew_leaf")
+               "empty_launch", "renew_leaf", "lambdarank_grad",
+               "xendcg_grad")
 
 
 # the partition's kernels: count, scan and scatter of split_pass and
@@ -2696,6 +2824,14 @@ def phase_profile(bst, card, path):
             sum(n for _, n, _ in theirs),
             "; ".join("%.2f ms / %d %s" % (ms, n, key[:70])
                       for ms, n, key in theirs[:6])))
+    if path in RANK_PATHS:
+        rk = [(ms, n) for ms, n, key in rows
+              if key.removeprefix("void ").startswith(("lambdarank_grad",
+                                                      "xendcg_grad"))]
+        log("profile %s: the profiler saw the ranking gradient kernel %d "
+            "times, %.3f ms (a graph replay's first kernels can fall outside "
+            "its window; the kernel phase times it apart)"
+            % (path, sum(c for _, c in rk), sum(m for m, _ in rk)))
     if path == "l1":
         renew = [(ms, n) for ms, n, key in rows if "renew_leaf" in key]
         sorts = [(ms, n) for ms, n, key in rows if "sort" in key.lower()]
@@ -2757,24 +2893,40 @@ PARITY = (
         ("cross_entropy_lambda weighted", "higgs-01-w",
          {"objective": "cross_entropy_lambda"}),
         ("reg_sqrt persist", "higgs-abs", {"objective": "regression",
-                                           "reg_sqrt": True})))
+                                           "reg_sqrt": True}))) + tuple(
+    # ranking, weighted, on make_ltr_like rows in variable-length queries
+    ("%s %s weighted" % (obj, route), "ltr-w",
+     {"objective": obj, "num_leaves": 63,
+      "tpu_persist_scan": "force" if route == "persist" else "false"},
+     (route == "persist", False, False))
+    for obj, route in (("lambdarank", "persist"), ("lambdarank", "v1"),
+                       ("rank_xendcg", "v1")))
 
 
 def phase_parity(lgb, data, iters, mc_iters):
     """Each path on cuda and on the CPU grows the same trees, with the same
     leaf values and the same model text (sha256 without the parameters).
-    `data` maps a PARITY data name to (X, y); the multiclass paths train
-    `mc_iters` iterations (3 trees each), the others `iters`."""
+    `data` maps a PARITY data name to (X, y), (X, y, weights) or (X, y,
+    weights or None, query sizes); the multiclass paths train `mc_iters`
+    iterations (3 trees each), the others `iters`."""
+    built = {}
     for path, name, extra, (persist, level, blocks) in PARITY:
-        X, y, *w = data[name]
+        X, y, *rest = data[name]
+        w = rest[0] if rest else None
+        g = rest[1] if len(rest) > 1 else None
         params = dict(COMMON, **extra)
         n_it = mc_iters if params.get("num_class", 1) > 1 else iters
         out, digest = {}, {}
         for dev in ("cuda", "cpu"):
             p = dict(params, device_type=dev)
             t = time.time()
-            bst = lgb.train(p, lgb.Dataset(X, y, weight=w[0] if w else None,
-                                           params=p), n_it)
+            ds = built.get((name, dev)) or lgb.Dataset(
+                X, y, weight=w, group=g, params=p)
+            if g is not None:
+                # the ranking paths share one binned Dataset per device
+                # (137 features take seconds to bin)
+                built[(name, dev)] = ds
+            bst = lgb.train(p, ds, n_it)
             if bst._booster.use_persist != persist:
                 raise AssertionError("parity %s: wrong grower on %s"
                                      % (path, dev))
@@ -2818,6 +2970,421 @@ def phase_parity(lgb, data, iters, mc_iters):
             % (path, X.shape[0], n_it, len(a), digest["cuda"][:16]))
 
 
+# ---- learning to rank (MSLR-WEB30K's shape) --------------------------------
+
+# rows of the variable-length query set of the ranking kernel checks
+LONG_ROWS = 50_000
+# queries of the MSLR shape held against the plain versions on the CPU
+CPU_QUERIES = 4000
+# f64 operations of one pair of unequal labels in lambdarank_grad's pair
+# loop (csrc/rank_grad.cu:pair_terms and the two sums; exp and each
+# division counted as one)
+PAIR_OPS = 22
+
+
+def np_ndcg(label, qb, ks):
+    """fn(score) -> [NDCG@k for k in ks] in numpy (the JAX package's
+    metrics/rank.py:NDCGMetric, unweighted, default label gains, an
+    all-negative query counting 1): each query's rows by descending score,
+    ties in row order (one stable lexsort), DCG over the first k, over the
+    max DCG of its descending labels (computed once)."""
+    from lightgbm_torch.metrics.dcg import _DISCOUNT_CACHE
+    gain_of = np.power(2.0, np.arange(32)) - 1.0
+    counts = np.diff(qb)
+    Q = len(counts)
+    qid = np.repeat(np.arange(Q), counts)
+    rank = np.arange(len(label)) - np.repeat(qb[:-1], counts)
+    lab = label.astype(np.int64)
+    by_label = np.lexsort((-lab, qid))
+    disc = {k: np.where(rank < k, _DISCOUNT_CACHE[np.minimum(rank, 65535)],
+                        0.0) for k in ks}
+    best = {k: np.bincount(qid, weights=gain_of[lab[by_label]] * disc[k],
+                           minlength=Q) for k in ks}
+
+    def fn(score):
+        by_score = np.lexsort((-score + 0.0, qid))
+        out = []
+        for k in ks:
+            dcg = np.bincount(qid, weights=gain_of[lab[by_score]] * disc[k],
+                              minlength=Q)
+            per = np.where(best[k] > 0.0,
+                           dcg / np.where(best[k] > 0.0, best[k], 1.0), 1.0)
+            out.append(float(np.sum(per)) / Q)
+        return out
+    return fn
+
+
+def rank_sizes(n, seed, longest=1250):
+    """Seeded query sizes adding up to n: a few one-document queries, then
+    sizes from 1 to 200, every 40th from longest - 225 to `longest` (at the
+    default, past the ranking kernel's 1024 rows of shared memory)."""
+    rng = np.random.default_rng(seed)
+    sizes = [1, 1, 2]
+    total = 4
+    while total < n:
+        s = (int(rng.integers(max(1, longest - 225), longest + 1))
+             if len(sizes) % 40 == 0 else int(rng.integers(1, 201)))
+        sizes.append(min(s, n - total))
+        total += sizes[-1]
+    return np.asarray(sizes, dtype=np.int64)
+
+
+def rank_objective(lgb, name, y, group, extra=None):
+    """The port's ranking objective `name` initialised on labels `y` and
+    query sizes `group` (its main-path inputs)."""
+    from types import SimpleNamespace
+    from lightgbm_torch.objectives import create_objective
+    cfg = lgb.Config(dict(LTR, objective=name, **(extra or {})))
+    qb = np.concatenate([[0], np.cumsum(group)]).astype(np.int32)
+    md = SimpleNamespace(label=y.astype(np.float32), weight=None,
+                         query_boundaries=qb, num_queries=len(group))
+    obj = create_objective(cfg.objective, cfg)
+    obj.init(md, len(y))
+    return obj, qb
+
+
+def check_near_cpu(name, k, c):
+    """The kernel against its plain version on the CPU: equal, except where
+    the card's f64 exp or log2 rounds its last bit unlike the host's, which
+    moves an f32 result by at most one ulp; at most 1 value in 10^5 may
+    differ so. Returns (the count of unequal values, the max abs diff)."""
+    a, b = k.cpu().numpy(), c.cpu().numpy()
+    ne = a != b
+    if not ne.any():
+        return 0, 0.0
+    gap = np.abs(a[ne] - b[ne])
+    worst = float((gap / np.spacing(np.maximum(np.abs(a[ne]),
+                                               np.abs(b[ne])))).max())
+    if ne.sum() > max(1, k.numel() // 100_000) or worst > 1.0:
+        raise AssertionError("%s: %d values differ from the plain version "
+                             "on the CPU, up to %.3g f32 ulps"
+                             % (name, int(ne.sum()), worst))
+    return int(ne.sum()), float(gap.max())
+
+
+def phase_rank_kernels(lgb, y, group):
+    """lambdarank_grad and xendcg_grad against their plain versions: at the
+    MSLR shape (`group`: 31,095 queries of 73 rows over make_ltr_like's
+    labels) and on LONG_ROWS of the same labels cut into variable-length
+    queries up to 1250 rows (rank_sizes; the longest past the kernel's
+    shared memory), without and with f32 weights. Two launches equal, equal
+    to the plain version on the card bit for bit (the same exp and log2),
+    and to the plain version on the CPU over the first CPU_QUERIES queries
+    (check_near_cpu). Timed at the
+    MSLR shape beside the plain version on the card and the bound (bytes
+    read and written once; f64 operations: PAIR_OPS per pair of unequal
+    labels and one comparison per (row, row) of a query for the ranks, over
+    the card's f64 rate). No single PyTorch call computes either.
+    Returns their two kernel records."""
+    import torch
+    from lightgbm_torch.ops.rank import (QueryPlan, lambdarank_grad,
+                                         lambdarank_grad_plain, xendcg_grad,
+                                         xendcg_grad_plain)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    n = len(y)
+    score = np.round(rng.normal(size=n) * 2.0, 2)
+    score[rng.random(n) < 0.05] = 0.0
+    score[rng.random(n) < 0.05] = -0.0
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    rnd = (rng.integers(0, 32768, n) / 32768.0).astype(np.float64)
+    L = min(LONG_ROWS, n)
+    sets = {"MSLR": (y, group), "long": (y[:L], rank_sizes(L, 43))}
+    recs = {}
+    lr_cpu_ne = xe_cpu_ne = 0
+    lr_err = xe_err = 0.0
+    for label, (yy, gg) in sets.items():
+        obj, qb = rank_objective(lgb, "lambdarank", yy, gg)
+        m = len(yy)
+        on = {d: {"score": torch.as_tensor(score[:m], device=d),
+                  "w": torch.as_tensor(w[:m], device=d),
+                  "rnd": torch.as_tensor(rnd[:m], device=d)}
+              for d in ("cuda", "cpu")}
+        counts = np.diff(qb).astype(np.int64)
+        # the CPU holds the first CPU_QUERIES queries (queries are
+        # independent: their rows' values are the whole run's)
+        qc = min(CPU_QUERIES, len(counts))
+        mc = int(qb[qc])
+        cplan = QueryPlan(qb[:qc + 1], "cpu")
+        for weighted in (False, True):
+            t = time.time()
+            ww = on["cuda"]["w"] if weighted else None
+            args = {"card": (on["cuda"]["score"], obj._on("cuda", "_lab"),
+                             obj._on("cuda", "_gain"),
+                             obj._on("cuda", "inverse_max_dcgs"),
+                             obj._on("cuda", "_disc"), ww, obj.plan("cuda"),
+                             obj.sigmoid, obj.norm),
+                    "host": (on["cpu"]["score"][:mc],
+                            obj._on("cpu", "_lab")[:mc],
+                            obj._on("cpu", "_gain")[:mc],
+                            obj._on("cpu", "inverse_max_dcgs")[:qc],
+                            obj._on("cpu", "_disc"),
+                            on["cpu"]["w"][:mc] if weighted else None,
+                            cplan, obj.sigmoid, obj.norm)}
+            k1 = lambdarank_grad(*args["card"])
+            k2 = lambdarank_grad(*args["card"])
+            pg = torch.empty(m, dtype=torch.float32, device=dev)
+            ph = torch.empty_like(pg)
+            lambdarank_grad_plain(*args["card"], pg, ph)
+            torch.cuda.synchronize()
+            what = "lambdarank_grad %s %s" % (label, "weighted" if weighted
+                                             else "unweighted")
+            _same(what + ": two launches", k1, k2)
+            _same(what + " vs the plain version on the card", k1, (pg, ph))
+            c = lambdarank_grad(*args["host"])
+            near = [check_near_cpu(what + " " + x, k1[i][:mc], c[i])
+                    for i, x in enumerate(("grad", "hess"))]
+            ne = sum(x[0] for x in near)
+            lr_cpu_ne += ne
+            lr_err = max([lr_err] + [x[1] for x in near])
+            if not all(bool(torch.isfinite(t_).all()) for t_ in k1):
+                raise AssertionError(what + ": a non-finite gradient")
+            log("%s: %d queries (longest %d) over %d rows: two launches "
+                "bit-identical, bit-identical to the plain version on the "
+                "card; on the CPU (the first %d queries) %d of %d values "
+                "one f32 ulp off (%.1f s with the plain versions)"
+                % (what, len(counts), counts.max(), m, qc, ne, 2 * mc,
+                   time.time() - t))
+            if label == "MSLR" or weighted:
+                ms = device_ms(lambda: lambdarank_grad(*args["card"]))
+                recs[("lambdarank_grad", label, weighted)] = ms
+            if label == "MSLR" and not weighted:
+                plain_ms = device_ms(lambda: lambdarank_grad_plain(
+                    *args["card"], pg, ph), reps=3, warmup=1)
+                labs = obj._lab.astype(np.int64)
+                qid = np.repeat(np.arange(len(counts)), counts)
+                per = np.bincount(qid * 32 + labs,
+                                  minlength=len(counts) * 32) \
+                    .reshape(-1, 32).astype(np.float64)
+                pairs = float(((counts.astype(np.float64) ** 2
+                                - (per ** 2).sum(1)) / 2).sum())
+                cmps = float((counts.astype(np.float64) ** 2).sum())
+                nbytes = m * (8 + 4 + 8 + 8) + len(counts) * (8 + 4) \
+                    + 8 * counts.max()
+                lr_bound = bound_ms(nbytes, PAIR_OPS * pairs + cmps,
+                                    f64=True)
+                lr_plain, lr_pairs = plain_ms, pairs
+                log("lambdarank_grad MSLR: %d pairs of unequal labels (of "
+                    "%d), %d rank comparisons; median time per call: "
+                    "kernel %.4f ms, plain %.3f ms (on the card), no single "
+                    "PyTorch call computes it; bound %.4f ms (%s)"
+                    % (pairs, float((counts * (counts - 1) // 2).sum()),
+                       cmps, ms, plain_ms, lr_bound[0], lr_bound[1]))
+            # xendcg_grad on the same queries and draws
+            xa = {"card": (on["cuda"]["score"], obj._on("cuda", "label"),
+                           on["cuda"]["rnd"], ww, obj.plan("cuda")),
+                  "host": (on["cpu"]["score"][:mc],
+                          obj._on("cpu", "label")[:mc],
+                          on["cpu"]["rnd"][:mc],
+                          on["cpu"]["w"][:mc] if weighted else None, cplan)}
+            x1 = xendcg_grad(*xa["card"])
+            x2 = xendcg_grad(*xa["card"])
+            xg = torch.empty(m, dtype=torch.float32, device=dev)
+            xh = torch.empty_like(xg)
+            xendcg_grad_plain(*xa["card"], xg, xh)
+            torch.cuda.synchronize()
+            what = "xendcg_grad %s %s" % (label, "weighted" if weighted
+                                         else "unweighted")
+            _same(what + ": two launches", x1, x2)
+            _same(what + " vs the plain version on the card", x1, (xg, xh))
+            c = xendcg_grad(*xa["host"])
+            near = [check_near_cpu(what + " " + x, x1[i][:mc], c[i])
+                    for i, x in enumerate(("grad", "hess"))]
+            ne = sum(x[0] for x in near)
+            xe_cpu_ne += ne
+            xe_err = max([xe_err] + [x[1] for x in near])
+            log("%s: two launches bit-identical, bit-identical to the plain "
+                "version on the card; on the CPU (the first %d queries) %d of "
+                "%d values one f32 ulp off" % (what, qc, ne, 2 * mc))
+            if label == "MSLR" and not weighted:
+                xe_ms = device_ms(lambda: xendcg_grad(*xa["card"]))
+                xe_plain = device_ms(lambda: xendcg_grad_plain(
+                    *xa["card"], xg, xh), reps=3, warmup=1)
+                xe_bound = bound_ms(m * (8 + 4 + 8 + 8) + len(counts) * 4,
+                                    30.0 * m, f64=True)
+                log("xendcg_grad MSLR: median time per call: kernel %.4f "
+                    "ms, plain %.3f ms (on the card), no single PyTorch call "
+                    "computes it; bound %.4f ms (%s)"
+                    % (xe_ms, xe_plain, xe_bound[0], xe_bound[1]))
+        del on, args, xa, k1, k2, x1, x2, pg, ph, xg, xh, c
+        torch.cuda.empty_cache()
+    lr = {"name": "lambdarank_grad", "route": "cuda",
+          "source": "lightgbm_torch/csrc/rank_grad.cu",
+          "replaces": "lightgbm_tpu/objectives/rank.py:120 (one_query, "
+                      "jnp; no Pallas kernel)",
+          "launches": 0, "max_abs_err": lr_err,
+          "ms": recs[("lambdarank_grad", "MSLR", False)],
+          "plain_ms": lr_plain, "bound_ms": lr_bound[0],
+          "bound_by": lr_bound[1], "library_ms": None,
+          "weighted_ms": recs[("lambdarank_grad", "MSLR", True)],
+          "long_weighted_ms": recs[("lambdarank_grad", "long", True)],
+          "pairs": lr_pairs, "cpu_unequal": lr_cpu_ne}
+    xe = {"name": "xendcg_grad", "route": "cuda",
+          "source": "lightgbm_torch/csrc/rank_grad.cu",
+          "replaces": "lightgbm_tpu/objectives/rank.py:383 (grad_fn, jnp; "
+                      "no Pallas kernel)",
+          "launches": 0, "max_abs_err": xe_err, "ms": xe_ms,
+          "plain_ms": xe_plain, "bound_ms": xe_bound[0],
+          "bound_by": xe_bound[1], "library_ms": None,
+          "cpu_unequal": xe_cpu_ne}
+    return [lr, xe]
+
+
+def phase_mslr_kernels(inner, meta, gc, params):
+    """The payload kernels at G = 137 (the MSLR shape): root_hist over 1M
+    lanes, seg_hist and split_pass on a 500k-lane segment from an unaligned
+    lane, each against its plain version on the CPU bit for bit and two
+    launches equal (root_hist and seg_hist also against the ownership
+    witness), timed; then scan_pair over the 137 features (check_scan_pair).
+    Returns {kernel name: its MSLR numbers}."""
+    import torch
+    from lightgbm_torch.ops import payload_kernels as pk
+    from lightgbm_torch.ops.payload import build_assets
+    dev = torch.device("cuda")
+    t = time.time()
+    assets = build_assets(inner, inner.metadata.label)
+    WPA, NP, G, plan, nbw, n = assets.geometry[:6]
+    rng = np.random.default_rng(5)
+    host = assets.pay0.view(np.int32)
+    host[nbw + 2, :n] = rng.normal(size=n).astype(np.float32).view(np.int32)
+    host[nbw + 3, :n] = rng.uniform(0.05, 0.25, n).astype(np.float32) \
+        .view(np.int32)
+    cpu = torch.from_numpy(host)
+    pay = cpu.to(dev)
+    plan_c, plan_d = pk.plan_tensor(plan, "cpu"), pk.plan_tensor(plan, dev)
+    wp_live = nbw + 5
+    log("payload MSLR: [%d, %d] int32, %d groups in %d bin words, built "
+        "and uploaded in %.1f s" % (WPA, NP, G, nbw, time.time() - t))
+    out = {}
+    # root_hist over the first 1M lanes (its CPU plain version takes
+    # seconds a million lanes at 137 groups), the others over 500k
+    _, ms, lib_ms, b_ms, _ = check_root_hist(pay, cpu, plan, nbw,
+                                             min(n, 1_000_000), "MSLR")
+    out["root_hist"] = {"mslr_ms": ms, "mslr_bound_ms": b_ms,
+                        "mslr_library_ms": lib_ms}
+    R = min(500_000, n - 777)
+    args = (nbw, 777, R)
+    k1 = pk.seg_hist(pay, plan_d, *args)
+    _same("seg_hist MSLR: two launches", k1, pk.seg_hist(pay, plan_d, *args))
+    _same("seg_hist MSLR vs the ownership routine", k1,
+          ownership_hist(pay, plan_d, *args))
+    _same("seg_hist MSLR vs the plain version on the CPU", k1,
+          pk.seg_hist_plain(cpu, plan_c, *args))
+    ms = device_ms(seg_hist_dev(pay, plan_d, nbw, 777, R, n))
+    b_ms = bound_ms(R * (4 * nbw + 8) + 2 * G * 256 * 4, 2.0 * R * G)[0]
+    lib_ms = library_hist_segments(pay, plan, nbw, [(777, R)])
+    log("seg_hist MSLR, %d lanes x %d groups from lane 777: two launches "
+        "bit-identical, equal to the ownership routine and to the plain "
+        "version on the CPU; kernel %.4f ms (device form), index_add_ %.4f "
+        "ms; bound %.4f ms" % (R, G, ms, lib_ms, b_ms))
+    out["seg_hist"] = {"mslr_ms": ms, "mslr_bound_ms": b_ms,
+                       "mslr_library_ms": lib_ms}
+    del k1
+    scal = split_scalars(assets, inner, 0, 777, R, 1, 1)
+    end = 777 + R + 1024
+    second0 = sentinel((wp_live, NP), dev, 11)
+    d1, d2 = second0.clone(), second0.clone()
+    n1, _ = pk.split_pass(pay, d1, scal, plan_d, nbw, wp_live, False)
+    n2, _ = pk.split_pass(pay, d2, scal, plan_d, nbw, wp_live, False)
+    torch.cuda.synchronize()
+    if n1 != n2:
+        raise AssertionError("split_pass MSLR: n_left %d and %d" % (n1, n2))
+    _same("split_pass MSLR: two launches", d1, d2)
+    _same("split_pass MSLR: the source", pay, cpu)
+    same_outside("split_pass MSLR", d1, second0, [(777, R)], wp_live)
+    dst_c = second0[:, :end].cpu().contiguous()
+    p_left, _ = pk.split_pass(cpu[:, :end].clone(), dst_c, scal, plan_c, nbw,
+                              wp_live, False)
+    if p_left != n1:
+        raise AssertionError("split_pass MSLR: n_left %d on the card, %d in "
+                             "the plain version" % (n1, p_left))
+    _same("split_pass MSLR vs the plain version on the CPU", d1[:, :end],
+          dst_c)
+    scal_d = torch.tensor(scal, dtype=torch.int32, device=dev)
+    res = torch.empty(3, dtype=torch.int64, device=dev)
+    work = pk.split_scratch(pay)
+    ms = device_ms(lambda: pk._launch_split(pay, d1, scal_d, res, wp_live,
+                                            work))
+    b_ms = bound_ms(2.0 * wp_live * R * 4, float(R))[0]
+    log("split_pass MSLR, %d lanes at wp_live %d (n_left %d): two launches "
+        "bit-identical, bit-identical to the plain version on the CPU, the "
+        "source and everything outside the segment untouched; kernel %.4f "
+        "ms (device form); bound %.4f ms" % (R, wp_live, n1, ms, b_ms))
+    out["split_pass"] = {"mslr_ms": ms, "mslr_bound_ms": b_ms}
+    del pay, cpu, host, assets, second0, d1, d2, dst_c, work
+    torch.cuda.empty_cache()
+    # scan_pair over the 137 features' windows, on children of 300k rows
+    R = min(300_000, n)
+    bins = torch.as_tensor(np.ascontiguousarray(inner.binned[:R]),
+                           device=dev)
+    grad = torch.as_tensor(rng.normal(size=R).astype(np.float32), device=dev)
+    hess = torch.as_tensor(rng.uniform(0.05, 0.25, R).astype(np.float32),
+                           device=dev)
+    rec = check_scan_pair(bins, grad, hess, R, meta, gc, params)
+    out["scan_pair"] = {"mslr_ms": rec["ms"], "mslr_bound_ms": rec["bound_ms"]}
+    return out
+
+
+def lcg_replay(qb, seed, iters):
+    """The reference's per-query LCG (include/LightGBM/utils/random.h:101-
+    110; query q seeded with seed + q) replayed sequentially, position by
+    position over all queries at once: [iters, n] NextFloat() draws."""
+    counts = np.diff(qb).astype(np.int64)
+    x = (np.uint64(seed) + np.arange(len(counts), dtype=np.uint64)) \
+        & np.uint64(0xFFFFFFFF)
+    out = np.zeros((iters, int(qb[-1])))
+    for it in range(iters):
+        for j in range(int(counts.max())):
+            live = counts > j
+            x[live] = (np.uint64(214013) * x[live] + np.uint64(2531011)) \
+                & np.uint64(0xFFFFFFFF)
+            v = ((x[live] >> np.uint64(16)) & np.uint64(0x7FFF)) \
+                .astype(np.float32) / np.float32(32768.0)
+            out[it, qb[:-1][live] + j] = v
+    return out
+
+
+def check_xendcg_draws(bst, draws, iters):
+    """The rank_xendcg path's draws: one get_gradients call per iteration,
+    each iteration's draws bit-equal to a sequential replay of the LCG."""
+    obj = bst._booster.objective
+    if len(draws) != iters:
+        raise AssertionError("train xendcg: %d draws for %d iterations"
+                             % (len(draws), iters))
+    want = lcg_replay(obj.query_boundaries, obj.seed, iters)
+    for i, d in enumerate(draws):
+        if not np.array_equal(d, want[i]):
+            raise AssertionError("train xendcg: iteration %d's draws differ "
+                                 "from the LCG replay" % (i + 1))
+    log("train xendcg: %d iterations drew %d x %d uniforms, one "
+        "get_gradients call each, bit-equal to a sequential numpy replay of "
+        "the reference's per-query LCG (seed %d)"
+        % (iters, iters, want.shape[1], obj.seed))
+
+
+def ltr_data(n, seed, noise=0.0):
+    """make_ltr_like(n) rows (137 features, labels 0-4) and its 73-row
+    queries; with `noise`, that share of the labels redrawn."""
+    from lightgbm_torch.data.synth import make_ltr_like
+    X, y, g = make_ltr_like(n, seed=seed)
+    if noise:
+        rng = np.random.default_rng(seed + 100)
+        flip = rng.random(len(y)) < noise
+        y[flip] = rng.integers(0, 5, int(flip.sum()))
+    return X, y, g
+
+
+def ltr_split(n, n_valid, seed, noise=0.0):
+    """(X, y, group, Xv, yv, group_v): make_ltr_like(n + n_valid) cut after
+    its first n // 73 queries. make_ltr_like draws its relevance weights
+    from its seed, so a held-out set is cut from the same draw, not drawn
+    with another seed (that would be another ranking task)."""
+    X, y, g = ltr_data(n + n_valid, seed, noise)
+    q = n // 73
+    m = int(g[:q].sum())
+    return X[:m], y[:m], g[:q], X[m:], y[m:], g[q:]
+
+
 def held_out_higgs(n):
     """A held-out HIGGS set: make_higgs_like(n, seed=17) with 5% of its
     values NaN (rows the training set never showed)."""
@@ -2830,8 +3397,14 @@ def held_out_higgs(n):
 def es_data(n):
     """The early-stopping parity data: HIGGS rows and a held-out quarter,
     binary labels with 30% flipped and 3 latent classes with 30% redrawn,
-    so that the held-out loss turns within a few rounds."""
+    so that the held-out loss turns within a few rounds; make_ltr_like
+    rows and a held-out quarter with half their labels redrawn, in
+    variable-length queries, half as many rows (the held-out NDCG
+    turns)."""
     out = {}
+    X, y, _, Xv, yv, _ = ltr_split(n // 2, n // 8, 31, noise=0.5)
+    out["rank"] = (X, y, Xv, yv, rank_sizes(len(y), 33, 600),
+                   rank_sizes(len(yv), 34, 600))
     for name in ("binary", "multi"):
         parts = []
         for rows, seed in ((n, 21), (n // 4, 22)):
@@ -2848,9 +3421,10 @@ def es_data(n):
     return out
 
 
-def make_dataset(lgb, X, y, params, what):
+def make_dataset(lgb, X, y, params, what, group=None):
     t = time.time()
-    ds = lgb.Dataset(X, y, params=params, free_raw_data=False).construct()
+    ds = lgb.Dataset(X, y, group=group, params=params,
+                     free_raw_data=False).construct()
     inner = ds._inner
     log("data: %s binned and uploaded in %.1f s: %d features in %d groups "
         "(bundled: %s), %d total bins, widest group %d"
@@ -2882,8 +3456,8 @@ def main() -> int:
     ap.add_argument("--expo-rows", type=int, default=2_000_000)
     ap.add_argument("--parity-rows", type=int, default=200_000)
     ap.add_argument("--expo-parity-rows", type=int, default=100_000)
-    ap.add_argument("--parity-iters", type=int, default=5)
-    ap.add_argument("--mc-parity-iters", type=int, default=2,
+    ap.add_argument("--parity-iters", type=int, default=2)
+    ap.add_argument("--mc-parity-iters", type=int, default=1,
                     help="iterations of the multiclass parity paths (3 "
                     "classes)")
     ap.add_argument("--valid-rows", type=int, default=500_000,
@@ -2896,6 +3470,19 @@ def main() -> int:
                     "routes (a quarter as many held out)")
     ap.add_argument("--es-rounds", type=int, default=40,
                     help="the most rounds of an early-stopping parity run")
+    ap.add_argument("--ltr-rows", type=int, default=2_270_000,
+                    help="make_ltr_like rows of the MSLR paths (73-row "
+                    "queries, 137 features)")
+    ap.add_argument("--ltr-valid-rows", type=int, default=227_000,
+                    help="held-out rows of the ltr path (the queries after "
+                    "the training rows of one make_ltr_like draw)")
+    ap.add_argument("--ltr-iters", type=int, default=10,
+                    help="iterations of the ltr path (lambdarank), with and "
+                    "without the held-out set")
+    ap.add_argument("--xendcg-iters", type=int, default=3,
+                    help="iterations of the xendcg path (rank_xendcg, v1)")
+    ap.add_argument("--rank-parity-rows", type=int, default=200_000,
+                    help="make_ltr_like rows of the ranking parity paths")
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
@@ -3008,6 +3595,37 @@ def main() -> int:
     walk_rec.update({"expo_" + k: erec[k] for k in (
         "ms", "plain_ms", "bound_ms", "max_abs_err", "rows", "leaves")})
     del Xe, ye, expo_keep
+    del X, y, ds, inner
+
+    # MSLR-WEB30K's shape: lambdarank, rank_xendcg, their kernels, and the
+    # payload kernels at G = 137
+    X, y, g, Xv, yv, gv = ltr_split(args.ltr_rows, args.ltr_valid_rows, 3)
+    log("data: make_ltr_like(%d) -> %s in %d queries of %d rows, labels %s; "
+        "its last %d queries (%d rows) held out"
+        % (args.ltr_rows + args.ltr_valid_rows, X.shape, len(g), g[0],
+           np.bincount(y.astype(np.int64)).tolist(), len(gv), len(yv)))
+    params = dict(COMMON, **PATHS["ltr"][0])
+    ds, inner = make_dataset(lgb, X, y, params, "MSLR", group=g)
+    cfg = lgb.Config(params)
+    mslr = phase_mslr_kernels(inner, feature_meta(inner),
+                              grow_config(cfg, inner),
+                              SplitParams.from_config(cfg))
+    for rec in kernels:
+        rec.update(mslr.get(rec["name"], {}))
+    kernels += phase_rank_kernels(lgb, y, g)
+    if not args.skip_train:
+        ltr_keep = {}
+        runs["ltr"] = phase_train(lgb, X, y, ds, args.ltr_iters, card,
+                                  args.profile, "ltr", keep=ltr_keep)
+        runs["ltr valid"], _, _ = phase_train_valid(
+            lgb, ds, Xv, yv, args.ltr_iters, card, ltr_keep, "ltr", gv)
+        wall, busy, _, _, _ = ltr_keep["iteration"]
+        log("train ltr: one more iteration %.1f ms wall, %.1f ms busy, idle "
+            "%.3f (%s)" % (wall, busy, 1 - busy / wall, card))
+        del ltr_keep
+        runs["xendcg"] = phase_train(lgb, X, y, ds, args.xendcg_iters, card,
+                                     args.profile, "xendcg")
+    del X, y, g, Xv, yv, gv, ds, inner
     if not args.skip_train:
         # each kernel's count from the run of the path it serves: the v1
         # grower's for hist_window, the per-split persistent grower's for
@@ -3018,7 +3636,8 @@ def main() -> int:
         # counts beside them)
         serves = {"hist_window": "v1", "level_pass": "level",
                   "level_seg_hist": "level", "scan_blocks": "bundled",
-                  "valid_walk": "valid", "renew_leaf": "l1"}
+                  "valid_walk": "valid", "renew_leaf": "l1",
+                  "lambdarank_grad": "ltr", "xendcg_grad": "xendcg"}
         for rec in kernels:
             run = runs[serves.get(rec["name"], "persist")]
             if rec["name"] == "grow_step":
@@ -3036,10 +3655,12 @@ def main() -> int:
                 rec["multiclass_launches"] = runs["multiclass"][rec["name"]]
                 rec["regression_launches"] = runs["regression"][rec["name"]]
                 rec["l1_launches"] = runs["l1"][rec["name"]]
+                rec["ltr_launches"] = runs["ltr"][rec["name"]]
+            if rec["name"] in ("hist_window", "scan_pair"):
+                rec["xendcg_launches"] = runs["xendcg"][rec["name"]]
             if rec["name"] == "split_pass":
                 rec["multiclass_consolidate_launches"] = \
                     runs["multiclass"]["consolidate"]
-    del X, y, ds, inner
     if not args.skip_parity:
         Xp, yp, lat = higgs_latent(args.parity_rows, seed=11)
         counts = np.random.default_rng(17).poisson(np.exp(lat / 2))
@@ -3053,6 +3674,12 @@ def main() -> int:
                 "higgs-mape": (Xp, 3.0 * y_l2),
                 "higgs-abs": (Xp, np.abs(y_l2)),
                 "higgs-01": (Xp, y01), "higgs-01-w": (Xp, y01, wp)}
+        Xr, yr, _ = ltr_data(args.rank_parity_rows, 7)
+        gr = rank_sizes(len(yr), 8, longest=400)
+        wr = np.random.default_rng(9).uniform(0.5, 2.0, len(yr))
+        data["ltr-w"] = (Xr, yr, wr, gr)
+        log("data: make_ltr_like(%d, seed=7) in %d queries of 1 to %d rows"
+            % (args.rank_parity_rows, len(gr), gr.max()))
         phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters)
         phase_parity_es(lgb, es_data(args.es_rows), args.es_rounds)
     print(json.dumps({"kernels": kernels}), flush=True)

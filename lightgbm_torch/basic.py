@@ -1,10 +1,12 @@
 """User-facing Dataset and Booster of the port.
 
 The port of the slice of lightgbm_tpu/basic.py that training needs: a
-``Dataset`` from an in-memory numpy matrix (a validation set bins with its
-``reference``'s mappers), and a ``Booster`` that trains (``update``),
-evaluates its training and validation sets (``add_valid``, ``eval*``),
-predicts, and writes and reads LightGBM model text.
+``Dataset`` from an in-memory numpy matrix, with query groups for ranking
+(``group=``, ``set_group``/``get_group``; a validation set bins with its
+``reference``'s mappers and keeps its own groups), and a ``Booster`` that
+trains (``update``), evaluates its training and validation sets
+(``add_valid``, ``eval*``), predicts, and writes and reads LightGBM model
+text.
 
 Evaluation: the metrics run on the scores' device and return 0-d tensors;
 one evaluation call reads all its values back with one copy.
@@ -46,7 +48,7 @@ class Dataset:
     """Training data container (reference basic.py:730), built lazily."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
@@ -54,6 +56,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -84,7 +87,7 @@ class Dataset:
         if self.reference is not None:
             ref = self.reference.construct()._inner
         self._inner = BinnedDataset.from_matrix(
-            X, cfg, label=self.label, weight=self.weight,
+            X, cfg, label=self.label, weight=self.weight, group=self.group,
             init_score=self.init_score, feature_names=names, reference=ref)
         if ref is None:
             # a validation set is uploaded by the Booster that evaluates
@@ -101,6 +104,21 @@ class Dataset:
         if self._inner is not None:
             self._inner.metadata.set_label(label)
         return self
+
+    def set_group(self, group) -> "Dataset":
+        """Replace the query groups (per-query sizes or boundaries; of the
+        binned dataset too, once built)."""
+        self.group = group
+        if self._inner is not None:
+            self._inner.metadata.set_query(group)
+        return self
+
+    def get_group(self):
+        """The per-query sizes (None without groups)."""
+        if self._inner is not None and \
+                self._inner.metadata.query_boundaries is not None:
+            return np.diff(self._inner.metadata.query_boundaries)
+        return self.group
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
         """Bin with `reference`'s mappers and groups (a validation set);

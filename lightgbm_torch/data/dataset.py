@@ -18,6 +18,8 @@ scan_blocks applies FixHistogram); the v1 grower refuses them.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -43,12 +45,14 @@ class DeviceData(NamedTuple):
 
 
 class Metadata:
-    """Labels, weights and initial scores (reference dataset.h:41)."""
+    """Labels, weights, query boundaries and initial scores (reference
+    dataset.h:41; the JAX package's data/dataset.py:35-96)."""
 
     def __init__(self, num_data: int):
         self.num_data = num_data
         self.label: Optional[np.ndarray] = None
         self.weight: Optional[np.ndarray] = None
+        self.query_boundaries: Optional[np.ndarray] = None  # [nq+1] int32
         self.init_score: Optional[np.ndarray] = None
 
     def set_label(self, label) -> None:
@@ -68,12 +72,42 @@ class Metadata:
                       % (len(weight), self.num_data))
         self.weight = weight
 
+    def set_query(self, group) -> None:
+        """group: per-query sizes (LightGBM convention) or boundaries."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        group = np.ascontiguousarray(group, dtype=np.int64).reshape(-1)
+        if group.sum() == self.num_data:
+            self.query_boundaries = np.concatenate(
+                [[0], np.cumsum(group)]).astype(np.int32)
+        elif len(group) and group[0] == 0 and group[-1] == self.num_data:
+            self.query_boundaries = group.astype(np.int32)
+        else:
+            Log.fatal("Sum of query counts (%d) != num_data (%d)"
+                      % (group.sum(), self.num_data))
+
     def set_init_score(self, init_score) -> None:
         if init_score is None:
             self.init_score = None
             return
         self.init_score = np.ascontiguousarray(
             init_score, dtype=np.float64).reshape(-1)
+
+    @property
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
+
+    @property
+    def query_weights(self) -> Optional[np.ndarray]:
+        """Mean row weight per query (Metadata::LoadQueryWeights,
+        src/io/metadata.cpp:455-469); None without weights or queries."""
+        if self.weight is None or self.query_boundaries is None:
+            return None
+        qb = self.query_boundaries
+        sums = np.add.reduceat(self.weight.astype(np.float64), qb[:-1])
+        return (sums / np.diff(qb)).astype(np.float32)
 
 
 def _sample_data(X: np.ndarray, sample_cnt: int, seed: int) -> np.ndarray:
@@ -176,7 +210,7 @@ class BinnedDataset:
     # ------------------------------------------------------------------
     @classmethod
     def from_matrix(cls, X, config: Config, label=None, weight=None,
-                    init_score=None,
+                    group=None, init_score=None,
                     feature_names: Optional[List[str]] = None,
                     reference: Optional["BinnedDataset"] = None
                     ) -> "BinnedDataset":
@@ -198,6 +232,7 @@ class BinnedDataset:
         if label is not None:
             ds.metadata.set_label(label)
         ds.metadata.set_weight(weight)
+        ds.metadata.set_query(group)
         ds.metadata.set_init_score(init_score)
         if reference is not None:
             if nf != reference.num_total_features:
@@ -374,13 +409,18 @@ class BinnedDataset:
         return np.uint8
 
     def _bin_rows(self, X: np.ndarray, out: np.ndarray) -> None:
-        """Quantize a row block into group-local bins (writes `out`)."""
+        """Quantize a row block into group-local bins (writes `out`), one
+        group per task on a thread pool: numpy's searchsorted and
+        elementwise passes release the interpreter lock, and each group
+        writes its own column, so the bins are the serial loop's."""
         n = X.shape[0]
-        for gid, feats in enumerate(self.groups):
+
+        def one(gid: int) -> None:
+            feats = self.groups[gid]
             if len(feats) == 1:
                 f = self.used_features[feats[0]]
                 out[:, gid] = self.bin_mappers[f].value_to_bin(X[:, f])
-                continue
+                return
             col = np.zeros(n, dtype=np.int64)
             local = 1
             for i in feats:
@@ -391,6 +431,11 @@ class BinnedDataset:
                 col[nz] = local + b[nz]
                 local += m.num_bin
             out[:, gid] = col
+
+        workers = max(1, min(8, os.cpu_count() or 1, len(self.groups)))
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for done in [pool.submit(one, g) for g in range(len(self.groups))]:
+                done.result()
 
     # ------------------------------------------------------------------
     @property

@@ -1,9 +1,11 @@
-"""Synthetic benchmark data: the HIGGS-shaped set of the repo's north star
-and the Expo-shaped EFB-bundled set.
+"""Synthetic benchmark data: the HIGGS-shaped set of the repo's north star,
+the Expo-shaped EFB-bundled set and the MSLR-WEB30K- and Yahoo-shaped
+learning-to-rank sets.
 
-The port's own copies of ``make_higgs_like`` and ``make_expo_like`` from the
-JAX package (lightgbm_tpu/data/synth.py), so that both packages draw the
-same rows from the same seed without the port importing the JAX package.
+The port's own copies of ``make_higgs_like``, ``make_expo_like``,
+``make_ltr_like`` and ``make_yahoo_like`` from the JAX package
+(lightgbm_tpu/data/synth.py), so that both packages draw the same rows
+from the same seed without the port importing the JAX package.
 """
 from __future__ import annotations
 
@@ -44,3 +46,31 @@ def make_expo_like(n_rows=2_000_000, seed=0):
     y = (sig + rng.logistic(size=n_rows) * 0.7 > 0.3)
     # f32: a dense f64 one-hot matrix would double the host memory
     return X, y.astype(np.float64)
+
+
+def make_ltr_like(n_rows=2_270_000, n_feat=137, docs_per_query=73, seed=3):
+    """MSLR-WEB30K-shaped synthetic LTR set: graded 0-4 relevance driven by
+    a sparse linear + nonlinear signal, fixed-size query groups."""
+    rng = np.random.default_rng(seed)
+    n_q = n_rows // docs_per_query
+    n_rows = n_q * docs_per_query
+    X = rng.normal(size=(n_rows, n_feat)).astype(np.float32)
+    w = np.zeros(n_feat)
+    w[:20] = rng.normal(size=20)
+    sig = X @ w + 0.7 * np.tanh(X[:, 20] * X[:, 21]) \
+        + rng.logistic(size=n_rows) * 1.2
+    # per-query grading to 0..4 by quantile
+    sig = sig.reshape(n_q, docs_per_query)
+    q = np.quantile(sig, [0.55, 0.75, 0.90, 0.97], axis=1)
+    lab = (sig > q[0][:, None]).astype(np.int32)
+    for k in range(1, 4):
+        lab += sig > q[k][:, None]
+    group = np.full(n_q, docs_per_query, dtype=np.int32)
+    return X.astype(np.float64), lab.reshape(-1).astype(np.float64), group
+
+
+def make_yahoo_like(n_rows=473_134, n_feat=700, docs_per_query=24, seed=11):
+    """Yahoo LTR set1-shaped synthetic: 473k docs x 700 dense features in
+    ~24-doc queries (docs/Experiments.rst lists 473,134 x 700)."""
+    return make_ltr_like(n_rows, n_feat=n_feat,
+                         docs_per_query=docs_per_query, seed=seed)

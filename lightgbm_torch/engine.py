@@ -13,10 +13,13 @@ does, also after a round that found nothing left to split (a later
 ``update`` then returns at once). One evaluation round reads its metric
 values back with one copy.
 
+Ranking trains from a ``Dataset(..., group=)``; a validation set carries
+its own groups, and ``eval_at``/``label_gain`` reach the ndcg and map
+metrics, whose early stopping keeps the bigger value.
+
 Refused, naming the ROADMAP.md item that will bring them: ``fobj``
-(queue A, item 17), ``init_model`` (item 10), ``num_machines > 1`` (item
-11) and the ranking metrics (item 17.4, at Booster set-up); ``cv`` is
-item 9.
+(queue A, item 17), ``init_model`` (item 10) and ``num_machines > 1``
+(item 11); ``cv`` is item 9.
 """
 from __future__ import annotations
 

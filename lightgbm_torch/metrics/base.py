@@ -21,10 +21,6 @@ from ..utils.log import Log
 
 K_EPSILON = 1e-15
 
-# ranking metrics need query groups, which the port's Dataset does not hold
-# yet (ROADMAP.md queue A, item 17.4)
-RANKING = ("ndcg", "map")
-
 
 class Metric:
     """Base metric (metric.h). ``names`` and ``factor_to_bigger_better`` as
@@ -80,14 +76,10 @@ def register(cls):
 
 def create_metric(name: str, config) -> Optional[Metric]:
     """Metric::CreateMetric (src/metric/metric.cpp:16). None for 'none' and
-    for an unknown name (with a warning, as the JAX package); a ranking
-    metric raises."""
-    from . import multiclass, pointwise  # noqa: F401 — fills the registry
+    for an unknown name (with a warning, as the JAX package)."""
+    from . import multiclass, pointwise, rank  # noqa: F401 — the registry
     if name in ("none", "null", "custom", "na", ""):
         return None
-    if name in RANKING:
-        Log.fatal("metric '%s' is not ported yet: it needs query groups "
-                  "(ROADMAP.md queue A, item 17.4: ranking)" % name)
     if name not in _REGISTRY:
         Log.warning("Unknown metric type name: %s" % name)
         return None

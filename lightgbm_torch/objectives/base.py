@@ -10,11 +10,11 @@ Ported: ``binary``, ``multiclass`` (softmax), ``multiclassova``, the
 regression objectives (``regression`` with ``reg_sqrt``, ``regression_l1``,
 ``huber``, ``fair``, ``poisson``, ``quantile``, ``mape``, ``gamma``,
 ``tweedie``) and cross-entropy (``cross_entropy``,
-``cross_entropy_lambda``). L1, quantile and MAPE re-fit each leaf's output
-from its rows' residual percentile after the tree is grown
-(``is_renew_tree_output``; the percentile helpers below, the kernel in
-ops/renew.py). Ranking raises and names the ROADMAP.md item that will bring
-it.
+``cross_entropy_lambda``) and ranking (``lambdarank``, ``rank_xendcg``;
+objectives/rank.py, on the dataset's query groups): every objective of the
+JAX package. L1, quantile and MAPE re-fit each leaf's output from its rows'
+residual percentile after the tree is grown (``is_renew_tree_output``; the
+percentile helpers below, the kernel in ops/renew.py).
 """
 from __future__ import annotations
 
@@ -28,14 +28,11 @@ from ..utils.log import Log
 # reference include/LightGBM/meta.h:51
 K_EPSILON = 1e-15
 
-_ITEM17 = "ROADMAP.md queue A, item 17.4: ranking"
-# objectives of the JAX package the port does not train yet, and why
-_NOT_PORTED = {"lambdarank": "query groups", "rank_xendcg": "query groups"}
-
 # the objectives the port trains (their canonical names, config.py)
 PORTED = ("binary", "multiclass", "multiclassova", "regression",
           "regression_l1", "huber", "fair", "poisson", "quantile", "mape",
-          "gamma", "tweedie", "cross_entropy", "cross_entropy_lambda")
+          "gamma", "tweedie", "cross_entropy", "cross_entropy_lambda",
+          "lambdarank", "rank_xendcg")
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -135,8 +132,10 @@ class ObjectiveFunction:
         None when that has none), else ("row", fn) with fn(score) ->
         (grad, hess) the v1 gradient of the [n] f64 row-ordered scores,
         which reads the objective's own row-ordered label and weights
-        (ops/grow_persist.py:fill_grad_row). The JAX package's "pos" mode
-        comes with ranking."""
+        (ops/grow_persist.py:fill_grad_row); None for an objective that
+        needs fresh host inputs every iteration (rank_xendcg). The JAX
+        package's "pos" mode, which lambdarank takes there, is served by
+        the row mode (objectives/rank.py)."""
         if self.num_model_per_iteration > 1:
             fn = self.payload_grad_fn_multi()
             return None if fn is None else ("payload", fn)
@@ -209,12 +208,9 @@ def weighted_percentile(data, weight, alpha: float) -> float:
 
 def create_objective(name: str, config) -> Optional[ObjectiveFunction]:
     """ObjectiveFunction::CreateObjectiveFunction; None for 'none'."""
-    from . import binary, multiclass, regression, xentropy  # noqa: F401
+    from . import binary, multiclass, rank, regression, xentropy  # noqa
     if name in ("none", "null", "custom", "na", ""):
         return None
-    if name in _NOT_PORTED:
-        Log.fatal("objective '%s' is not ported yet: it needs %s (%s)"
-                  % (name, _NOT_PORTED[name], _ITEM17))
     if name not in _REGISTRY:
         Log.fatal("Unknown objective type name: %s" % name)
     return _REGISTRY[name](config)

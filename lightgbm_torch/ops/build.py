@@ -26,7 +26,7 @@ from ..utils.log import LightGBMError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("hist_window", "scan_pair", "root_hist", "split_pass", "seg_hist",
            "scan_blocks", "level_pass", "level_seg_hist", "grow_step",
-           "valid_walk", "renew_leaf")
+           "valid_walk", "renew_leaf", "rank_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

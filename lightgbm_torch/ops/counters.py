@@ -22,7 +22,8 @@ import torch
 
 SLOTS = ("root_hist", "split_pass", "seg_hist", "scan_pair", "scan_blocks",
          "consolidate", "grow_root", "grow_pick", "grow_commit",
-         "grow_planes", "grow_assemble", "apply_scores", "renew_leaf")
+         "grow_planes", "grow_assemble", "apply_scores", "renew_leaf",
+         "lambdarank_grad", "xendcg_grad")
 _INDEX = {name: i for i, name in enumerate(SLOTS)}
 _COUNTS: Dict[str, torch.Tensor] = {}
 

@@ -50,7 +50,8 @@ def check_fast_path(config: Config, dataset) -> None:
     limits."""
     c = config
     if c.objective not in PORTED:
-        _refuse("objective=%s" % c.objective, "queue A, item 17.4: ranking")
+        _refuse("objective=%s" % c.objective,
+                "queue A, item 17: other objectives")
     if c.boosting == "goss":
         _refuse("boosting=goss", "queue A, item 16: bagging and GOSS")
     if c.boosting != "gbdt":
@@ -162,9 +163,11 @@ class SerialTreeLearner:
         """Does this learner grow with the persistent-payload grower? The
         JAX package's gate (serial.py:479-539) for the port's routes,
         decided by the objective's ``device_gradients`` (its "payload" or
-        "row" gradient mode): ``force`` asks for it on any device and
-        raises when the objective has none; ``auto`` takes it on the card
-        for 65536 rows or more; both need a payload pack plan."""
+        "row" gradient mode; lambdarank takes the row mode): ``force`` asks
+        for it on any device and raises when the objective has none
+        (rank_xendcg, whose draws change every iteration on the host);
+        ``auto`` takes it on the card for 65536 rows or more; both need a
+        payload pack plan."""
         opt = str(self.config.tpu_persist_scan).lower()
         if opt in ("false", "0", "off"):
             return False

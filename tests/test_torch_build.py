@@ -26,7 +26,8 @@ def test_every_kernel_has_a_source():
     assert set(build.KERNELS) == {"hist_window", "scan_pair", "root_hist",
                                   "split_pass", "seg_hist", "scan_blocks",
                                   "level_pass", "level_seg_hist",
-                                  "grow_step", "valid_walk", "renew_leaf"}
+                                  "grow_step", "valid_walk", "renew_leaf",
+                                  "rank_grad"}
 
 
 @pytest.mark.parametrize("name", build.KERNELS)

@@ -129,7 +129,8 @@ def test_config_matches_jax(params):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"objective": "lambdarank"}, "item 17"),
+    ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
+     "item 7"),
     ({"boosting": "goss"}, "item 16"),
     ({"boosting": "dart"}, "item 7"),
     ({"bagging_fraction": 0.5, "bagging_freq": 1}, "item 16"),

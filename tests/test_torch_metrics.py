@@ -166,9 +166,15 @@ def test_metric_names_and_directions_match_jax():
 
 
 def test_ranking_metrics_are_refused():
-    for name in ("ndcg", "map"):
-        with pytest.raises(LightGBMError, match="17.4"):
-            pm.create_metric(name, PConfig({}))
+    """ndcg and map are ported (tests/test_torch_rank.py); without query
+    information they refuse with the JAX package's messages."""
+    md = PMeta(10)
+    md.set_label(np.zeros(10))
+    for name, match in (("ndcg", "The NDCG metric requires query"),
+                        ("map", "MAP metric, there should be query")):
+        m = pm.create_metric(name, PConfig({}))
+        with pytest.raises(LightGBMError, match=match):
+            m.init(md, 10)
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 129, 8192, 8193, 20_000, 100_003])

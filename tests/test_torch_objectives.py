@@ -20,8 +20,8 @@ and weights go through both packages:
   * BoostFromScore of every class, class_need_train, the output transform
     and the model-text string: equal.
 
-The objectives the port does not train yet (ranking) raise and name
-ROADMAP.md queue A, item 17. L1, quantile, MAPE and cross-entropy:
+Ranking without query groups raises the JAX package's message (ranking
+itself: tests/test_torch_rank.py). L1, quantile, MAPE and cross-entropy:
 tests/test_torch_objectives_renew.py.
 """
 from types import SimpleNamespace
@@ -207,10 +207,12 @@ def test_objective_aliases_match_jax(alias):
 
 @pytest.mark.parametrize("name", ["lambdarank", "rank_xendcg"])
 def test_unported_objectives_are_refused(name):
+    """Ranking is ported (tests/test_torch_rank.py); without query groups
+    it refuses with the JAX package's message."""
     X, y = make_higgs_like(600, seed=5)
     p = {"objective": name, "device_type": "cpu", "verbosity": -1}
     with pytest.raises(LightGBMError,
-                       match="ROADMAP.md queue A, item 17"):
+                       match="Ranking tasks require query information"):
         lp.train(p, lp.Dataset(X[:, :4], y, params=p), 1)
 
 
