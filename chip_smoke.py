@@ -18,7 +18,11 @@ exits non-zero without printing a result:
               and level_seg_hist on the 10.5M lanes cut into 128 slots as
               at depth 8 (the level phase), scan_pair at B = 256 on the
               level's children. Each is held bit for bit against its plain
-              version on the CPU, and two launches must agree. The scans
+              version on the CPU, and two launches must agree. scan_pair's
+              knob form (lambda_l1, max_delta_step, finite monotone bounds
+              with mixed signs, drawn extra_trees lanes and by-node masks
+              from the numpy threefry) likewise at B = 2 and 256, timed
+              beside the fast form on the same planes. The scans
               read the grower's histogram planes in place through the
               children's rows (scan_pair also through the layout's gidx),
               in a random order, and are also held equal to their gathered
@@ -83,6 +87,21 @@ exits non-zero without printing a result:
               persist  binary, num_leaves=255 (the per-split persistent
                        grower), 10 iterations;
               v1       binary, tpu_persist_scan=false, 3 iterations;
+              knobs    binary with every numerical knob at once
+                       (KNOB_PARAMS: lambda_l1 and max_delta_step that
+                       bind, monotone +1/-1 on four features, extra_trees,
+                       feature_fraction_bynode=0.8), default routing (the
+                       v1 grower, scan_pair's knob form), 3 iterations, on
+                       a Dataset binned with those parameters: every leaf
+                       within max_delta_step x the learning rate and at
+                       least one on it; the last tree's leaves equal to the
+                       leaf math (L1, the clamp, the monotone bounds
+                       replayed over its split records) from its rows'
+                       gradient sums; a monotonicity sweep of each
+                       constrained feature over the model's thresholds on
+                       1000 rows; every split's feature in its node's
+                       by-node sample and its threshold the node's drawn
+                       bin (the numpy threefry replay);
               level    binary, num_leaves=256, max_depth=8 (the level
                        phase), 10 iterations, then 3 with
                        tpu_level_grow=off whose raw predictions must equal
@@ -156,6 +175,9 @@ exits non-zero without printing a result:
               1e-9; f32 payload scores: within 2 * (iterations + 1) f32 ulps
               of the largest score), and a model-text round trip; on the
               payload paths the second buffer's rows (wp_live) and bytes;
+              at the default sizes, the persist, v1, level, multiclass,
+              regression, l1 and bundled digests must equal the ones
+              recorded in PERF.md (KNOWN_DIGESTS);
   5. bundled  the Expo shape (make_expo_like: 8 dense + 640 one-hot
               columns, EFB-bundled into 18 groups; 2M rows), scan_blocks
               against its plain version at B = 256 children read in place
@@ -164,7 +186,9 @@ exits non-zero without printing a result:
               iterations; scan_blocks, no scan_pair) with the same checks
               and 3 iterations with tpu_level_grow=off (split_pass's
               in-pass histogram) bit-equal to the first 3 trees;
-  6. parity   cuda against the CPU (the plain versions), 2 iterations, for
+  6. parity   cuda against the CPU (the plain versions), 2 iterations (5
+              for the DEEP_PARITY paths: binary persist and v1, softmax
+              on its three routes, the knobs, fobj), for
               the persistent (force) and v1 (false) growers and the level
               path on 200k HIGGS rows, the bundled path on 100k Expo
               rows, Poisson on the persistent grower (counts of exp(latent
@@ -176,7 +200,10 @@ exits non-zero without printing a result:
               five on the persistent grower; these seven at 63 leaves);
               lambdarank on the persistent and v1 growers and rank_xendcg
               on v1, weighted, on 200k make_ltr_like rows in seeded
-              variable-length queries (63 leaves): equal tree
+              variable-length queries (63 leaves), the v1 grower with each
+              numerical knob alone and all five together and a custom
+              objective (the binary gradients from the host) on the HIGGS
+              rows (63 leaves): equal tree
               structure, equal leaf values and equal model text; then
               early stopping (noisy labels, learning rate 0.5) on the
               persist, v1 and softmax-persist routes and lambdarank on
@@ -191,7 +218,8 @@ kernels, the card's name and power limit, and the result line
 --reg-iters, --l1-iters, --expo-rows, --parity-rows, --expo-parity-rows,
 --parity-iters, --mc-parity-iters, --valid-rows, --expo-valid-rows,
 --es-rows, --es-rounds, --ltr-rows, --ltr-valid-rows, --ltr-iters,
---xendcg-iters, --rank-parity-rows, --skip-train, --skip-parity); the
+--xendcg-iters, --rank-parity-rows, --knob-iters, --deep-parity-iters,
+--skip-train, --skip-parity); the
 defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
@@ -373,9 +401,9 @@ def library_hist_window(bins, grad, hess, W):
 
 
 def phase_kernels(binned: np.ndarray, meta, gc, params):
-    """Both kernels against their plain versions at the main path's
-    shapes; returns the kernel records for the JSON line (launches filled
-    in by the train phase)."""
+    """hist_window and scan_pair (both forms) against their plain versions
+    at the v1 path's shapes; returns the kernel records for the JSON line
+    (launches filled in by the train phase)."""
     import torch
     from lightgbm_torch.ops.histogram import hist_window, hist_window_plain
     dev = torch.device("cuda")
@@ -443,7 +471,8 @@ def phase_kernels(binned: np.ndarray, meta, gc, params):
          "launches": 0, "max_abs_err": max(err_h, err_r), "ms": ms,
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": library_ms},
-        check_scan_pair(bins, grad, hess, R, meta, gc, params)]
+        check_scan_pair(bins, grad, hess, R, meta, gc, params),
+        phase_knob_kernels(bins, grad, hess, R, meta, gc, params)]
 
 
 def check_scan_pair(bins, grad, hess, R, meta, gc, params):
@@ -539,6 +568,288 @@ def check_scan_pair(bins, grad, hess, R, meta, gc, params):
             "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
             "library_ms": None, "launch_floor_ms": floor_ms,
             "gathers_and_kernel_ms": old_ms}
+
+
+# ---- the split scan's numerical knobs (v1 grower) ---------------------------
+
+# every knob at once, each set to bind at HIGGS scale: lambda_l1 against
+# leaf gradient sums of hundreds to thousands, max_delta_step against the
+# early trees' outputs (up to ~2), the latent's signs as monotone
+# constraints (higgs_latent: +x0, -x1, +x21, -x22), extra_trees and a
+# by-node sample of 23 of the 28 features
+KNOB_MONO = {0: 1, 1: -1, 21: 1, 22: -1}
+KNOB_PARAMS = {"lambda_l1": 100.0, "max_delta_step": 0.5,
+               "monotone_constraints": [KNOB_MONO.get(f, 0)
+                                        for f in range(28)],
+               "extra_trees": True, "feature_fraction_bynode": 0.8}
+
+
+def knob_bound(scal, gb, layout, out, node):
+    """The knob form's bound: scan_pair_bound's bytes plus the node
+    inputs and the wider scalars, and about 100 operations per (child,
+    feature, lane): the fast form's 40 with each direction's two leaf
+    gains through ThresholdL1, the clamped outputs and the gains given
+    them."""
+    nbytes = (scal.numel() + 2 * gb.numel() + 4 * layout.keep_r.numel()
+              + layout.aux.numel() + out.numel() + node.numel()) * 4 \
+        + layout.gidx.numel() * 8
+    return bound_ms(nbytes, 100.0 * gb.numel())
+
+
+def knob_layout_inputs(meta, gc, params, sums, B, tags, dev, l1):
+    """The knob form's inputs for B children of the HIGGS layout: the
+    layout with KNOB_MONO's signs in aux row 1, the [B, 16] scalars
+    (lambda_l1 `l1` and KNOB_PARAMS' max_delta_step, finite monotone bounds
+    alternating with open ones) and the node draws of `tags` under the
+    tree key of extra seed 6, tree 1 (the port's threefry)."""
+    import torch
+    from lightgbm_torch.ops.grow import Knobs, node_draws
+    from lightgbm_torch.ops.scan import ScanLayout, knob_scalars
+    from lightgbm_torch.ops.split import SplitParams
+    from lightgbm_torch.utils import random as tf
+    F = gc.num_features
+    mono = np.array([KNOB_MONO.get(f, 0) for f in range(F)])
+    layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
+                        meta.default_bin, meta.penalty, np.ones(F, bool),
+                        gc.scan_width, gc.total_bins, dev, mono)
+    p = SplitParams(params.lambda_l2, params.min_gain_to_split,
+                    params.min_data_in_leaf, params.min_sum_hessian_in_leaf,
+                    l1, KNOB_PARAMS["max_delta_step"])
+    cmin = np.where(np.arange(B) % 2, -0.3, -np.inf).astype(np.float32)
+    cmax = np.where(np.arange(B) % 2, 0.05, np.inf).astype(np.float32)
+    scal = knob_scalars(sums[:, 0], sums[:, 1], sums[:, 2], p, cmin, cmax,
+                        True)
+    knobs = Knobs(mono, True, True, int(np.ceil(0.8 * F)),
+                  tf.fold_in(tf.prng_key(6), 1))
+    node = node_draws(knobs, tags, np.ones(F, bool),
+                      np.asarray(meta.bin_end) - np.asarray(meta.bin_start),
+                      layout.Fp)
+    return (layout, torch.as_tensor(scal, device=dev),
+            torch.as_tensor(node, device=dev))
+
+
+def phase_knob_kernels(bins, grad, hess, R, meta, gc, params):
+    """scan_pair's knob form at the v1 path's shape (B = 2: the children
+    of rows [0, R/3) and [R/3, R)) and at B = 256 (256 row segments), read
+    in place through rows and gidx: two launches bit-identical, the rows
+    form equal to the gathered form, bit for bit equal to its plain
+    version on the CPU; every knob exercised (L1, the clamp, finite
+    monotone bounds, mixed signs, drawn lanes, node masks). Times the knob
+    form beside the fast form on the same planes; returns its record."""
+    import torch
+    from lightgbm_torch.ops.grow import tb_source_index
+    from lightgbm_torch.ops.histogram import hist_window
+    from lightgbm_torch.ops.scan import scan_pair, scan_pair_plain
+    dev = bins.device
+    G, W = bins.shape[1], gc.hist_width
+    src = tb_source_index(meta.group_offset, gc.total_bins, W, dev)
+    rng = np.random.default_rng(5)
+    recs = {}
+    for B in (2, 256):
+        cuts = np.array([0, R // 3, R]) if B == 2 else np.concatenate(
+            [[0], np.sort(rng.choice(np.arange(1, R), B - 1, replace=False)),
+             [R]])
+        segs = list(zip(cuts[:-1], np.diff(cuts)))
+        L = B + 6
+        gh = torch.zeros((L, gc.total_bins), device=dev)
+        hh = torch.zeros_like(gh)
+        rows = torch.as_tensor(rng.choice(L, B, replace=False), device=dev)
+        sums = np.zeros((B, 3), np.float64)
+        for b, (s0, n) in enumerate(segs):
+            h = hist_window(bins, grad, hess, int(s0), int(n), W)
+            h = h.reshape(G * W, 2)[src]
+            gh[rows[b]], hh[rows[b]] = h[:, 0], h[:, 1]
+            sums[b] = (float(grad[s0:s0 + n].double().sum()),
+                       float(hess[s0:s0 + n].double().sum()), n)
+        # lambda_l1 binds at both sizes: 333k-row children have |G| of
+        # hundreds, 4k-row ones of tens
+        l1 = KNOB_PARAMS["lambda_l1"] if B == 2 else 10.0
+        layout, scal, node = knob_layout_inputs(
+            meta, gc, params, sums, B, list(range(2, 2 + B)), dev, l1)
+        masks = (layout.keep_r, layout.keep_f, layout.valid_r,
+                 layout.valid_f, layout.aux)
+        maps = {"rows": rows, "gidx": layout.gidx}
+        k = scan_pair(scal, gh, hh, *masks, node=node, **maps)
+        _same("scan_pair knob form B=%d: two launches" % B, k,
+              scan_pair(scal, gh, hh, *masks, node=node, **maps))
+        gb = gh[rows][:, layout.gidx].contiguous()
+        hb = hh[rows][:, layout.gidx].contiguous()
+        args = (scal, gb, hb) + masks
+        _same("scan_pair knob form B=%d: rows form vs gathered form" % B, k,
+              scan_pair(*args, node=node))
+        cpu = [a.cpu() for a in args]
+        err = _same("scan_pair knob form B=%d vs the plain version on the "
+                    "CPU" % B, k, scan_pair_plain(*cpu, node=node.cpu()))
+        has = k[:, 6].cpu().numpy() > 0.5
+        drawn = (node[:, 0].cpu().numpy() >= 0) & has
+        if not has.any() or not np.array_equal(
+                k[:, 1].cpu().numpy()[drawn], node[:, 0].cpu().numpy()[drawn]):
+            raise AssertionError("scan_pair knob form B=%d: no split, or a "
+                                 "split off its drawn lane" % B)
+        fast = scal[:, :8].contiguous()
+        ms = device_ms(lambda: scan_pair(scal, gh, hh, *masks, node=node,
+                                         **maps))
+        fast_ms = device_ms(lambda: scan_pair(fast, gh, hh, *masks, **maps))
+        b_ms, b_by = knob_bound(scal, gb, layout, k, node)
+        rec = {"ms": ms, "fast_ms": fast_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "max_abs_err": err, "splits": int(has.sum())}
+        if B == 2:
+            rec["plain_ms"] = device_ms(lambda: scan_pair_plain(
+                *args, node=node), reps=20)
+        log("scan_pair knob form B=%d F=%d Wp=%d (l1 %g, max_delta_step %g, "
+            "monotone %s, %d drawn lanes, by-node masks): two launches "
+            "bit-identical, rows form = gathered form, bit-identical to the "
+            "plain version on the CPU, %d of %d children split; median per "
+            "call %.4f ms (fast form on the same planes %.4f ms)%s; bound "
+            "%.6f ms (%s)"
+            % (B, gc.num_features, layout.Wp, l1,
+               KNOB_PARAMS["max_delta_step"], KNOB_MONO,
+               int((node[:, 0] >= 0).sum()), int(has.any(axis=1).sum()), B,
+               ms, fast_ms, ", plain %.4f ms" % rec["plain_ms"]
+               if B == 2 else "", b_ms, b_by))
+        recs[B] = rec
+        del gh, hh, gb, hb, k
+    r2 = recs[2]
+    return {"name": "scan_pair_knob", "route": "cuda",
+            "source": "lightgbm_torch/csrc/scan_pair.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_scan.py:262",
+            "launches": 0, "max_abs_err": max(r["max_abs_err"]
+                                              for r in recs.values()),
+            "ms": r2["ms"], "plain_ms": r2["plain_ms"],
+            "bound_ms": r2["bound_ms"], "bound_by": r2["bound_by"],
+            "library_ms": None, "fast_form_ms": r2["fast_ms"],
+            "b256_ms": recs[256]["ms"], "b256_fast_form_ms": recs[256][
+                "fast_ms"], "b256_bound_ms": recs[256]["bound_ms"]}
+
+
+def knob_node_tags(tree):
+    """The key tag of each internal node's scan (ops/grow.py: the root 0,
+    the children of split s 2s and 2s + 1; split s is internal node s - 1,
+    a node's own scan ran when its parent's split made it)."""
+    tags = np.zeros(max(tree.num_leaves - 1, 0), np.int64)
+    for p in range(tree.num_leaves - 1):
+        for side, c in enumerate((tree.left_child[p], tree.right_child[p])):
+            if c >= 0:
+                tags[c] = 2 * (p + 1) + side
+    return tags
+
+
+def check_knob_draws(bst, inner, seed):
+    """Replays every node's draws with the port's numpy threefry: each
+    split's feature lies in its node's by-node sample and its threshold is
+    the node's drawn extra_trees bin. Returns (nodes, trees) checked."""
+    from lightgbm_torch.treelearner.serial import bynode_count
+    from lightgbm_torch.utils import random as tf
+    b = bst._booster
+    F = inner.num_features
+    nb = np.asarray(inner.bin_end) - np.asarray(inner.bin_start)
+    k = bynode_count(b.config, F)
+    base = tf.prng_key(seed)
+    nodes = 0
+    for i, tree in enumerate(b.models):
+        tkey = tf.fold_in(base, i + 1)          # the learner's tree counter
+        for n, tag in enumerate(knob_node_tags(tree)):
+            key = tf.fold_in(tkey, int(tag))
+            f = int(tree.split_feature_inner[n])
+            mask = tf.bynode_mask(key, np.ones(F, bool), k)
+            want = int(tf.extra_trees_bins(key, nb)[f])
+            if not mask[f] or int(tree.threshold_in_bin[n]) != want:
+                raise AssertionError(
+                    "knobs: tree %d node %d splits feature %d at bin %d; its "
+                    "draws: sample %s, bin %d" % (i, n, f,
+                                                  tree.threshold_in_bin[n],
+                                                  np.nonzero(mask)[0], want))
+            nodes += 1
+    return nodes, len(b.models)
+
+
+def check_monotone_sweep(bst, X, rows=1000):
+    """Each constrained feature sweeps every split threshold of the model
+    (and the value just past it) on `rows` rows: the raw score moves only
+    in the constraint's direction. Returns the largest move per feature."""
+    sub = X[:rows].copy()
+    moved = {}
+    for f, sign in KNOB_MONO.items():
+        thr = sorted({float(t.threshold[k]) for t in bst._booster.models
+                      for k in range(t.num_leaves - 1)
+                      if t.split_feature[k] == f})
+        grid = sorted({float(np.nanmin(X[:rows, f])) - 1.0,
+                       float(np.nanmax(X[:rows, f])) + 1.0} | set(thr)
+                      | {float(np.nextafter(t, np.inf)) for t in thr})
+        raw = []
+        for v in grid:
+            sub[:, f] = v
+            raw.append(bst.predict(sub, raw_score=True))
+        sub[:, f] = X[:rows, f]
+        step = np.diff(np.stack(raw), axis=0) * sign
+        if step.size and step.min() < 0:
+            raise AssertionError("knobs: feature %d (constraint %+d) moves "
+                                 "the score against it by %.3g"
+                                 % (f, sign, -float(step.min())))
+        moved[f] = (len(thr), float(step.max()) if step.size else 0.0)
+    return moved
+
+
+def check_knob_leaves(bst, rec):
+    """max_delta_step: every leaf of the trees after the first (which
+    carries the initial score) within +-mds x the learning rate, at least
+    one on it. The last tree's leaves, against the leaf math on the host:
+    from each leaf's gradient sums (f64 on the card, through the grower's
+    row -> leaf map), -ThresholdL1(G) / (H + l2) clamped to +-mds and into
+    the leaf's monotone bounds (replayed over the grower's split records
+    with ops/split.py:mono_bounds), within 1e-5 + 1e-4 relative; lambda_l1
+    binds: some leaf's output before the monotone clamp moves by more than
+    1e-3 without it."""
+    import torch
+    from lightgbm_torch.ops.split import mono_bounds
+    b = bst._booster
+    mds, lr = KNOB_PARAMS["max_delta_step"], b.shrinkage_rate
+    bound = float(np.float32(mds)) * lr
+    vals = np.concatenate([t.leaf_value[:t.num_leaves]
+                           for t in b.models[1:]])
+    at = int(np.sum(np.abs(vals) == bound))
+    if not np.all(np.abs(vals) <= bound) or at == 0:
+        raise AssertionError("knobs: leaves past max_delta_step x lr %r "
+                             "(largest %r), %d on it"
+                             % (bound, float(np.abs(vals).max()), at))
+    grad, hess, arr, row_leaf = rec
+    L = arr.num_leaves
+    key = row_leaf.to(torch.int64)
+    G = torch.zeros(L, dtype=torch.float64, device=key.device) \
+        .index_add_(0, key, grad.double()).cpu().numpy()
+    H = torch.zeros(L, dtype=torch.float64, device=key.device) \
+        .index_add_(0, key, hess.double()).cpu().numpy()
+    # each leaf's monotone bounds: split k of leaf l makes leaves l and
+    # k + 1 from l's bounds and the two outputs the split gave them (a
+    # leaf's output until its own split is that split's internal value)
+    cmin = np.full(L, -np.inf, np.float32)
+    cmax = np.full(L, np.inf, np.float32)
+
+    def output(leaf, k):
+        later = [j for j in range(k + 1, L - 1) if arr.split_leaf[j] == leaf]
+        return arr.internal_value[later[0]] if later else arr.leaf_value[leaf]
+    for k in range(L - 1):
+        l, r = int(arr.split_leaf[k]), k + 1
+        cmin[l], cmax[l], cmin[r], cmax[r] = mono_bounds(
+            cmin[l], cmax[l], KNOB_MONO.get(int(arr.split_feature[k]), 0),
+            output(l, k), output(r, k))
+    l1, l2 = KNOB_PARAMS["lambda_l1"], float(b.config.lambda_l2)
+
+    def unbounded(g):
+        return np.clip(-g / (H + l2), -mds, mds)
+    free = unbounded(np.sign(G) * np.maximum(0.0, np.abs(G) - l1))
+    with_l1 = np.clip(free, cmin, cmax)
+    got = np.asarray(arr.leaf_value[:L], np.float64)
+    off = np.abs(got - with_l1) > 1e-5 + 1e-4 * np.abs(with_l1)
+    # lambda_l1 moves the output before the monotone clamp
+    sens = int(np.sum(np.abs(free - unbounded(G)) > 1e-3))
+    if off.any() or not sens:
+        raise AssertionError("knobs: %d of the last tree's %d leaves are off "
+                             "the leaf math (worst %.3g); %d leaves depend "
+                             "on lambda_l1" % (int(off.sum()), L, float(
+                                 np.abs(got - with_l1).max()), sens))
+    bounded = int(np.sum(np.isfinite(cmin) | np.isfinite(cmax)))
+    return at, len(vals), sens, bounded, L
 
 
 def phase_grow_step():
@@ -1746,13 +2057,31 @@ PATHS["l1"] = ({"objective": "regression_l1", "num_leaves": 255,
 LTR = {"objective": "lambdarank", "num_leaves": 255,
        "lambdarank_truncation_level": 30}
 RANK_PATHS = ("ltr", "xendcg")
-V1_PATHS = ("v1", "xendcg")
+V1_PATHS = ("v1", "xendcg", "knobs")
 PATHS["ltr"] = (dict(LTR, tpu_persist_scan="auto"),
                 PATHS["persist"][1] + ("lambdarank_grad",),
                 PATHS["persist"][2] + ("xendcg_grad",))
 PATHS["xendcg"] = (dict(LTR, objective="rank_xendcg", tpu_persist_scan="auto"),
                    PATHS["v1"][1] + ("xendcg_grad",),
                    PATHS["v1"][2] + ("lambdarank_grad",))
+# the split scan's numerical knobs, all at once (KNOB_PARAMS), by default
+# routing: the v1 grower with scan_pair's knob form (scan_pair_knob)
+PATHS["knobs"] = (dict(KNOB_PARAMS, num_leaves=255, tpu_persist_scan="auto"),
+                  ("hist_window", "scan_pair_knob"),
+                  PATHS["v1"][2] + ("scan_pair",))
+# the model digests that the earlier paths' full runs recorded (sha256 of
+# the model text without its parameters; first and last hex digits,
+# PERF.md section 6): a run at the default sizes must reproduce them.
+# (PERF.md had bundled's tail as "a85fe823", a miscopy of "...a8f414fe823":
+# its 8 leading and 5 trailing digits agree with the digest printed since.)
+KNOWN_DIGESTS = {"persist": ("cab22751", "49c488"),
+                 "v1": ("b122b60b", "eedebe"),
+                 "level": ("b9771780", "807332c"),
+                 "multiclass": ("40635bfe", "44a85dc"),
+                 "regression": ("277f605d", "9145ce"),
+                 "bundled": ("32e491a8", "fe823"),
+                 "l1": ("55c69e16", "d731d22a")}
+FULL_SIZE = {"on": False}     # main sets it when every size is the default
 # the kernels whose launches a Python counter counts (they run eagerly on
 # every path); every other kernel of the paths counts its launches on the
 # device (ops/counters.py), replays of a CUDA graph included
@@ -1822,7 +2151,9 @@ def expected_launches(bst, trees):
             // bst._booster.num_tree_per_iteration} \
         if bst._booster.objective.name in grad else {}
     if not bst._booster.use_persist:
-        return dict({"hist_window": nodes, "scan_pair": nodes,
+        scan = ("scan_pair_knob" if bst._booster.tree_learner.knobs
+                else "scan_pair")
+        return dict({"hist_window": nodes, scan: nodes,
                      "renew_leaf": renew}, **rank), []
     gr = bst._booster.tree_learner._persist_gr
     stats = gr.grow_stats
@@ -1986,6 +2317,18 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
             draws.append(next_floats(self))
             return draws[-1]
         RankXENDCG._next_floats = recorded
+    last_tree = []
+    if path == "knobs":
+        # the last tree's gradients, grower arrays and row -> leaf map
+        # (check_knob_leaves)
+        from lightgbm_torch.treelearner.serial import SerialTreeLearner
+        train_arrays = SerialTreeLearner.train_arrays
+
+        def recording(self, grad, hess):
+            out = train_arrays(self, grad, hess)
+            last_tree[:] = [(grad, hess) + tuple(out)]
+            return out
+        SerialTreeLearner.train_arrays = recording
     reset_counts()
     torch.cuda.synchronize()
     bst = None
@@ -2007,7 +2350,17 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
     finally:
         if path == "xendcg":
             RankXENDCG._next_floats = next_floats
+        if path == "knobs":
+            SerialTreeLearner.train_arrays = train_arrays
     digest = model_digest(bst)
+    if FULL_SIZE["on"] and path in KNOWN_DIGESTS:
+        head, tail = KNOWN_DIGESTS[path]
+        if not (digest.startswith(head) and digest.endswith(tail)):
+            raise AssertionError("train %s: model digest %s, the recorded "
+                                 "one is %s...%s" % (path, digest, head,
+                                                     tail))
+        log("train %s: model digest equal to the recorded one (%s...%s)"
+            % (path, head, tail))
     if path == "xendcg":
         check_xendcg_draws(bst, draws, iters)
     if bst._booster.use_persist != (path not in V1_PATHS):
@@ -2094,7 +2447,31 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         "raw scores" % path)
     if path == "l1":
         check_renewed_leaves(bst)
-    if keep is not None and path in ("persist", "l1", "ltr"):
+    if path == "knobs":
+        t = time.time()
+        at, nleaves, sens, bounded, L = check_knob_leaves(bst, last_tree[0])
+        log("train knobs: max_delta_step %g: %d of the %d leaves after the "
+            "first tree sit at +-%r (max_delta_step x learning rate), none "
+            "past it; the last tree's %d leaves (%d with monotone bounds) "
+            "equal the leaf math with lambda_l1 %g, and %d of them move by "
+            "more than 1e-3 without it (before the monotone clamp)"
+            % (KNOB_PARAMS["max_delta_step"], at, nleaves,
+               float(np.float32(KNOB_PARAMS["max_delta_step"]))
+               * bst._booster.shrinkage_rate, L, bounded,
+               KNOB_PARAMS["lambda_l1"], sens))
+        moved = check_monotone_sweep(bst, X)
+        log("train knobs: monotone sweep over 1000 rows, each constrained "
+            "feature at every split threshold of the model and just past "
+            "it: the raw score moves only in the constraint's direction "
+            "(feature: (thresholds, largest move)) %s" % moved)
+        nodes, ntrees = check_knob_draws(bst, ds._inner,
+                                         int(bst._booster.config.extra_seed))
+        log("train knobs: draw replay (numpy threefry, extra_seed %d): every "
+            "one of the %d splits of the %d trees lies in its node's "
+            "by-node sample and on its drawn extra_trees bin (%.1f s of "
+            "host checks)" % (int(bst._booster.config.extra_seed), nodes,
+                              ntrees, time.time() - t))
+    if keep is not None and path in ("persist", "l1", "ltr", "knobs"):
         keep["iteration"] = profile_iteration(bst.update)
     if keep is not None and path == "l1":
         keep["bst"] = bst
@@ -2616,7 +2993,7 @@ PROFILED = {
 }
 PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["l1"] = \
     PROFILED["ltr"] = PROFILED["persist"]
-PROFILED["xendcg"] = PROFILED["v1"]
+PROFILED["xendcg"] = PROFILED["knobs"] = PROFILED["v1"]
 # the kernels of the port's own sources (csrc/); every other kernel in a
 # profile is PyTorch's (the gradient fills, copies, the score snapshot)
 OWN_KERNELS = ("payload_ordered_partial", "hist_window", "split_", "level_",
@@ -2900,22 +3277,61 @@ PARITY = (
       "tpu_persist_scan": "force" if route == "persist" else "false"},
      (route == "persist", False, False))
     for obj, route in (("lambdarank", "persist"), ("lambdarank", "v1"),
-                       ("rank_xendcg", "v1")))
+                       ("rank_xendcg", "v1"))) + tuple(
+    # the split scan's knobs on v1 by default routing (at 200k rows the
+    # card would take the persistent grower without them), each alone and
+    # all five together, at 63 leaves; lambda_l1 sized to this row count
+    ("knobs %s" % name, "higgs", dict(extra, num_leaves=63),
+     (False, False, False))
+    for name, extra in (
+        ("lambda_l1", {"lambda_l1": 10.0}),
+        ("max_delta_step", {"max_delta_step": 0.5}),
+        ("monotone", {"monotone_constraints":
+                      KNOB_PARAMS["monotone_constraints"]}),
+        ("extra_trees", {"extra_trees": True}),
+        ("bynode", {"feature_fraction_bynode": 0.8}),
+        ("all five", dict(KNOB_PARAMS, lambda_l1=10.0)))) + (
+    # a custom objective (the binary gradients from the host) on v1
+    ("fobj binary", "higgs", {"objective": "none", "num_leaves": 63,
+                              "fobj": "binary"}, (False, False, False)),)
+# the paths trained `--deep-parity-iters` iterations (ROADMAP C7: the
+# binary persist and v1 paths and softmax on its three routes; the knob
+# and custom-objective paths)
+DEEP_PARITY = ("persist", "v1", "multiclass persist", "multiclass level",
+               "multiclass v1", "fobj binary") + tuple(
+    p[0] for p in PARITY if p[0].startswith("knobs "))
 
 
-def phase_parity(lgb, data, iters, mc_iters):
+def binary_fobj(preds, ds):
+    """A custom objective: the binary objective's gradients (sigmoid 1,
+    labels in {0, 1}) in numpy f64."""
+    y = np.where(ds.get_label() > 0, 1.0, -1.0)
+    resp = -y / (1.0 + np.exp(y * preds))
+    a = np.abs(resp)
+    return resp, a * (1.0 - a)
+
+
+FOBJ = {"binary": binary_fobj}
+
+
+def phase_parity(lgb, data, iters, mc_iters, deep_iters):
     """Each path on cuda and on the CPU grows the same trees, with the same
     leaf values and the same model text (sha256 without the parameters).
     `data` maps a PARITY data name to (X, y), (X, y, weights) or (X, y,
-    weights or None, query sizes); the multiclass paths train `mc_iters`
-    iterations (3 trees each), the others `iters`."""
+    weights or None, query sizes); the DEEP_PARITY paths train
+    `deep_iters` iterations, the other multiclass paths `mc_iters` (3
+    trees each), the rest `iters`."""
     built = {}
+    t_all = time.time()
     for path, name, extra, (persist, level, blocks) in PARITY:
         X, y, *rest = data[name]
         w = rest[0] if rest else None
         g = rest[1] if len(rest) > 1 else None
+        extra = dict(extra)
+        fobj = FOBJ.get(extra.pop("fobj", None))
         params = dict(COMMON, **extra)
-        n_it = mc_iters if params.get("num_class", 1) > 1 else iters
+        n_it = (deep_iters if path in DEEP_PARITY else
+                mc_iters if params.get("num_class", 1) > 1 else iters)
         out, digest = {}, {}
         for dev in ("cuda", "cpu"):
             p = dict(params, device_type=dev)
@@ -2926,7 +3342,7 @@ def phase_parity(lgb, data, iters, mc_iters):
                 # the ranking paths share one binned Dataset per device
                 # (137 features take seconds to bin)
                 built[(name, dev)] = ds
-            bst = lgb.train(p, ds, n_it)
+            bst = lgb.train(p, ds, n_it, fobj=fobj)
             if bst._booster.use_persist != persist:
                 raise AssertionError("parity %s: wrong grower on %s"
                                      % (path, dev))
@@ -2968,6 +3384,7 @@ def phase_parity(lgb, data, iters, mc_iters):
         log("parity %s: %d rows x %d iterations (%d trees): tree structure, "
             "leaf values and model text (sha256 %s) equal on cuda and cpu"
             % (path, X.shape[0], n_it, len(a), digest["cuda"][:16]))
+    log("parity: %d paths in %.1f s" % (len(PARITY), time.time() - t_all))
 
 
 # ---- learning to rank (MSLR-WEB30K's shape) --------------------------------
@@ -3457,6 +3874,11 @@ def main() -> int:
     ap.add_argument("--parity-rows", type=int, default=200_000)
     ap.add_argument("--expo-parity-rows", type=int, default=100_000)
     ap.add_argument("--parity-iters", type=int, default=2)
+    ap.add_argument("--deep-parity-iters", type=int, default=5,
+                    help="iterations of the DEEP_PARITY paths (binary "
+                         "persist and v1, softmax, the knobs, fobj)")
+    ap.add_argument("--knob-iters", type=int, default=3,
+                    help="iterations of the HIGGS knob path (every knob)")
     ap.add_argument("--mc-parity-iters", type=int, default=1,
                     help="iterations of the multiclass parity paths (3 "
                     "classes)")
@@ -3488,6 +3910,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after each train path, profile one more iteration")
     args = ap.parse_args()
+    # the recorded digests hold at the default sizes
+    FULL_SIZE["on"] = all(getattr(args, k) == ap.get_default(k) for k in (
+        "rows", "iters", "v1_iters", "level_iters", "mc_iters", "reg_iters",
+        "l1_iters", "expo_rows"))
 
     import torch
     if not torch.cuda.is_available():
@@ -3539,6 +3965,22 @@ def main() -> int:
                                  args.profile, "v1")
         runs["level"] = phase_train(lgb, X, y, ds, args.level_iters, card,
                                     args.profile, "level", args.off_iters)
+        # the monotone constraints are the Dataset's (set when it is built,
+        # as in the JAX package), so the knob path bins its own
+        ds_knobs, _ = make_dataset(lgb, X, y,
+                                   dict(COMMON, **PATHS["knobs"][0]),
+                                   "HIGGS with the knob parameters")
+        knob_keep = {}
+        runs["knobs"] = phase_train(lgb, X, y, ds_knobs, args.knob_iters,
+                                    card, args.profile, "knobs",
+                                    keep=knob_keep)
+        del ds_knobs
+        wall, busy, _, _, _ = knob_keep["iteration"]
+        log("train knobs: one more iteration %.1f ms wall, %.1f ms busy, "
+            "idle %.3f (%s)" % (wall, busy, 1 - busy / wall, card))
+        next(k for k in kernels if k["name"] == "scan_pair_knob").update(
+            knob_wall_ms=wall, knob_busy_ms=busy)
+        del knob_keep
         # the same bins with multiclass labels, then with an L2 target
         y5 = quantile_classes(latent, 5)
         ds.set_label(y5)
@@ -3634,7 +4076,8 @@ def main() -> int:
         # scan_blocks
         # (grow_step: its splits, one commit each; its other kernels'
         # counts beside them)
-        serves = {"hist_window": "v1", "level_pass": "level",
+        serves = {"hist_window": "v1", "scan_pair_knob": "knobs",
+                  "level_pass": "level",
                   "level_seg_hist": "level", "scan_blocks": "bundled",
                   "valid_walk": "valid", "renew_leaf": "l1",
                   "lambdarank_grad": "ltr", "xendcg_grad": "xendcg"}
@@ -3658,6 +4101,8 @@ def main() -> int:
                 rec["ltr_launches"] = runs["ltr"][rec["name"]]
             if rec["name"] in ("hist_window", "scan_pair"):
                 rec["xendcg_launches"] = runs["xendcg"][rec["name"]]
+            if rec["name"] == "hist_window":
+                rec["knobs_launches"] = runs["knobs"]["hist_window"]
             if rec["name"] == "split_pass":
                 rec["multiclass_consolidate_launches"] = \
                     runs["multiclass"]["consolidate"]
@@ -3680,7 +4125,8 @@ def main() -> int:
         data["ltr-w"] = (Xr, yr, wr, gr)
         log("data: make_ltr_like(%d, seed=7) in %d queries of 1 to %d rows"
             % (args.rank_parity_rows, len(gr), gr.max()))
-        phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters)
+        phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters,
+                     args.deep_parity_iters)
         phase_parity_es(lgb, es_data(args.es_rows), args.es_rounds)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("kernels: " + ", ".join(k["name"] for k in kernels), flush=True)

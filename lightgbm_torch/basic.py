@@ -105,6 +105,16 @@ class Dataset:
             self._inner.metadata.set_label(label)
         return self
 
+    def get_label(self):
+        if self._inner is not None:
+            return self._inner.metadata.label
+        return self.label
+
+    def get_weight(self):
+        if self._inner is not None:
+            return self._inner.metadata.weight
+        return self.weight
+
     def set_group(self, group) -> "Dataset":
         """Replace the query groups (per-query sizes or boundaries; of the
         binned dataset too, once built)."""
@@ -217,10 +227,31 @@ class Booster:
                                         self._make_metrics(self._cfg), name)
         return self
 
-    def update(self) -> bool:
-        """One boosting round. Returns True when no further splits were
-        possible (training finished)."""
-        return self._booster.train_one_iter()
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """One boosting round (reference basic.py:2089). Returns True when
+        no further splits were possible (training finished). With `fobj`,
+        ``fobj(scores, train_set) -> (grad, hess)`` gives the round's
+        gradients from the class-major [K * n] f64 training scores (numpy),
+        as in the JAX package (basic.py:544-567)."""
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("Replacing train_set is not supported")
+        if fobj is None:
+            return self._booster.train_one_iter()
+        preds = self._booster.train_score.score.detach().cpu().numpy() \
+            .reshape(-1)
+        grad, hess = fobj(preds, self.train_set)
+        return self.__boost(grad, hess)
+
+    def __boost(self, grad, hess) -> bool:
+        grad = np.ascontiguousarray(grad, dtype=np.float32).reshape(-1)
+        hess = np.ascontiguousarray(hess, dtype=np.float32).reshape(-1)
+        b = self._booster
+        n = b.train_data.num_data * b.num_tree_per_iteration
+        if grad.size != n or hess.size != n:
+            raise ValueError("Lengths of gradients (%d) and hessians (%d) "
+                             "don't match the expected %d"
+                             % (grad.size, hess.size, n))
+        return b.train_one_iter(grad, hess)
 
     # ------------------------------------------------------------------
     def _eval_one(self, score, metrics, data_name: str, feval=None,

@@ -37,6 +37,11 @@ from the leaf table's payload segments. Such an objective takes the JAX
 package's per-class path (its stop rule and first-iteration constant
 trees), as ``_fast_path_ok`` routes it.
 
+Custom objectives (``train(fobj=)``, ``Booster.update(fobj=)``): the
+gradients come from the host, one [K * n] pair per iteration, and the
+objective is "none", so the learner takes the v1 grower and the iteration
+the JAX package's per-class path (no BoostFromAverage, its stop rule).
+
 Not in this slice (ROADMAP.md queue A): the K-iteration fused scan, which
 the JAX package runs in batches of 16 iterations on its persistent path (a
 CUDA graph per iteration in the port, item 15), bagging/GOSS/DART/RF.
@@ -148,7 +153,8 @@ class GBDT:
         port's objectives: no leaf renewal, every class trainable and no
         validation set. (Its training-metric term is always false under
         ``train``: the Booster gives its GBDT no training metrics.)"""
-        return (not self.objective.is_renew_tree_output
+        return (self.objective is not None
+                and not self.objective.is_renew_tree_output
                 and all(self.class_need_train) and not self.valid_score)
 
     def boost_from_average(self, class_id: int) -> float:
@@ -187,9 +193,10 @@ class GBDT:
             self.config.learning_rate = v
             self.shrinkage_rate = float(v)
 
-    def _grow(self, classes):
+    def _grow(self, classes, gradients=None):
         """The TreeArrays of this iteration's tree of each class in
-        `classes`, every score row updated."""
+        `classes`, every score row updated; `gradients` = the host's
+        (grad, hess) [K, n] tensors of a custom objective."""
         if self.use_persist:
             learner = self.tree_learner
             out = learner.train_persist(
@@ -197,15 +204,19 @@ class GBDT:
                 self.shrinkage_rate, classes)
             self.train_score.defer_to(learner.persist_finalize_scores)
             return out
-        grad, hess = self.objective.get_gradients(self.train_score.score)
-        if self.num_tree_per_iteration == 1:
-            grad, hess = grad[None], hess[None]
+        if gradients is not None:
+            grad, hess = gradients
+        else:
+            grad, hess = self.objective.get_gradients(self.train_score.score)
+            if self.num_tree_per_iteration == 1:
+                grad, hess = grad[None], hess[None]
         out = []
         for k in classes:
             arrays, row_leaf = self.tree_learner.train_arrays(grad[k],
                                                               hess[k])
             if arrays.num_leaves > 1:
-                if self.objective.is_renew_tree_output:
+                if (self.objective is not None
+                        and self.objective.is_renew_tree_output):
                     arrays = self._renew_v1(arrays, row_leaf, k)
                 self.train_score.add_tree(
                     arrays.leaf_value[:arrays.num_leaves], row_leaf,
@@ -244,9 +255,12 @@ class GBDT:
         else:
             self.train_score.add_const(val, class_id)
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration, one tree per class; True when training
         should STOP (no splittable leaves), mirroring gbdt.cpp:338-420.
+        `gradients`/`hessians`: a custom objective's [K * n] host arrays
+        (class-major), which take the per-class path without
+        BoostFromAverage (the JAX package's gbdt.py:680-689).
         Once it has stopped, a later call returns True at once: the JAX
         package's later iterations would grow the same stubs and drop them.
 
@@ -264,19 +278,33 @@ class GBDT:
         The trees with a split are walked onto the validation scores from
         their leaf values after shrinkage, before the init-score bias
         (gbdt.py:720-775)."""
-        if self.objective is None:
+        custom = gradients is not None and hessians is not None
+        if self.objective is None and not custom:
             Log.fatal("No objective function provided")
         if self._finished:
             return True
         K = self.num_tree_per_iteration
         first = not self.models
-        fast = self._fast_path()
-        init_scores = [self.boost_from_average(k) for k in range(K)]
+        fast = self._fast_path() and not custom
+        if custom and self.use_persist:
+            Log.fatal("custom gradients train on the v1 grower, and this "
+                      "Booster's objective took the persistent one: train "
+                      "with objective=none (train(fobj=) sets it) or "
+                      "tpu_persist_scan=false")
+        if custom:
+            n = self.train_data.num_data
+            init_scores = [0.0] * K
+            given = tuple(torch.as_tensor(np.asarray(a, np.float32)
+                                          .reshape(K, n), device=self.device)
+                          for a in (gradients, hessians))
+        else:
+            init_scores = [self.boost_from_average(k) for k in range(K)]
+            given = None
         classes = ([k for k in range(K) if self.class_need_train[k]]
                    if self.train_data.num_features > 0 else [])
         trees = [None] * K
         if classes:
-            for k, arrays in zip(classes, self._grow(classes)):
+            for k, arrays in zip(classes, self._grow(classes, given)):
                 if arrays.num_leaves > 1:
                     trees[k] = Tree.from_grower(arrays, self.train_data)
         grew = [trees[k] is not None for k in classes]

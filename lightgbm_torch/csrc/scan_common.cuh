@@ -160,6 +160,76 @@ static __device__ __forceinline__ bool pair_max_keys(
   return true;
 }
 
+// ---- the knob form's gain (ops/split.py, in the same f32 operations) ----
+// Every min/max below lets NaN through as jnp.minimum/torch.minimum do
+// (fminf/fmaxf would drop it), and sign is torch.sign's: 0 for +-0 and NaN
+// (the factor it multiplies is NaN then, so the product is jnp.sign's).
+
+struct KnobScalars {
+  float l2, l1, mds, cmin, cmax;
+  bool use_mc;
+  float mono;        // the feature's monotone sign
+};
+
+static __device__ __forceinline__ float knob_sign(float x) {
+  return (float)((x > 0.f) - (x < 0.f));
+}
+
+static __device__ __forceinline__ float knob_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+static __device__ __forceinline__ float knob_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// ThresholdL1: sign(s) * max(0, |s| - l1)
+static __device__ __forceinline__ float knob_threshold_l1(float s, float l1) {
+  const float z = fabsf(s) - l1;
+  return knob_sign(s) * (z < 0.f ? 0.f : z);
+}
+
+// CalculateSplittedLeafOutput: -ThresholdL1(g) / (h + l2), clamped to
+// +-mds when mds > 0
+static __device__ __forceinline__ float knob_output(float g, float h,
+                                                    const KnobScalars& k) {
+  const float ret = -knob_threshold_l1(g, k.l1) / (h + k.l2);
+  const float clipped = knob_sign(ret) * knob_min(fabsf(ret), k.mds);
+  return k.mds > 0.f ? clipped : ret;
+}
+
+// GetLeafGainGivenOutput: -(2 * ThresholdL1(g) * o + (h + l2) * o * o)
+static __device__ __forceinline__ float knob_gain_given(float g, float h,
+                                                        float o,
+                                                        const KnobScalars& k) {
+  const float sg = knob_threshold_l1(g, k.l1);
+  return -((2.f * sg) * o + ((h + k.l2) * o) * o);
+}
+
+// GetLeafGain: ThresholdL1(g)^2 / (h + l2), or the clamped output's gain
+static __device__ __forceinline__ float knob_leaf_gain(float g, float h,
+                                                       const KnobScalars& k) {
+  const float sg = knob_threshold_l1(g, k.l1);
+  const float plain = (sg * sg) / (h + k.l2);
+  if (!(k.mds > 0.f)) return plain;
+  return knob_gain_given(g, h, knob_output(g, h, k), k);
+}
+
+// GetSplitGains: without monotone constraints the two leaf gains; with
+// them, the gains of the outputs clamped into [cmin, cmax], and 0 for a
+// split whose outputs go against the feature's sign
+static __device__ __forceinline__ float knob_split_gain(float gl, float hl,
+                                                        float gr, float hr,
+                                                        const KnobScalars& k) {
+  if (!k.use_mc) return knob_leaf_gain(gl, hl, k) + knob_leaf_gain(gr, hr, k);
+  const float lo = knob_min(knob_max(knob_output(gl, hl, k), k.cmin), k.cmax);
+  const float ro = knob_min(knob_max(knob_output(gr, hr, k), k.cmin), k.cmax);
+  const bool bad = (k.mono > 0.f && lo > ro) || (k.mono < 0.f && lo < ro);
+  const float gain = knob_gain_given(gl, hl, lo, k) +
+                     knob_gain_given(gr, hr, ro, k);
+  return bad ? 0.f : gain;
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory (above the default
 // 48 KB only after this call). Returns the CUDA error, 0 on success.
 template <typename K>

@@ -3,20 +3,33 @@
 // Replaces the TPU kernel lightgbm_tpu/ops/pallas_scan.py:scan_pair (:262,
 // kernel _scan_kernel at :128), the fused form of the reference's
 // FeatureHistogram::FindBestThresholdSequentially
-// (src/treelearner/feature_histogram.hpp:770-948) on the fast path: f32,
-// L2 only, no monotone constraints, no max_delta_step.
+// (src/treelearner/feature_histogram.hpp:770-948) in f32, in two
+// compile-time instantiations of one kernel, as the reference's
+// USE_L1/USE_MAX_OUTPUT/USE_MC/USE_RAND template arms are:
+//   KNOBS = false, the fast form (the Pallas kernel's): L2 only;
+//   KNOBS = true, the knob form (the JAX package's general scan,
+//     lightgbm_tpu/ops/split.py:find_best_split_numerical:241, for the same
+//     f32 sums): lambda_l1, max_delta_step and monotone constraints in the
+//     gains (scan_common.cuh: knob_split_gain), extra_trees (one drawn
+//     threshold per child and feature) and feature_fraction_bynode (a
+//     feature mask per child).
 //
 // Contract (ops/scan.py: scan_pair_plain on the gathered planes is the same
 // function in plain PyTorch, bit for bit):
 //   scal  [B, 8] f32: sum_grad, sum_hess (+2e-15, added by the caller),
-//         num_data, cnt_factor, min_data, min_hess, min_gain_shift, l2
+//         num_data, cnt_factor, min_data, min_hess, min_gain_shift, l2;
+//         the knob form [B, 16]: then l1, max_delta_step, cmin, cmax,
+//         use_mc (ops/scan.py:knob_scalars)
 //   gh, hh [R, TBp] f32 histogram planes; child c's bin lane w of feature
 //         f is gh[rows[c], gidx[f, w]] (rows [B] i64, gidx [Fp, Wp] i64).
 //         rows == NULL reads row c, gidx == NULL reads f * Wp + w: the
 //         gathered form, [B, Fp, Wp] planes with TBp = Fp * Wp.
 //   keep_r, keep_f [Fp, Wp] f32 prefix-sum masks per scan direction
 //   valid_r, valid_f [Fp, Wp] (shared) or [B, Fp, Wp] f32 threshold masks
-//   aux   [8, Fp] f32, row 0 the feature penalty
+//   aux   [8, Fp] f32, row 0 the feature penalty; the knob form: row 1 the
+//         monotone sign
+//   node  the knob form only, [B, 2, Fp] f32: row 0 the extra_trees lane
+//         (-1: any lane), row 1 the by-node feature mask (0 or 1)
 //   out   [B, 8, Fp] f32: gain, threshold, use_forward, left grad, left
 //         hess, left count, has_split, 0
 //
@@ -49,12 +62,18 @@
 // order-preserving bits above, the tie-break below (REVERSE: the lane, so
 // the highest threshold wins a tie; forward: Wp - 1 - lane, the lowest).
 // Invalid lanes have no key. A valid gain exceeds min_gain_shift, which is
-// leaf_gain (>= 0, the hessian sum is positive) plus min_gain_to_split
-// (>= 0), so it is never -0.0 or NaN: its key orders exactly as the float
+// the parent's leaf_gain plus min_gain_to_split (>= 0, the config's bound),
+// so it is never -0.0 or NaN: its key orders exactly as the float
 // comparisons of the plain version, +inf (l2 = 0 with a zero-hessian side)
-// included. Forward wins only on a strictly greater gain, compared as
-// floats after decoding. Compiled with -fmad=false; no fast math, no
-// approximate division.
+// included. The knob form keeps this: its leaf_gain is
+// ThresholdL1(g)^2 / (h + l2) >= 0, or with max_delta_step the gain of an
+// output o clamped toward 0 from r = -ThresholdL1(g) / (h + l2), which is
+// (h + l2) * o * (2r - o) with o of r's sign and |o| <= |r|, so >= 0 (or a
+// zero of either sign, and -0.0 + 0.0 = +0.0). A split's monotone-clamped
+// gain can be negative, and a bad split's is 0.0, but neither exceeds
+// min_gain_shift >= +0.0, so neither is ever valid and packed. Forward
+// wins only on a strictly greater gain, compared as floats after decoding.
+// Compiled with -fmad=false; no fast math, no approximate division.
 //
 // The two count rows are integer-valued (floor(h * cf + 0.5) times a 0/1
 // mask), so while their partial sums stay below 2^53 every f64 add is
@@ -62,8 +81,15 @@
 // checks this on the plain version). They run as chains here all the same:
 // in the warp's lockstep, lanes 4-5 add no step to lanes 0-3, and a
 // parallel scan would save only their share of the conversions.
+//
+// The knob form stages and scans as the fast form does; per lane it folds
+// the child's node inputs into the two valid bits and evaluates the gains
+// in the plain version's operations (knob_split_gain). Its launch shape is
+// the fast form's. A simple form: the per-lane gain costs a few more
+// divisions and branches, which later work may trim.
 #include "scan_common.cuh"
 
+template <bool KNOBS>
 __global__ void scan_pair_kernel(const float* __restrict__ scal,
                                  const float* __restrict__ gh,
                                  const float* __restrict__ hh,
@@ -75,7 +101,8 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
                                  const float* __restrict__ valid_r,
                                  const float* __restrict__ valid_f,
                                  int valid_batched,
-                                 const float* __restrict__ aux, int B,
+                                 const float* __restrict__ aux,
+                                 const float* __restrict__ node, int B,
                                  int Fp, int Wp, int K,
                                  float* __restrict__ out,
                                  const long long* done, long long* counter) {
@@ -100,9 +127,18 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
       scan_smem + (size_t)(K == 1 ? nw : 1) * SCAN_ROWS * stride);
   const float NEG_INF = -INFINITY;
 
-  const float* s = scal + c * 8;
+  const float* s = scal + c * (KNOBS ? 16 : 8);
   const float sg = s[0], sh = s[1], nd = s[2], cf = s[3];
   const float min_data = s[4], min_hess = s[5], mgs = s[6], l2 = s[7];
+  // the knob form's scalars and this (child, feature)'s node inputs
+  KnobScalars kn{};
+  float rand_lane = -1.f;
+  bool node_on = true;
+  if (KNOBS) {
+    kn = KnobScalars{l2, s[8], s[9], s[10], s[11], s[12] > 0.f, aux[Fp + f]};
+    rand_lane = node[(size_t)c * 2 * Fp + f];
+    node_on = node[(size_t)c * 2 * Fp + Fp + f] > 0.f;
+  }
   const long long row = rows ? rows[c] : (long long)c;
   const float* gsrc = gh + row * tbp;
   const float* hsrc = hh + row * tbp;
@@ -146,8 +182,11 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
       R[3 * stride + w] = (double)(g[j] * kf[j]);
       R[4 * stride + w] = (double)(h[j] * kf[j]);
       R[5 * stride + w] = (double)(cnt * kf[j]);
-      valid_rb |= (unsigned)(vr[j] > 0.f) << (j0 + j);
-      valid_fb |= (unsigned)(vf[j] > 0.f) << (j0 + j);
+      bool at = true;
+      if (KNOBS)   // extra_trees: the drawn lane only; by-node: the mask
+        at = node_on && (rand_lane < 0.f || (float)w == rand_lane);
+      valid_rb |= (unsigned)(vr[j] > 0.f && at) << (j0 + j);
+      valid_fb |= (unsigned)(vf[j] > 0.f && at) << (j0 + j);
     }
   }
   pair_sync(K);
@@ -175,8 +214,10 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
     const float l_cnt = nd - r_cnt;
     const float l_grad = sg - r_grad;
     const float l_hess = sh - r_hess;
-    const float gain_r = (l_grad * l_grad) / (l_hess + l2) +
-                         (r_grad * r_grad) / (r_hess + l2);
+    const float gain_r =
+        KNOBS ? knob_split_gain(l_grad, l_hess, r_grad, r_hess, kn)
+              : (l_grad * l_grad) / (l_hess + l2) +
+                    (r_grad * r_grad) / (r_hess + l2);
     const bool ok_r = ((valid_rb >> j) & 1u) && (r_cnt >= min_data) &&
                       (r_hess >= min_hess) && (l_cnt >= min_data) &&
                       (l_hess >= min_hess) && (gain_r > mgs);
@@ -189,8 +230,10 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
     const float f_r_cnt = nd - cl_c;
     const float f_r_grad = sg - gl_c;
     const float f_r_hess = sh - hl_c;
-    const float gain_f = (gl_c * gl_c) / (hl_c + l2) +
-                         (f_r_grad * f_r_grad) / (f_r_hess + l2);
+    const float gain_f =
+        KNOBS ? knob_split_gain(gl_c, hl_c, f_r_grad, f_r_hess, kn)
+              : (gl_c * gl_c) / (hl_c + l2) +
+                    (f_r_grad * f_r_grad) / (f_r_hess + l2);
     const bool ok_f = ((valid_fb >> j) & 1u) && (cl_c >= min_data) &&
                       (hl_c >= min_hess) && (f_r_cnt >= min_data) &&
                       (f_r_hess >= min_hess) && (gain_f > mgs);
@@ -234,9 +277,22 @@ __global__ void scan_pair_kernel(const float* __restrict__ scal,
   o[7 * Fp] = 0.f;
 }
 
+// scan_common.cuh:scan_allow_smem for one instantiation: the two share a
+// function type, so each keeps its own opt-in here.
+template <bool KNOBS>
+static int allow_smem(int bytes) {
+  static int allowed = 48 * 1024;
+  if (bytes <= allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan_pair_kernel<KNOBS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return (int)err;
+}
+
 // Launches the scan of B children on `stream` (scan_common.cuh:scan_shape:
-// K warps per (feature, child)). rows/gidx may be NULL (the gathered
-// form). Wp is a multiple of 32 in [32, 1024]. With *done (a device int64;
+// K warps per (feature, child)): the knob form when `node` is not NULL,
+// else the fast form. rows/gidx may be NULL (the gathered form). Wp is a multiple of 32 in [32, 1024]. With *done (a device int64;
 // may be NULL) set the kernel returns at once; counter (may be NULL) is
 // incremented once per scan. The scalars, rows and done flag are read from
 // device memory, where the grower's step kernels write them. Returns the
@@ -246,25 +302,29 @@ extern "C" int scan_pair_launch(const void* scal, const void* gh,
                                 const void* gidx, long long tbp,
                                 const void* keep_r, const void* keep_f,
                                 const void* valid_r, const void* valid_f,
-                                int valid_batched, const void* aux, int B,
-                                int Fp, int Wp, void* out, const void* done,
-                                void* counter, void* stream) {
+                                int valid_batched, const void* aux,
+                                const void* node, int B, int Fp, int Wp,
+                                void* out, const void* done, void* counter,
+                                void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int pairs = B * Fp;
   const int pair_smem = SCAN_ROWS * row_stride(Wp) * (int)sizeof(double);
   const ScanShape sh = scan_shape(pairs, pair_smem, 1);
   const int smem = sh.K == 1 ? sh.nw * pair_smem
                              : pair_smem + 2 * sh.K * (int)sizeof(double);
-  const int err = scan_allow_smem(scan_pair_kernel, smem);
-  if (err) return err;
   const int blocks = sh.K == 1 ? (pairs + sh.nw - 1) / sh.nw : pairs;
-  scan_pair_kernel<<<blocks, sh.nw * 32, smem, st>>>(
+  const bool knobs = node != nullptr;
+  const int err = knobs ? allow_smem<true>(smem) : allow_smem<false>(smem);
+  if (err) return err;
+  auto kernel = knobs ? scan_pair_kernel<true> : scan_pair_kernel<false>;
+  kernel<<<blocks, sh.nw * 32, smem, st>>>(
       static_cast<const float*>(scal), static_cast<const float*>(gh),
       static_cast<const float*>(hh), static_cast<const long long*>(rows),
       static_cast<const long long*>(gidx), tbp,
       static_cast<const float*>(keep_r), static_cast<const float*>(keep_f),
       static_cast<const float*>(valid_r), static_cast<const float*>(valid_f),
-      valid_batched, static_cast<const float*>(aux), B, Fp, Wp, sh.K,
+      valid_batched, static_cast<const float*>(aux),
+      static_cast<const float*>(node), B, Fp, Wp, sh.K,
       static_cast<float*>(out), static_cast<const long long*>(done),
       static_cast<long long*>(counter));
   return (int)cudaGetLastError();

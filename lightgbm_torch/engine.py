@@ -17,9 +17,12 @@ Ranking trains from a ``Dataset(..., group=)``; a validation set carries
 its own groups, and ``eval_at``/``label_gain`` reach the ndcg and map
 metrics, whose early stopping keeps the bigger value.
 
-Refused, naming the ROADMAP.md item that will bring them: ``fobj``
-(queue A, item 17), ``init_model`` (item 10) and ``num_machines > 1``
-(item 11); ``cv`` is item 9.
+A custom objective (``fobj``) sets ``objective=none`` and hands each
+round's host gradients to ``Booster.update`` (the JAX package's
+engine.py:591), which trains them on the v1 grower.
+
+Refused, naming the ROADMAP.md item that will bring them: ``init_model``
+(queue A, item 10) and ``num_machines > 1`` (item 11); ``cv`` is item 9.
 """
 from __future__ import annotations
 
@@ -147,13 +150,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
     wins over the argument; ``valid_sets`` (the training set among them is
     evaluated as ``training``), ``feval``, ``early_stopping_rounds``,
     ``evals_result``, ``verbose_eval``, ``learning_rates`` and
-    ``callbacks`` as in the JAX package."""
-    for name, value, item in (
-            ("fobj", fobj, "item 17: other objectives"),
-            ("init_model", init_model, "item 10: resilience")):
-        if value is not None:
-            raise LightGBMError("train(%s=...) is not ported yet "
-                                "(ROADMAP.md queue A, %s)" % (name, item))
+    ``callbacks`` as in the JAX package; ``fobj(scores, train_set) ->
+    (grad, hess)`` replaces the objective."""
+    if init_model is not None:
+        raise LightGBMError("train(init_model=...) is not ported yet "
+                            "(ROADMAP.md queue A, item 10: resilience)")
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     params = copy.deepcopy(params)
@@ -166,6 +167,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if int(Config(params).num_machines) > 1:
         raise LightGBMError("num_machines > 1 is not ported yet (ROADMAP.md "
                             "queue A, item 11: distributed training)")
+    if fobj is not None:
+        params["objective"] = "none"
 
     plan = _EvalPlan.build(train_set, valid_sets, valid_names)
 
@@ -197,7 +200,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     final_evals: List = []
     for round_no in range(num_boost_round):
         registry.fire_pre(env_for(round_no, None))
-        booster.update()
+        booster.update(fobj=fobj)
         final_evals = plan.evaluate(booster, feval) if plan.active else []
         try:
             registry.fire_post(env_for(round_no, final_evals))

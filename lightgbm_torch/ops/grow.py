@@ -32,9 +32,19 @@ the host, driving the device:
 
 The JAX package routes data below 65536 rows to its masked grower; the port
 routes every size here. Both give the same trees up to f32 summation order
-(grow.py:1363). Fast path only: f32 sums, no bagging, no forced splits, no
-categorical features, no monotone constraints (the tree learner refuses the
-rest).
+(grow.py:1363). f32 sums, no bagging, no forced splits, no categorical
+features (the tree learner refuses the rest).
+
+The split scan's numerical knobs (:class:`Knobs`: ``lambda_l1``,
+``max_delta_step``, monotone constraints, ``extra_trees``,
+``feature_fraction_bynode``) run here, where the JAX package runs them (its
+general XLA scan on this grower, grow.py:1352): the scans take scan_pair's
+knob form, the leaf outputs take L1, the clamp and the leaf's monotone
+bounds, which each split hands down to its children (grow.py:1666-1689),
+and each scanned node draws its extra_trees thresholds and by-node feature
+sample on the host from its own key, as the JAX grower derives them from
+the tree's key (grow.py:842-853: the root folds in 0, split s's children
+2s and 2s + 1; utils/random.py draws jax.random's bits).
 """
 from __future__ import annotations
 
@@ -44,11 +54,12 @@ import numpy as np
 import torch
 
 from ..data.dataset import DeviceData
+from ..utils import random as tf
 from .histogram import hist_window
-from .scan import ScanLayout, pair_scalars, scan_pair
+from .scan import ScanLayout, knob_scalars, pair_scalars, scan_pair
 from .split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, FeatureMeta,
-                    SplitCandidate, SplitParams, fix_histogram,
-                    leaf_output_unconstrained)
+                    SplitCandidate, SplitParams, fix_histogram, leaf_output,
+                    leaf_output_unconstrained, mono_bounds)
 
 F32 = np.float32
 
@@ -61,6 +72,18 @@ class GrowConfig(NamedTuple):
     scan_width: int     # widest feature: the scan's W
     hist_width: int     # widest group: the histogram kernel's W
     max_depth: int      # <= 0: unlimited
+
+
+class Knobs(NamedTuple):
+    """The numerical knobs of one tree's scans (the JAX package's
+    GrowConfig use_mc/extra_trees/bynode_k and the tree's key; lambda_l1
+    and max_delta_step ride in SplitParams). The grower takes the fast
+    form without them."""
+    monotone: np.ndarray        # [F] int constraint of each feature
+    use_mc: bool                # any feature constrained
+    extra_trees: bool
+    bynode_k: int               # > 0: features per node's sample
+    key: np.ndarray             # [2] uint32: the tree's key
 
 
 class TreeArrays(NamedTuple):
@@ -105,12 +128,15 @@ def _empty_arrays(L: int) -> dict:
 
 
 def assemble(gain, feature, threshold, use_f, lg, lh, lc, forced_right,
-             scal: np.ndarray, lambda_l2, depths, max_depth: int):
+             scal: np.ndarray, lambda_l2, depths, max_depth: int,
+             knobs=None):
     """SplitCandidates of B children from each child's best split (per-child
     arrays: penalized gain, feature, local threshold, direction, the left
     side's grad/hess/count, forced_right of the feature): the scalar
     assembly of grow.py:650-683 (grow_persist.py:1087-1106), in numpy
-    float32. A child at max_depth gets no split."""
+    float32. A child at max_depth gets no split. ``knobs`` = (SplitParams,
+    cmins, cmaxs, use_mc): the leaf outputs with L1, max_delta_step and
+    each child's monotone clamp (lightgbm_tpu/ops/split.py:386-391)."""
     l2 = F32(lambda_l2)
     depths = np.broadcast_to(np.asarray(depths), (len(gain),))
     cands = []
@@ -124,8 +150,15 @@ def assemble(gain, feature, threshold, use_f, lg, lh, lc, forced_right,
         # an unsplittable child's outputs may divide by zero; they are
         # never used (its gain is -inf)
         with np.errstate(divide="ignore", invalid="ignore"):
-            lo = leaf_output_unconstrained(lg[b], lh[b], l2)
-            ro = leaf_output_unconstrained(rg, rh, l2)
+            if knobs is None:
+                lo = leaf_output_unconstrained(lg[b], lh[b], l2)
+                ro = leaf_output_unconstrained(rg, rh, l2)
+            else:
+                p, cmins, cmaxs, use_mc = knobs
+                lo, ro = (F32(leaf_output(
+                    g_, h_, l2, F32(p.lambda_l1), F32(p.max_delta_step),
+                    cmins[b], cmaxs[b], p.use_l1, p.use_mds, use_mc))
+                    for g_, h_ in ((lg[b], lh[b]), (rg, rh)))
         cands.append(SplitCandidate(
             gain=gain_b if valid else F32(K_MIN_SCORE),
             feature=int(feature[b]) if valid else -1,
@@ -140,39 +173,72 @@ def assemble(gain, feature, threshold, use_f, lg, lh, lc, forced_right,
     return cands
 
 
+def node_draws(knobs: Knobs, tags, feature_mask: np.ndarray, feat_nb,
+               Fp: int) -> np.ndarray:
+    """scan_pair's ``node`` input [B, 2, Fp] f32 of B nodes, node b's draws
+    from the key ``fold_in(tree key, tags[b])`` (the JAX eval_leaf's,
+    grow.py:455-469): row 0 each feature's extra_trees threshold (-1: any),
+    row 1 the by-node sample (1: in)."""
+    F = len(feature_mask)
+    node = np.zeros((len(tags), 2, Fp), np.float32)
+    node[:, 0] = -1.0
+    node[:, 1, :F] = 1.0
+    if not knobs.extra_trees and knobs.bynode_k <= 0:
+        return node
+    for b, tag in enumerate(tags):
+        key = tf.fold_in(knobs.key, tag)
+        if knobs.bynode_k > 0:
+            node[b, 1, :F] = tf.bynode_mask(key, feature_mask,
+                                            knobs.bynode_k)
+        if knobs.extra_trees:
+            node[b, 0, :F] = tf.extra_trees_bins(key, feat_nb)
+    return node
+
+
 def scan_children(gh: torch.Tensor, hh: torch.Tensor, rows,
                   layout: ScanLayout, params: SplitParams, sgs, shs, cnts,
-                  depths, max_depth: int):
+                  depths, max_depth: int, knobs: Knobs = None, cmins=None,
+                  cmaxs=None, node=None):
     """SplitCandidates of B children from their rows of the [R, TB]
     grad/hess histogram planes: one scan_pair launch, which reads the
     children's planes through ``rows`` and ``layout.gidx`` itself, then the
     cross-feature argmax (first maximum = smallest feature id) and the host
-    assembly. `depths` is each child's depth, or one depth for all."""
-    scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
-                        params.min_gain_to_split, params.min_data_in_leaf,
-                        params.min_sum_hessian_in_leaf)
+    assembly. `depths` is each child's depth, or one depth for all. With
+    ``knobs``, the knob form with each child's monotone bounds (cmins,
+    cmaxs) and its ``node`` draws (:func:`node_draws`)."""
     dev = gh.device
+    if knobs is None:
+        scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
+                            params.min_gain_to_split, params.min_data_in_leaf,
+                            params.min_sum_hessian_in_leaf)
+        extra = {}
+    else:
+        scal = knob_scalars(sgs, shs, cnts, params, cmins, cmaxs,
+                            knobs.use_mc)
+        extra = {"node": torch.as_tensor(node, device=dev)}
     out = scan_pair(torch.as_tensor(scal, device=dev), gh, hh,
                     layout.keep_r, layout.keep_f, layout.valid_r,
                     layout.valid_f, layout.aux,
                     rows=torch.as_tensor(np.asarray(rows, np.int64),
                                          device=dev),
-                    gidx=layout.gidx).cpu().numpy()
+                    gidx=layout.gidx, **extra).cpu().numpy()
     bf = np.argmax(out[:, 0], axis=1)
     best = out[np.arange(len(bf)), :, bf]                        # [B, 8]
     return assemble(best[:, 0], bf, best[:, 1], best[:, 2] > 0.5,
                     best[:, 3], best[:, 4], best[:, 5],
                     layout.forced_right[bf], scal, params.lambda_l2, depths,
-                    max_depth)
+                    max_depth, None if knobs is None
+                    else (params, cmins, cmaxs, knobs.use_mc))
 
 
 def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
                           hess: torch.Tensor, meta: FeatureMeta,
                           params: SplitParams, feature_mask: np.ndarray,
-                          gc: GrowConfig, tb_src: torch.Tensor):
+                          gc: GrowConfig, tb_src: torch.Tensor,
+                          knobs: Knobs = None):
     """Grow one tree. grad/hess: [N] tensors on the data's device (every
-    row is in the bag). Returns (TreeArrays, row_leaf [N] int32 tensor in
-    original row order)."""
+    row is in the bag). With ``knobs``, the scans' knob form. Returns
+    (TreeArrays, row_leaf [N] int32 tensor in original row order)."""
     device = data.bins.device
     n, G = data.bins.shape
     L, TB, F, W = gc.num_leaves, gc.total_bins, gc.num_features, gc.hist_width
@@ -183,7 +249,12 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
     # f64 sums rounded to f32: the same value on every device
     sum_grad = F32(grad.double().sum().item())
     sum_hess = F32(hess.double().sum().item())
-    root_out = leaf_output_unconstrained(sum_grad, sum_hess, l2)
+    if knobs is None:
+        root_out = leaf_output_unconstrained(sum_grad, sum_hess, l2)
+    else:       # grow.py:1461-1463: L1 and the clamp, no monotone bounds
+        root_out = F32(leaf_output_unconstrained(
+            sum_grad, sum_hess, l2, F32(params.lambda_l1),
+            F32(params.max_delta_step), True, True))
     if F == 0 or TB == 0:
         arr["leaf_value"][0] = root_out
         arr["leaf_count"][0] = n
@@ -233,20 +304,30 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
     root_hist = fix_histogram(hist_tb(0, n), sum_grad, sum_hess, *meta.fix)
     layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
                         meta.default_bin, meta.penalty, feature_mask,
-                        gc.scan_width, TB, device)
+                        gc.scan_width, TB, device,
+                        None if knobs is None else knobs.monotone)
+    feat_nb = np.asarray(meta.bin_end) - np.asarray(meta.bin_start)
+    # each leaf's monotone bounds (the knob form's; grow.py:1487)
+    leaf_cmin = np.full(L, -np.inf, F32)
+    leaf_cmax = np.full(L, np.inf, F32)
     # grad and hess planes [2, L, TB]: each is an [L, TB] matrix that the
     # scan reads through the leaves' rows
     leaf_hist = torch.zeros((2, L, TB), dtype=torch.float32, device=device)
     leaf_hist[:, 0] = root_hist.t()
 
-    def evaluate(leaves, sgs, shs, cnts, depth_child):
+    def evaluate(leaves, sgs, shs, cnts, depth_child, tags):
+        """Candidates of the leaves; `tags` fold each node's key out of
+        the tree's (knob form only)."""
+        node = None if knobs is None else node_draws(
+            knobs, tags, feature_mask, feat_nb, layout.Fp)
         return scan_children(leaf_hist[0], leaf_hist[1], leaves, layout,
                              params, sgs, shs, cnts, depth_child,
-                             gc.max_depth)
+                             gc.max_depth, knobs, leaf_cmin[leaves],
+                             leaf_cmax[leaves], node)
 
     best = [SplitCandidate.none() for _ in range(L)]
     best_gain = np.full(L, K_MIN_SCORE, F32)
-    best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0)[0]
+    best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0, [0])[0]
     best_gain[0] = best[0].gain
     leaf_start = np.zeros(L, np.int64)
     leaf_nrows = np.zeros(L, np.int64)
@@ -290,6 +371,11 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         arr["internal_count"][k] = arr["leaf_count"][l]
 
         depth_child = int(leaf_depth[l]) + 1
+        if knobs is not None:
+            leaf_cmin[l], leaf_cmax[l], leaf_cmin[s], leaf_cmax[s] = \
+                mono_bounds(leaf_cmin[l], leaf_cmax[l],
+                            int(knobs.monotone[cand.feature]),
+                            cand.left_output, cand.right_output)
         for leaf, sh_, cnt_, val_, st_, nr_ in (
                 (l, cand.left_sum_hess, left_cnt, cand.left_output, s0,
                  n_left),
@@ -304,7 +390,7 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         cand_l, cand_r = evaluate(
             [l, s], [cand.left_sum_grad, cand.right_sum_grad],
             [cand.left_sum_hess, cand.right_sum_hess],
-            [left_cnt, right_cnt], depth_child)
+            [left_cnt, right_cnt], depth_child, [2 * s, 2 * s + 1])
         best[l], best[s] = cand_l, cand_r
         best_gain[l], best_gain[s] = cand_l.gain, cand_r.gain
         s += 1

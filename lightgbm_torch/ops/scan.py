@@ -2,9 +2,21 @@
 
 The port of lightgbm_tpu/ops/pallas_scan.py: :class:`ScanLayout` (the
 per-tree masks, pallas_scan.py:623-690) and ``scan_pair``
-(pallas_scan.py:262, kernel ``_scan_kernel:128``). Fast-path semantics
-only: f32, L2 regularization, no monotone constraints, no L1, no
-max_delta_step; the tree learner refuses every other configuration.
+(pallas_scan.py:262, kernel ``_scan_kernel:128``), in two forms of f32
+arithmetic:
+
+  * the fast form, the Pallas kernel's: L2 regularization only;
+  * the knob form, the JAX package's general scan for the same f32 sums
+    (``find_best_split_numerical``, lightgbm_tpu/ops/split.py:241):
+    ``lambda_l1``, ``max_delta_step`` and monotone constraints in the gains
+    (ops/split.py:split_gains), each child's monotone bounds, and two
+    per-(child, feature) inputs ``node`` [B, 2, Fp]: the extra_trees
+    threshold (row 0; only that lane may split, -1 = any lane) and the
+    feature_fraction_bynode mask (row 1). It takes a [B, 16] scalar block
+    (:func:`knob_scalars`) and the features' monotone signs in ``aux``
+    row 1. Like the fast form, and unlike the JAX general scan, it adds no
+    kEpsilon to the sides' hessian sums (a no-op in f32 but for a side
+    whose hessians are all zero, which min_sum_hessian_in_leaf refuses).
 
 :func:`scan_pair` launches the CUDA kernel (``csrc/scan_pair.cu``) for
 tensors on the card and takes :func:`scan_pair_plain`, the same function in
@@ -26,7 +38,7 @@ import torch
 
 from ..utils.log import LightGBMError
 from . import counters
-from .split import K_EPSILON, leaf_gain
+from .split import K_EPSILON, leaf_gain, split_gains
 
 NEG_INF = float("-inf")
 
@@ -42,7 +54,8 @@ class ScanLayout:
     find_best_split_numerical in the JAX package."""
 
     def __init__(self, bin_start, bin_end, missing_type, default_bin,
-                 penalty, feature_mask, W: int, tb: int, device):
+                 penalty, feature_mask, W: int, tb: int, device,
+                 monotone=None):
         F = len(bin_start)
         self.F = F
         self.W = W
@@ -88,6 +101,8 @@ class ScanLayout:
         self.valid_f = f32(valid_f)
         aux = np.zeros((8, Fp), np.float32)
         aux[0, :F] = np.asarray(penalty, np.float32)
+        if monotone is not None:            # the knob form's signs
+            aux[1, :F] = np.sign(np.asarray(monotone, np.float32))
         self.aux = f32(aux)
         # NaN-missing features of <= 2 bins never default left
         # (feature_histogram.hpp:205)
@@ -118,6 +133,50 @@ def pair_scalars(sum_grad, sum_hess, count, lambda_l2: float,
                      mgs, np.full(B, l2)], axis=1).astype(f32)
 
 
+KNOB_COLS = 16
+
+
+def knob_scalars(sum_grad, sum_hess, count, params, cmin, cmax,
+                 use_mc: bool) -> np.ndarray:
+    """The knob form's [B, 16] f32 scalar block: :func:`pair_scalars`'s
+    eight columns, with the gain shift the general scan's (the parent's
+    leaf_gain under L1 and max_delta_step, lightgbm_tpu/ops/split.py:
+    275-277), then lambda_l1, max_delta_step, each child's monotone bounds
+    cmin and cmax, and the use_mc switch (1: the gains of the clamped
+    outputs and the bad-split rule)."""
+    f32 = np.float32
+    out = np.zeros((len(np.atleast_1d(sum_grad)), KNOB_COLS), f32)
+    out[:, :8] = pair_scalars(sum_grad, sum_hess, count, params.lambda_l2,
+                              params.min_gain_to_split,
+                              params.min_data_in_leaf,
+                              params.min_sum_hessian_in_leaf)
+    sg, sh = out[:, 0], out[:, 1]
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        out[:, 6] = leaf_gain(sg, sh, f32(params.lambda_l2),
+                              f32(params.lambda_l1),
+                              f32(params.max_delta_step), params.use_l1,
+                              params.use_mds) + f32(params.min_gain_to_split)
+    out[:, 8] = f32(params.lambda_l1)
+    out[:, 9] = f32(params.max_delta_step)
+    out[:, 10] = np.asarray(cmin, f32)
+    out[:, 11] = np.asarray(cmax, f32)
+    out[:, 12] = f32(1.0 if use_mc else 0.0)
+    return out
+
+
+def _knob_gains(lg, lh, rg, rh, s, mono):
+    """The knob form's split gains of every lane: ops/split.py:split_gains
+    with L1 and the max_delta_step switch on (both are exact identities at
+    lambda_l1 = 0 and max_delta_step = 0), with or without the monotone
+    clamp by the child's use_mc column."""
+    l2, l1, mds, cmin, cmax = s[:, 7], s[:, 8], s[:, 9], s[:, 10], s[:, 11]
+    plain = split_gains(lg, lh, rg, rh, l2, l1, mds, cmin, cmax, mono,
+                        True, True, False)
+    clamped = split_gains(lg, lh, rg, rh, l2, l1, mds, cmin, cmax, mono,
+                          True, True, True)
+    return torch.where(s[:, 12] > 0, clamped, plain)
+
+
 def _prefix(x):
     """Inclusive prefix sums along the lanes, accumulated in f64 and
     rounded to f32 at every lane: on the CPU a sequential f64 sum, the
@@ -125,11 +184,12 @@ def _prefix(x):
     return torch.cumsum(x.double(), dim=2).float()
 
 
-def scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
+def scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux,
+                    node=None):
     """[B, 8, Fp] f32: the kernel's function in plain PyTorch (the math of
-    the JAX package's _scan_kernel)."""
+    the JAX package's _scan_kernel; with ``node``, the knob form's)."""
     B, Fp, Wp = gb.shape
-    s = scal[:, :, None, None]                               # [B, 8, 1, 1]
+    s = scal[:, :, None, None]                               # [B, S, 1, 1]
     sg, sh, nd, cf = s[:, 0], s[:, 1], s[:, 2], s[:, 3]
     min_data, min_hess, mgs, l2 = s[:, 4], s[:, 5], s[:, 6], s[:, 7]
     cnt_b = torch.floor(hb * cf + 0.5)
@@ -148,14 +208,25 @@ def scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
     l_cnt = nd - r_cnt
     l_grad = sg - r_grad
     l_hess = sh - r_hess
-    ok_r = ((valid_r > 0) & (r_cnt >= min_data) & (r_hess >= min_hess)
+    wrow = torch.arange(Wp, device=gb.device, dtype=gb.dtype)
+    vr, vf = valid_r > 0, valid_f > 0
+    if node is not None:
+        # extra_trees: only the drawn lane; by-node: the node's features
+        rb = node[:, 0, :, None]
+        at = ((rb < 0) | (wrow == rb)) & (node[:, 1, :, None] > 0)
+        vr, vf = vr & at, vf & at
+        mono = aux[1][None, :, None]
+
+    ok_r = (vr & (r_cnt >= min_data) & (r_hess >= min_hess)
             & (l_cnt >= min_data) & (l_hess >= min_hess))
-    gains_r = (l_grad * l_grad) / (l_hess + l2) \
-        + (r_grad * r_grad) / (r_hess + l2)
+    if node is None:
+        gains_r = (l_grad * l_grad) / (l_hess + l2) \
+            + (r_grad * r_grad) / (r_hess + l2)
+    else:
+        gains_r = _knob_gains(l_grad, l_hess, r_grad, r_hess, s, mono)
     ok_r &= gains_r > mgs
     gains_r = torch.where(ok_r, gains_r, neg)
 
-    wrow = torch.arange(Wp, device=gb.device, dtype=gb.dtype)
     best_gain_r = gains_r.amax(dim=2)                        # [B, Fp]
     at_max_r = ok_r & (gains_r == best_gain_r[..., None])
     best_t_r = torch.where(at_max_r, wrow, -1.0).amax(dim=2)
@@ -163,10 +234,13 @@ def scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
     f_r_cnt = nd - cl_c
     f_r_grad = sg - gl_c
     f_r_hess = sh - hl_c
-    ok_f = ((valid_f > 0) & (cl_c >= min_data) & (hl_c >= min_hess)
+    ok_f = (vf & (cl_c >= min_data) & (hl_c >= min_hess)
             & (f_r_cnt >= min_data) & (f_r_hess >= min_hess))
-    gains_f = (gl_c * gl_c) / (hl_c + l2) \
-        + (f_r_grad * f_r_grad) / (f_r_hess + l2)
+    if node is None:
+        gains_f = (gl_c * gl_c) / (hl_c + l2) \
+            + (f_r_grad * f_r_grad) / (f_r_hess + l2)
+    else:
+        gains_f = _knob_gains(gl_c, hl_c, f_r_grad, f_r_hess, s, mono)
     ok_f &= gains_f > mgs
     gains_f = torch.where(ok_f, gains_f, neg)
 
@@ -198,12 +272,12 @@ def scan_pair_plain(scal, gb, hb, keep_r, keep_f, valid_r, valid_f, aux):
 
 
 def scan_pair_rows_plain(scal, gh, hh, rows, gidx, keep_r, keep_f, valid_r,
-                         valid_f, aux):
+                         valid_f, aux, node=None):
     """[B, 8, Fp] f32: :func:`scan_pair_plain` of the children's planes read
     through the index maps: child c's lane w of feature f is
     gh[rows[c], gidx[f, w]]. The function of the kernel's rows/gidx form."""
     return scan_pair_plain(scal, gh[rows][:, gidx], hh[rows][:, gidx],
-                           keep_r, keep_f, valid_r, valid_f, aux)
+                           keep_r, keep_f, valid_r, valid_f, aux, node)
 
 
 def _fail(name, v, shape, dtype, device):
@@ -212,7 +286,8 @@ def _fail(name, v, shape, dtype, device):
         % (name, tuple(v.shape), v.dtype, v.device, dtype, shape, device))
 
 
-def _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx):
+def _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
+           node=None):
     """(B, Fp, Wp) of a call, or raise on what the kernel does not take."""
     if (rows is None) != (gidx is None):
         raise LightGBMError("scan_pair: rows and gidx go together")
@@ -232,11 +307,14 @@ def _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx):
             if tuple(v.shape) != shape or v.dtype != torch.int64 \
                     or not v.is_contiguous() or v.device != g.device:
                 _fail(name, v, shape, torch.int64, g.device)
-    want = {"scal": (B, 8), "gb": planes, "hb": planes,
-            "keep_r": (Fp, Wp), "keep_f": (Fp, Wp), "aux": (8, Fp)}
+    want = {"scal": (B, 8 if node is None else KNOB_COLS), "gb": planes,
+            "hb": planes, "keep_r": (Fp, Wp), "keep_f": (Fp, Wp),
+            "aux": (8, Fp), "node": (B, 2, Fp)}
     got = {"scal": scal, "gb": g, "hb": h, "keep_r": keep_r,
            "keep_f": keep_f, "aux": aux, "valid_r": valid_r,
            "valid_f": valid_f}
+    if node is not None:
+        got["node"] = node
     for name, v in got.items():
         shape = want.get(name)
         if shape is None:
@@ -258,11 +336,12 @@ def _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx):
 
 
 def _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
-            B, Fp, Wp, out, done):
+            B, Fp, Wp, out, done, node=None):
     from .build import load
     fn = load("scan_pair").scan_pair_launch
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, P, L, P, P, P, P, I, P, I, I, I, P, P, P, P]
+    fn.argtypes = [P, P, P, P, P, L, P, P, P, P, I, P, P, I, I, I, P, P, P,
+                   P]
     fn.restype = I
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = fn(scal.data_ptr(), g.data_ptr(), h.data_ptr(),
@@ -271,9 +350,11 @@ def _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
              Fp * Wp if rows is None else g.shape[1],
              keep_r.data_ptr(), keep_f.data_ptr(), valid_r.data_ptr(),
              valid_f.data_ptr(), int(valid_r.dim() == 3), aux.data_ptr(),
+             None if node is None else node.data_ptr(),
              B, Fp, Wp, out.data_ptr(),
              None if done is None else done.data_ptr(),
-             counters.ptr(g.device, "scan_pair"), stream)
+             counters.ptr(g.device, "scan_pair" if node is None
+                          else "scan_pair_knob"), stream)
     if err != 0:
         raise LightGBMError("scan_pair kernel launch failed: CUDA error %d"
                             % err)
@@ -300,7 +381,7 @@ def check_done(name, done, dev):
 
 
 def scan_pair(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows=None,
-              gidx=None, out=None, done=None):
+              gidx=None, out=None, done=None, node=None):
     """Best split per feature for B children: the CUDA kernel for tensors
     on the card, the plain version for tensors on the CPU.
 
@@ -312,34 +393,38 @@ def scan_pair(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows=None,
     already gathered (rows = arange(B), gidx the identity), and the function
     is :func:`scan_pair_plain`. scal [B, 8] (see :func:`pair_scalars`);
     keep masks [Fp, Wp]; valid masks [Fp, Wp] shared or [B, Fp, Wp]; aux
-    [8, Fp] with the penalty in row 0. Returns [B, 8, Fp] f32, written to
+    [8, Fp] with the penalty in row 0. With ``node`` [B, 2, Fp] f32 the
+    knob form runs instead (its own kernel instantiation and launch count,
+    ``scan_pair_knob``): scal [B, 16] (:func:`knob_scalars`), the monotone
+    signs in aux row 1. Returns [B, 8, Fp] f32, written to
     ``out`` where given. The scalars and rows are read on the device (the
     persistent grower's step kernels write them there), and with ``done``
     (int64 [1]) set nothing is written. The caller keeps rows inside the
     planes (the kernel does not check them).
     """
     B, Fp, Wp = _check(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux,
-                       rows, gidx)
+                       rows, gidx, node)
     if out is not None:
         check_out("scan_pair", out, (B, 8, Fp), g.device)
     check_done("scan_pair", done, g.device)
+    slot = "scan_pair" if node is None else "scan_pair_knob"
     if g.device.type == "cpu":
         if done is not None and int(done[0]):
             return out
         if rows is None:
             res = scan_pair_plain(scal, g, h, keep_r, keep_f, valid_r,
-                                  valid_f, aux)
+                                  valid_f, aux, node)
         else:
             res = scan_pair_rows_plain(scal, g, h, rows, gidx, keep_r, keep_f,
-                                       valid_r, valid_f, aux)
-        counters.bump(g.device, "scan_pair")
+                                       valid_r, valid_f, aux, node)
+        counters.bump(g.device, slot)
         return res if out is None else out.copy_(res)
     if g.device.type != "cuda":
         raise LightGBMError("scan_pair: no kernel for device %s" % g.device)
     if out is None:
         out = torch.empty((B, 8, Fp), dtype=torch.float32, device=g.device)
     _launch(scal, g, h, keep_r, keep_f, valid_r, valid_f, aux, rows, gidx,
-            B, Fp, Wp, out, done)
+            B, Fp, Wp, out, done, node)
     scan_pair.launches += 1
     return out
 

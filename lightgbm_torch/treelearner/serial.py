@@ -15,7 +15,14 @@ both scanning splits with the ``scan_pair`` kernel:
     level phase (serial.py:550-554): ``auto`` runs it where
     ``can_level_grow`` holds (``max_depth`` in [1, 16]), ``off``/
     ``false``/``0`` never. EFB-bundled data train only here;
-  * the v1 partitioned grower (ops/grow.py) otherwise.
+  * the v1 partitioned grower (ops/grow.py) otherwise, and always for
+    the split scan's numerical knobs (``lambda_l1``, ``max_delta_step``,
+    monotone constraints, ``extra_trees``, ``feature_fraction_bynode``),
+    which the JAX package scans with its general XLA scan and so never on
+    its persistent grower (``resolve_scan_impl``, serial.py:156-157,
+    ``can_persist_scan``, :512). ``tpu_persist_scan=force`` with a knob
+    raises: the JAX package's Pallas persistent scan would drop the knobs
+    in silence (grow_persist.py:1190-1193).
 
 The JAX package picks among more growers and scans (``resolve_scan_impl``,
 serial.py:138-167). :func:`check_fast_path` refuses every configuration the
@@ -26,15 +33,23 @@ from __future__ import annotations
 
 import numpy as np
 
+import math
+
 from ..config import Config
 from ..objectives.base import PORTED
-from ..ops.grow import GrowConfig, grow_tree_partitioned, tb_source_index
+from ..ops.grow import (GrowConfig, Knobs, grow_tree_partitioned,
+                        tb_source_index)
 from ..ops.grow_persist import PersistGrower
 from ..ops.payload import build_assets, persist_pack_ok
 from ..ops.split import FeatureMeta, SplitParams
+from ..utils import random as tf
 from ..utils.log import Log
 
-_SCAN = "queue A, item 4: general split scan"
+_SCAN_F64 = ("queue A, item 4, step 1b: f64 accumulation and "
+             "tpu_scan_impl=xla")
+_CEGB = "queue A, item 4, step 3: CEGB"
+_KNOBS_PERSIST = ("queue A, item 4, step 1c: the numerical knobs on the "
+                  "persistent grower")
 # rows from which the JAX package takes the persistent grower on an
 # accelerator (treelearner/serial.py:33)
 PARTITION_MIN_ROWS = 65536
@@ -49,7 +64,7 @@ def check_fast_path(config: Config, dataset) -> None:
     JAX package's fast-path gate (resolve_scan_impl) plus the slice's own
     limits."""
     c = config
-    if c.objective not in PORTED:
+    if c.objective not in PORTED + ("none",):
         _refuse("objective=%s" % c.objective,
                 "queue A, item 17: other objectives")
     if c.boosting == "goss":
@@ -63,29 +78,46 @@ def check_fast_path(config: Config, dataset) -> None:
     if c.tree_learner != "serial" or c.num_machines > 1:
         _refuse("tree_learner=%s" % c.tree_learner,
                 "queue A, item 11: distributed training")
-    if float(c.lambda_l1) > 0.0:
-        _refuse("lambda_l1 > 0", _SCAN)
-    if float(c.max_delta_step) > 0.0:
-        _refuse("max_delta_step > 0", _SCAN)
-    if any(int(m) != 0 for m in c.monotone_constraints):
-        _refuse("monotone_constraints", _SCAN)
-    if bool(c.extra_trees):
-        _refuse("extra_trees", _SCAN)
-    if float(c.feature_fraction_bynode) < 1.0:
-        _refuse("feature_fraction_bynode < 1", _SCAN)
     if (float(c.cegb_penalty_split) > 0.0 or c.cegb_penalty_feature_coupled
             or c.cegb_penalty_feature_lazy):
-        _refuse("cost-effective gradient boosting (cegb_*)", _SCAN)
+        _refuse("cost-effective gradient boosting (cegb_*)", _CEGB)
     if bool(c.tpu_use_dp) or str(c.tpu_hist_dtype).lower() == "f64":
-        _refuse("f64 accumulation (tpu_use_dp / tpu_hist_dtype=f64)", _SCAN)
+        _refuse("f64 accumulation (tpu_use_dp / tpu_hist_dtype=f64)",
+                _SCAN_F64)
     if str(c.tpu_scan_impl).lower() == "xla":
-        _refuse("tpu_scan_impl=xla", _SCAN)
+        _refuse("tpu_scan_impl=xla", _SCAN_F64)
     if str(c.forcedsplits_filename):
         _refuse("forced splits (forcedsplits_filename)",
                 "queue A, item 21: forced splits")
     if str(c.tpu_multival).lower() == "force":
         _refuse("tpu_multival=force",
                 "queue A, item 2: binned dataset layouts")
+
+
+def bynode_count(config: Config, num_features: int) -> int:
+    """Features in each node's feature_fraction_bynode sample, 0 without
+    one: the fraction of the by-tree sample's count, rounded up
+    (ColSampler::GetByNode, col_sampler.hpp:90-140; the JAX package's
+    serial.py:64-67)."""
+    frac = float(config.feature_fraction_bynode)
+    if frac >= 1.0:
+        return 0
+    by_tree = max(1, int(num_features * min(float(config.feature_fraction),
+                                            1.0)))
+    return int(math.ceil(frac * by_tree))
+
+
+def scan_knobs(config: Config, dataset) -> list:
+    """The split scan's numerical knobs this run sets, by name: each takes
+    the JAX package's general scan (resolve_scan_impl, serial.py:156-157)."""
+    c = config
+    on = [("lambda_l1", float(c.lambda_l1) > 0.0),
+          ("max_delta_step", float(c.max_delta_step) > 0.0),
+          ("monotone_constraints", dataset.monotone is not None
+           and bool(np.any(dataset.monotone))),
+          ("extra_trees", bool(c.extra_trees)),
+          ("feature_fraction_bynode", float(c.feature_fraction_bynode) < 1.0)]
+    return [name for name, set_ in on if set_]
 
 
 def check_v1_layout(dataset) -> None:
@@ -156,6 +188,11 @@ class SerialTreeLearner:
                                       dataset.total_bins,
                                       self.grow_config.hist_width, device)
         self.col_sampler = ColSampler(config, dataset.num_features)
+        self.knobs = scan_knobs(config, dataset)
+        # the tree's key for the per-node draws: the extra seed's key with
+        # the tree counter folded in (serial.py:94-95, 441-450)
+        self._key_base = tf.prng_key(int(config.extra_seed))
+        self._tree_counter = 0
         self._persist_gr = None
         self._persist_carry = None
 
@@ -170,6 +207,17 @@ class SerialTreeLearner:
         payload pack plan."""
         opt = str(self.config.tpu_persist_scan).lower()
         if opt in ("false", "0", "off"):
+            return False
+        if self.knobs:
+            if opt == "force":
+                Log.fatal(
+                    "tpu_persist_scan=force with %s: the persistent "
+                    "grower's scans do not take the split scan's numerical "
+                    "knobs yet (ROADMAP.md %s); the JAX package's Pallas "
+                    "persistent scan would drop them in silence (it passes "
+                    "only lambda_l2). tpu_persist_scan=auto trains them on "
+                    "the v1 grower" % (", ".join(self.knobs),
+                                       _KNOBS_PERSIST))
             return False
         dg = objective.device_gradients()
         if opt == "force" and dg is None:
@@ -243,9 +291,23 @@ class SerialTreeLearner:
             return None
         return self._persist_gr.finalize_scores(self._persist_carry)
 
+    def tree_knobs(self):
+        """The next tree's :class:`Knobs` (None without a knob): one tree
+        counter step per tree grown, as the JAX learner's _next_extras."""
+        self._tree_counter += 1
+        if not self.knobs:
+            return None
+        mono = np.asarray(self.dataset.monotone, np.int64)
+        return Knobs(monotone=mono, use_mc=bool(np.any(mono)),
+                     extra_trees=bool(self.config.extra_trees),
+                     bynode_k=bynode_count(self.config,
+                                           self.dataset.num_features),
+                     key=tf.fold_in(self._key_base, self._tree_counter))
+
     def train_arrays(self, grad, hess):
         """Grow one tree from [N] grad/hess tensors on the learner's device;
         returns (TreeArrays, row_leaf tensor)."""
+        mask = self.col_sampler.sample()
         return grow_tree_partitioned(self.data, grad, hess, self.meta,
-                                     self.params, self.col_sampler.sample(),
-                                     self.grow_config, self.tb_src)
+                                     self.params, mask, self.grow_config,
+                                     self.tb_src, self.tree_knobs())

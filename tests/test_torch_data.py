@@ -134,11 +134,14 @@ def test_config_matches_jax(params):
     ({"boosting": "goss"}, "item 16"),
     ({"boosting": "dart"}, "item 7"),
     ({"bagging_fraction": 0.5, "bagging_freq": 1}, "item 16"),
-    ({"lambda_l1": 1.0}, "item 4"),
-    ({"max_delta_step": 1.0}, "item 4"),
-    ({"monotone_constraints": [1, 0, 0, 0]}, "item 4"),
-    ({"extra_trees": True}, "item 4"),
-    ({"feature_fraction_bynode": 0.5}, "item 4"),
+    # the split scan's knobs train on v1; the persistent grower refuses
+    ({"lambda_l1": 1.0, "tpu_persist_scan": "force"}, "item 4"),
+    ({"max_delta_step": 1.0, "tpu_persist_scan": "force"}, "item 4"),
+    ({"monotone_constraints": [1, 0, 0, 0], "tpu_persist_scan": "force"},
+     "item 4"),
+    ({"extra_trees": True, "tpu_persist_scan": "force"}, "item 4"),
+    ({"feature_fraction_bynode": 0.5, "tpu_persist_scan": "force"},
+     "item 4"),
     ({"cegb_penalty_split": 0.1}, "item 4"),
     ({"tpu_use_dp": True}, "item 4"),
     ({"tpu_scan_impl": "xla"}, "item 4"),

@@ -17,15 +17,18 @@ and G < Gp. Each kernel reads the planes in place through a random choice
 of rows (and scan_pair's layout gidx) and is held bit for bit against its
 plain version on the CPU, at B = 1, 2 and 256 and Wp = 32, 256 and 1024,
 in both forms of its contract; two launches must agree, and each call
-counts one launch.
+counts one launch. scan_pair's knob form (tests/test_torch_scan_rows.py:
+knob_case: lambda_l1, max_delta_step, finite monotone bounds, mixed
+constraint signs, extra_trees lanes and by-node masks) is held the same
+way, with its own device launch count.
 """
 import pytest
 import torch
 
 from lightgbm_torch.ops import block_scan as bs
 from lightgbm_torch.ops.scan import scan_pair
-from test_torch_scan_rows import (block_case, block_gathered, pair_args,
-                                  pair_case, pair_gathered)
+from test_torch_scan_rows import (block_case, block_gathered, knob_case,
+                                  pair_args, pair_case, pair_gathered)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,6 +44,8 @@ def _cuda(args):
 
 def _pair(c, on_card):
     kw = {"rows": c["rows"], "gidx": c["gidx"]}
+    if "node" in c:
+        kw["node"] = c["node"]
     if on_card:
         kw = {k: v.cuda() for k, v in kw.items()}
         return scan_pair(*_cuda(pair_args(c)), **kw)
@@ -75,6 +80,41 @@ def test_scan_pair_edges(case):
     assert torch.equal(_pair(c, True).cpu(), want)
     if case == "inf_gains":
         assert (want[:, 0] == float("inf")).any()
+
+
+@pytest.mark.parametrize("use_mc", [True, False], ids=["mc", "no_mc"])
+@pytest.mark.parametrize("B", [1, 2, 256])
+@pytest.mark.parametrize("Wp", [32, 256])
+def test_scan_pair_knob_form_matches_plain(Wp, B, use_mc):
+    _card()
+    from lightgbm_torch.ops import counters
+    c = knob_case(300 + B, B, Wp, use_mc=use_mc)
+    want = _pair(c, False)
+    counters.reset("cuda")
+    k1, k2 = _pair(c, True), _pair(c, True)
+    torch.cuda.synchronize()
+    got = counters.read("cuda")
+    assert got["scan_pair_knob"] == 2 and got["scan_pair"] == 0
+    assert torch.equal(k1, k2)
+    assert torch.equal(k1.cpu(), want)
+    gathered = _cuda(pair_gathered(c))
+    assert torch.equal(scan_pair(*gathered, node=c["node"].cuda()).cpu(),
+                       want)
+    assert (want[:, 6] > 0).sum() >= 1
+
+
+def test_scan_pair_knob_form_edges():
+    """+inf gains (l2 = 0, zero-hessian sides, no clamp, no constraint)
+    under the knob form, and an L1 large enough to zero most gradient
+    sums."""
+    _card()
+    for kw in ({"l2": 0.0, "min_data": 0, "min_hess": 0.0, "zero_hess": 0.3,
+                "mds": 0.0, "use_mc": False}, {"l1": 4.0, "mds": 0.01}):
+        c = knob_case(11, 64, 256, **kw)
+        want = _pair(c, False)
+        assert torch.equal(_pair(c, True).cpu(), want)
+        if kw["mds"] == 0.0:
+            assert (want[:, 0] == float("inf")).any()
 
 
 def _blocks(c, on_card, do_fix=None):

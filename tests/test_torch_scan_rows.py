@@ -29,9 +29,10 @@ import pytest
 import torch
 
 from lightgbm_torch.ops import block_scan as bs
-from lightgbm_torch.ops.scan import (ScanLayout, _prefix, pair_scalars,
-                                     scan_pair, scan_pair_plain,
-                                     scan_pair_rows_plain)
+from lightgbm_torch.ops.scan import (ScanLayout, _prefix, knob_scalars,
+                                     pair_scalars, scan_pair,
+                                     scan_pair_plain, scan_pair_rows_plain)
+from lightgbm_torch.ops.split import SplitParams
 
 F32 = np.float32
 
@@ -102,6 +103,40 @@ def pair_case(seed, B, Wp, L=None, l2=0.5, min_data=3, min_hess=1e-3,
             "gidx": cut(layout.gidx), "keep_r": cut(layout.keep_r),
             "keep_f": cut(layout.keep_f), "valid_r": valid_r,
             "valid_f": valid_f, "aux": layout.aux, "F": len(nb)}
+
+
+# monotone signs of the knob cases' features
+KNOB_MONO = [1, -1, 0, 1, 0, -1, 1]
+
+
+def knob_case(seed, B, Wp, l1=0.5, mds=0.3, use_mc=True, rand=0.5,
+              drop=0.3, **kw):
+    """A pair_case with the knob form's inputs: the [B, 16] scalars
+    (lambda_l1, max_delta_step, finite monotone bounds drawn per child),
+    the KNOB_MONO signs in aux row 1, and ``node`` [B, 2, Fp]: a random
+    extra_trees lane for a `rand` share of (child, feature) pairs (-1
+    elsewhere) and a by-node mask dropping a `drop` share. Returns the case
+    dict with "node" added and "scal" replaced."""
+    c = pair_case(seed, B, Wp, **kw)
+    rng = np.random.default_rng(seed + 1)
+    s8 = c["scal"].numpy()
+    p = SplitParams(lambda_l2=float(s8[0, 7]), min_gain_to_split=0.0,
+                    min_data_in_leaf=int(s8[0, 4]),
+                    min_sum_hessian_in_leaf=float(s8[0, 5]),
+                    lambda_l1=l1, max_delta_step=mds)
+    cmin = -rng.uniform(0.05, 0.4, B).astype(F32)
+    cmax = rng.uniform(0.05, 0.4, B).astype(F32)
+    cmin[::3], cmax[1::3] = -np.inf, np.inf
+    scal = knob_scalars(s8[:, 0], s8[:, 1], s8[:, 2], p, cmin, cmax,
+                        use_mc)
+    Fp = c["aux"].shape[1]
+    aux = c["aux"].clone()
+    aux[1, :len(KNOB_MONO)] = torch.as_tensor(KNOB_MONO, dtype=torch.float32)
+    lanes = rng.integers(0, Wp, (B, Fp)).astype(F32)
+    node = np.stack([np.where(rng.random((B, Fp)) < rand, lanes, F32(-1)),
+                     (rng.random((B, Fp)) >= drop).astype(F32)], 1)
+    return dict(c, scal=torch.as_tensor(scal), aux=aux,
+                node=torch.as_tensor(np.ascontiguousarray(node, F32)))
 
 
 def pair_args(c):
