@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the twelve CUDA kernel libraries from csrc/, in
+  2. build    nvcc builds the thirteen CUDA kernel libraries from csrc/, in
               parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
@@ -80,6 +80,18 @@ exits non-zero without printing a result:
               f32 ulp off (the card's f64 exp and log2), timed beside the
               plain version and the bound (f64 operations over the card's
               f64 rate, or bytes);
+     airline  (after the MSLR phase) on airline-shaped rows (the public
+              szilard benchm-ml airline set's shape: 10M rows, categorical
+              Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin, Dest and
+              numerical DepTime, Distance; data/synth.py:
+              make_airline_like): cat_scan on 256 real node histograms
+              (hist_window over random row windows of the binned set,
+              binary gradients), B = 2 and 256, the sorted and the one-hot
+              route, two launches equal and bit for bit equal to the plain
+              version on the CPU, timed beside the plain version on the
+              card and the bound; valid_walk of an airline tree (its
+              categorical nodes walk the inner bitsets) over 1M held-out
+              rows;
   4. train    lightgbm_torch.train on HIGGS-shaped data (10.5M rows x 28
               features, max_bin=255) on cuda with the default routing,
               along these paths, each wrapper's launch count set to 0 just
@@ -2058,6 +2070,7 @@ LTR = {"objective": "lambdarank", "num_leaves": 255,
        "lambdarank_truncation_level": 30}
 RANK_PATHS = ("ltr", "xendcg")
 V1_PATHS = ("v1", "xendcg", "knobs")
+CAT_PATHS = ("airline", "airline onehot")
 PATHS["ltr"] = (dict(LTR, tpu_persist_scan="auto"),
                 PATHS["persist"][1] + ("lambdarank_grad",),
                 PATHS["persist"][2] + ("xendcg_grad",))
@@ -2069,6 +2082,18 @@ PATHS["xendcg"] = (dict(LTR, objective="rank_xendcg", tpu_persist_scan="auto"),
 PATHS["knobs"] = (dict(KNOB_PARAMS, num_leaves=255, tpu_persist_scan="auto"),
                   ("hist_window", "scan_pair_knob"),
                   PATHS["v1"][2] + ("scan_pair",))
+# categorical features (the airline set's six columns) on the v1 grower,
+# the default routing: scan_pair over the numerical features, cat_scan over
+# the categorical ones, one launch each per evaluation; the default
+# max_cat_to_onehot (4: every column takes the sorted many-vs-many scan)
+# and 32 (one-hot for Month, DayofMonth, DayOfWeek and UniqueCarrier)
+AIRLINE = {"num_leaves": 255, "tpu_persist_scan": "auto",
+           "categorical_feature": "0,1,2,3,4,5"}
+PATHS["airline"] = (AIRLINE, ("hist_window", "scan_pair", "cat_scan"),
+                    PATHS["v1"][2] + ("scan_pair_knob",))
+PATHS["airline onehot"] = (dict(AIRLINE, max_cat_to_onehot=32),
+                           ) + PATHS["airline"][1:]
+V1_PATHS += ("airline", "airline onehot")
 # the model digests that the earlier paths' full runs recorded (sha256 of
 # the model text without its parameters; first and last hex digits,
 # PERF.md section 6): a run at the default sizes must reproduce them.
@@ -2140,7 +2165,8 @@ def expected_launches(bst, trees):
     phase), one consolidate per tree with a leaf at an odd depth and one
     score update per tree with a split; with leaf renewal one renew_leaf
     per tree with a split, on either grower; with a ranking objective its
-    gradient kernel once per iteration. Returns (counts, per-tree (level
+    gradient kernel once per iteration; on a categorical Dataset (v1)
+    cat_scan once per evaluation, as scan_pair. Returns (counts, per-tree (level
     programs, per-split splits))."""
     nodes = sum(t.num_leaves for t in trees)
     renew = sum(t.num_leaves > 1 for t in trees) \
@@ -2153,7 +2179,9 @@ def expected_launches(bst, trees):
     if not bst._booster.use_persist:
         scan = ("scan_pair_knob" if bst._booster.tree_learner.knobs
                 else "scan_pair")
-        return dict({"hist_window": nodes, scan: nodes,
+        # a categorical Dataset: one cat_scan beside each scan
+        cat = nodes if bst._booster.tree_learner.cat is not None else 0
+        return dict({"hist_window": nodes, scan: nodes, "cat_scan": cat,
                      "renew_leaf": renew}, **rank), []
     gr = bst._booster.tree_learner._persist_gr
     stats = gr.grow_stats
@@ -2369,6 +2397,15 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
                              % (path, bst._booster.use_persist))
     trees = bst._booster.models
     splits = [t_.num_leaves - 1 for t_ in trees]
+    if path in CAT_PATHS:
+        ncat = [t_.num_cat for t_ in trees]
+        if not sum(ncat):
+            raise AssertionError("train %s: no categorical split" % path)
+        if keep is not None:
+            keep["num_cat"] = ncat
+        log("train %s: categorical splits per tree %s of %s splits; "
+            "iteration walls %s s" % (path, ncat, splits,
+                                      ["%.3f" % w for w in walls]))
     log("train %s: %d rows x %d features, %d trees, leaves per tree %s"
         % (path, X.shape[0], X.shape[1], len(trees), [s + 1 for s in splits]))
     log("train %s: %.3f s per iteration (%.1f s for %d iterations, learner "
@@ -2471,7 +2508,8 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
             "by-node sample and on its drawn extra_trees bin (%.1f s of "
             "host checks)" % (int(bst._booster.config.extra_seed), nodes,
                               ntrees, time.time() - t))
-    if keep is not None and path in ("persist", "l1", "ltr", "knobs"):
+    if keep is not None and path in ("persist", "l1", "ltr", "knobs",
+                                     "airline"):
         keep["iteration"] = profile_iteration(bst.update)
     if keep is not None and path == "l1":
         keep["bst"] = bst
@@ -2595,35 +2633,40 @@ def phase_valid_walk(label, tree, train_inner, valid_inner, seed):
     n, G = bins_c.shape
     base = np.random.default_rng(seed).normal(size=n)
     ref = torch.as_tensor(base.copy())
-    valid_walk_plain(bins_c, pc.nodes, pc.leaves, ref)
+    valid_walk_plain(bins_c, pc.nodes, pc.leaves, ref, pc.words)
     outs = []
     for _ in range(2):
         s = torch.as_tensor(base, device=dev)
-        valid_walk(bins_d, pd.nodes, pd.leaves, s)
+        valid_walk(bins_d, pd.nodes, pd.leaves, s, pd.words)
         torch.cuda.synchronize()
         outs.append(s.cpu())
     _same("valid_walk %s: two launches" % label, outs[0], outs[1])
     err = _same("valid_walk %s vs the plain version on the CPU" % label,
                 outs[0], ref)
-    leaves = walk_leaves_plain(bins_c, pc.nodes).numpy()
+    leaves = walk_leaves_plain(bins_c, pc.nodes, pc.words).numpy()
     depth = leaf_depths(tree)
     visits = int(depth[leaves].sum())
     scratch = torch.as_tensor(base, device=dev)
-    ms = device_ms(lambda: valid_walk(bins_d, pd.nodes, pd.leaves, scratch),
+    ms = device_ms(lambda: valid_walk(bins_d, pd.nodes, pd.leaves, scratch,
+                                      pd.words),
                    sleep_cycles=20_000_000)
     plain_ms = device_ms(lambda: valid_walk_plain(bins_d, pd.nodes,
-                                                  pd.leaves, scratch),
+                                                  pd.leaves, scratch,
+                                                  pd.words),
                          reps=3, warmup=1)
-    nbytes = n * G + 16 * n + pd.nodes.numel() * 4 + pd.leaves.numel() * 8
+    nbytes = n * G + 16 * n + pd.nodes.numel() * 4 + pd.leaves.numel() * 8 \
+        + pd.words.numel() * 4
     b_ms, b_by = bound_ms(nbytes, 12.0 * visits)
     log("valid_walk %s: a %d-leaf tree (depth %d) over %d rows x %d groups "
-        "(%s): two launches bit-identical, bit-identical to the plain "
-        "version on the CPU; %d node visits (mean depth %.2f); median time "
+        "(%s, %d categorical nodes): two launches bit-identical, "
+        "bit-identical to the plain version on the CPU; %d node visits "
+        "(mean depth %.2f); median time "
         "per call: kernel %.4f ms, plain (per-level torch walk on the card) "
         "%.4f ms, no single PyTorch call computes it; bound %.6f ms (%s)"
         % (label, L, int(depth.max()), n, G,
            "EFB-bundled" if valid_inner.has_bundles else "one feature per "
-           "group", visits, visits / n, ms, plain_ms, b_ms, b_by))
+           "group", tree.num_cat, visits, visits / n, ms, plain_ms, b_ms,
+           b_by))
     return {"name": "valid_walk", "route": "cuda",
             "source": "lightgbm_torch/csrc/valid_walk.cu",
             "replaces": "lightgbm_tpu/models/tree.py:420 (predict_leaf_"
@@ -2632,6 +2675,123 @@ def phase_valid_walk(label, tree, train_inner, valid_inner, seed):
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "rows": n, "leaves": L}
+
+
+def phase_cat_kernels(lgb, inner, y, params, R=256, seed=4):
+    """cat_scan at the airline path's shape: the categorical layout of the
+    binned airline set (six features, 12 to 255 bins), on R = 256 real
+    node histograms (hist_window over random row windows of 2k-200k rows,
+    binary gradients of random scores), B = 2 and B = 256 nodes, the
+    sorted route (the default max_cat_to_onehot) and the one-hot one (32):
+    two launches equal, and bit for bit equal to the plain version on the
+    CPU. Timed (sorted route) beside the plain version on the card and the
+    bound: each node's bins of the six features read once (grad and hess),
+    its scalars and mask, the records written once. Returns the kernel's
+    record (launches filled in by main)."""
+    import torch
+    from lightgbm_torch.ops.cat_scan import (cat_scalars, cat_scan,
+                                             cat_scan_rows_plain)
+    from lightgbm_torch.ops.grow import tb_source_index
+    from lightgbm_torch.ops.histogram import hist_window
+    from lightgbm_torch.treelearner.serial import (cat_scan_setup,
+                                                   grow_config)
+    from lightgbm_torch.ops.split import SplitParams
+    dev = torch.device("cuda")
+    cfg = lgb.Config(params)
+    sp = SplitParams.from_config(cfg)
+    gc = grow_config(cfg, inner)
+    data = inner.to_device(dev)
+    n = data.bins.shape[0]
+    rng = np.random.default_rng(seed)
+    p_ = 1.0 / (1.0 + np.exp(-(rng.normal(size=n) * 0.5 - 1.4)))
+    grad = torch.as_tensor((p_ - y).astype(np.float32), device=dev)
+    hess = torch.as_tensor((p_ * (1 - p_)).astype(np.float32), device=dev)
+    tb_src = tb_source_index(inner.group_offset, inner.total_bins,
+                             gc.hist_width, dev)
+    lengths = np.exp(rng.uniform(np.log(2000), np.log(200_000), R)
+                     ).astype(np.int64)
+    starts = rng.integers(0, n - lengths)
+    gh = torch.empty((R, gc.total_bins), dtype=torch.float32, device=dev)
+    hh = torch.empty_like(gh)
+    for r in range(R):
+        h = hist_window(data.bins, grad, hess, int(starts[r]),
+                        int(lengths[r]), gc.hist_width)
+        h = h.reshape(-1, 2)[tb_src]
+        gh[r], hh[r] = h[:, 0], h[:, 1]
+    g64 = grad.double().cpu().numpy()
+    h64 = hess.double().cpu().numpy()
+    sg = np.array([g64[a:a + b].sum() for a, b in zip(starts, lengths)],
+                  np.float32)
+    sh = np.array([h64[a:a + b].sum() for a, b in zip(starts, lengths)],
+                  np.float32) + np.float32(2e-15)
+    gh_c, hh_c = gh.cpu(), hh.cpu()
+    rec = {}
+    for route, onehot in (("sorted", cfg.max_cat_to_onehot), ("onehot", 32)):
+        cat = cat_scan_setup(lgb.Config(dict(params,
+                                             max_cat_to_onehot=onehot)),
+                             inner, sp, dev, False)
+        cat_c = cat_scan_setup(lgb.Config(dict(params,
+                                               max_cat_to_onehot=onehot)),
+                               inner, sp, "cpu", False)
+        C = cat.layout.C
+        for B in (2, R):
+            sel = rng.permutation(R)[:B]
+            rows = torch.as_tensor(sel)
+            cs = cat_scalars(sg[sel], sh[sel], lengths[sel], sp,
+                             np.full(B, -np.inf, np.float32),
+                             np.full(B, np.inf, np.float32))
+            fm = np.ones((B, C), np.float32)
+            args = (torch.as_tensor(cs, device=dev), gh, hh,
+                    rows.to(dev), cat.layout,
+                    torch.as_tensor(fm, device=dev), cat.par)
+            a = cat_scan(*args)
+            b = cat_scan(*args)
+            torch.cuda.synchronize()
+            _same("cat_scan %s B=%d: two launches" % (route, B),
+                  a.view(torch.int32).cpu(), b.view(torch.int32).cpu())
+            ref = cat_scan_rows_plain(torch.as_tensor(cs), gh_c, hh_c, rows,
+                                      cat_c.layout, torch.as_tensor(fm),
+                                      cat_c.par.cpu())
+            err = _same("cat_scan %s B=%d vs the plain version on the CPU"
+                        % (route, B), a.view(torch.int32).cpu(),
+                        ref.view(torch.int32))
+            fin = torch.isfinite(ref[..., 0])
+            if not bool(fin.any()):
+                raise AssertionError("cat_scan %s B=%d: no split: the "
+                                     "check is vacuous" % (route, B))
+            if route != "sorted":
+                continue
+            ms = device_ms(lambda: cat_scan(*args),
+                           sleep_cycles=2_000_000 if B == 2 else 20_000_000)
+            plain_ms = device_ms(lambda: cat_scan_rows_plain(*args),
+                                 reps=3, warmup=1)
+            nb = cat.layout.meta[1].sum().item()
+            nbytes = B * nb * 8 + cs.nbytes + fm.nbytes + a.numel() * 4 \
+                + cat.layout.meta.numel() * 4 + C * 4 + 64
+            b_ms, b_by = bound_ms(nbytes, 0.0)
+            key = "" if B == 2 else "b256_"
+            rec.update({key + "ms": ms, key + "plain_ms": plain_ms,
+                        key + "bound_ms": b_ms, key + "bound_by": b_by})
+            if B == 2:
+                rec["max_abs_err"] = err
+            log("cat_scan: B=%d nodes x %d categorical features (%d bins, "
+                "widest %d), sorted route: two launches equal, bit for bit "
+                "equal to the plain version on the CPU (%d of %d records "
+                "split); median time per call: kernel %.4f ms, plain (torch "
+                "on the card) %.3f ms, no single PyTorch call computes it; "
+                "bound %.6f ms (%s)" % (B, C, nb, cat.layout.W,
+                                        int(fin.sum()), fin.numel(), ms,
+                                        plain_ms, b_ms, b_by))
+        log("cat_scan: the %s route at B=2 and B=%d bit for bit equal to "
+            "the plain version on the CPU" % (route, R))
+    return dict({"name": "cat_scan", "route": "cuda",
+                 "source": "lightgbm_torch/csrc/cat_scan.cu",
+                 "replaces": "lightgbm_tpu/ops/split.py:572 (find_best_"
+                             "split_categorical: XLA ops; no Pallas kernel)",
+                 "launches": 0, "library_ms": None}, **{
+        k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "b256_ms", "b256_plain_ms",
+                            "b256_bound_ms")})
 
 
 RENEW_SIZES = (0, 1, 2, 3, 7, 40, 0, 1, 2, 513, 4096, 5, 100_003)
@@ -2993,14 +3153,15 @@ PROFILED = {
 }
 PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["l1"] = \
     PROFILED["ltr"] = PROFILED["persist"]
-PROFILED["xendcg"] = PROFILED["knobs"] = PROFILED["v1"]
+PROFILED["xendcg"] = PROFILED["knobs"] = PROFILED["airline"] = \
+    PROFILED["airline onehot"] = PROFILED["v1"]
 # the kernels of the port's own sources (csrc/); every other kernel in a
 # profile is PyTorch's (the gradient fills, copies, the score snapshot)
 OWN_KERNELS = ("payload_ordered_partial", "hist_window", "split_", "level_",
                "consolidate_copy", "gs_", "scan_pair", "scan_blocks",
                "seg_hist", "root_hist", "ordered_", "payload_hist_reduce",
                "empty_launch", "renew_leaf", "lambdarank_grad",
-               "xendcg_grad")
+               "xendcg_grad", "cat_scan")
 
 
 # the partition's kernels: count, scan and scatter of split_pass and
@@ -3293,7 +3454,14 @@ PARITY = (
         ("all five", dict(KNOB_PARAMS, lambda_l1=10.0)))) + (
     # a custom objective (the binary gradients from the host) on v1
     ("fobj binary", "higgs", {"objective": "none", "num_leaves": 63,
-                              "fobj": "binary"}, (False, False, False)),)
+                              "fobj": "binary"}, (False, False, False)),
+    # categorical features on v1, both routes of cat_scan, 3 iterations at
+    # 63 leaves (the CPU side of a 255-leaf path takes ~13 s)
+    ("airline sorted", "airline", dict(AIRLINE, iters=3, num_leaves=63),
+     (False, False, False)),
+    ("airline onehot", "airline", dict(PATHS["airline onehot"][0], iters=3,
+                                       num_leaves=63),
+     (False, False, False)))
 # the paths trained `--deep-parity-iters` iterations (ROADMAP C7: the
 # binary persist and v1 paths and softmax on its three routes; the knob
 # and custom-objective paths)
@@ -3329,9 +3497,11 @@ def phase_parity(lgb, data, iters, mc_iters, deep_iters):
         g = rest[1] if len(rest) > 1 else None
         extra = dict(extra)
         fobj = FOBJ.get(extra.pop("fobj", None))
+        own_iters = extra.pop("iters", None)
         params = dict(COMMON, **extra)
-        n_it = (deep_iters if path in DEEP_PARITY else
-                mc_iters if params.get("num_class", 1) > 1 else iters)
+        n_it = own_iters or (
+            deep_iters if path in DEEP_PARITY else
+            mc_iters if params.get("num_class", 1) > 1 else iters)
         out, digest = {}, {}
         for dev in ("cuda", "cpu"):
             p = dict(params, device_type=dev)
@@ -3905,6 +4075,16 @@ def main() -> int:
                     help="iterations of the xendcg path (rank_xendcg, v1)")
     ap.add_argument("--rank-parity-rows", type=int, default=200_000,
                     help="make_ltr_like rows of the ranking parity paths")
+    ap.add_argument("--airline-rows", type=int, default=10_000_000,
+                    help="make_airline_like rows of the airline paths")
+    ap.add_argument("--airline-iters", type=int, default=3,
+                    help="iterations of each airline path (sorted and "
+                    "one-hot categorical scans, v1)")
+    ap.add_argument("--airline-valid-rows", type=int, default=1_000_000,
+                    help="held-out airline rows the valid_walk phase walks")
+    ap.add_argument("--cat-parity-rows", type=int, default=200_000,
+                    help="make_airline_like rows of the categorical parity "
+                    "paths")
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
@@ -3922,7 +4102,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_torch as lgb
-    from lightgbm_torch.data.synth import make_expo_like
+    from lightgbm_torch.data.synth import make_airline_like, make_expo_like
     from lightgbm_torch.treelearner.serial import feature_meta, grow_config
     from lightgbm_torch.ops.split import SplitParams
 
@@ -4068,6 +4248,44 @@ def main() -> int:
         runs["xendcg"] = phase_train(lgb, X, y, ds, args.xendcg_iters, card,
                                      args.profile, "xendcg")
     del X, y, g, Xv, yv, gv, ds, inner
+
+    # the airline set's shape (szilard/benchm-ml): six categorical columns
+    # on the v1 grower, cat_scan beside scan_pair
+    t = time.time()
+    X, y = make_airline_like(args.airline_rows, seed=1)
+    log("data: make_airline_like(%d) -> %s in %.1f s, %.4f delayed"
+        % (args.airline_rows, X.shape, time.time() - t, y.mean()))
+    params = dict(COMMON, **AIRLINE)
+    ds, inner = make_dataset(lgb, X, y, params, "airline")
+    log("data: airline bins per feature %s, categorical %s, %d MB of bins"
+        % ([m.num_bin for m in inner.bin_mappers],
+           inner.is_categorical.astype(int).tolist(),
+           inner.binned.nbytes // 2**20))
+    kernels.append(phase_cat_kernels(lgb, inner, y, params))
+    if not args.skip_train:
+        cat_keep = {}
+        runs["airline"] = phase_train(lgb, X, y, ds, args.airline_iters,
+                                      card, args.profile, "airline",
+                                      keep=cat_keep)
+        runs["airline onehot"] = phase_train(
+            lgb, X, y, ds, args.airline_iters, card, args.profile,
+            "airline onehot")
+        wall, busy, _, _, _ = cat_keep["iteration"]
+        log("train airline: one more iteration %.1f ms wall, %.1f ms busy, "
+            "idle %.3f (%s)" % (wall, busy, 1 - busy / wall, card))
+        next(k for k in kernels if k["name"] == "cat_scan").update(
+            airline_wall_ms=wall, airline_busy_ms=busy,
+            airline_num_cat=cat_keep["num_cat"])
+        tree = cat_keep["tree"]
+        del cat_keep
+    else:
+        tree = lgb.train(params, ds, 1)._booster.models[0]
+    Xa, ya = make_airline_like(args.airline_valid_rows, seed=2)
+    arec = phase_valid_walk("airline", tree, inner, lgb.Dataset(
+        Xa, ya, reference=ds).construct()._inner, 3)
+    walk_rec.update({"airline_" + k: arec[k] for k in (
+        "ms", "plain_ms", "bound_ms", "max_abs_err", "rows", "leaves")})
+    del X, y, Xa, ya, ds, inner, tree
     if not args.skip_train:
         # each kernel's count from the run of the path it serves: the v1
         # grower's for hist_window, the per-split persistent grower's for
@@ -4080,7 +4298,8 @@ def main() -> int:
                   "level_pass": "level",
                   "level_seg_hist": "level", "scan_blocks": "bundled",
                   "valid_walk": "valid", "renew_leaf": "l1",
-                  "lambdarank_grad": "ltr", "xendcg_grad": "xendcg"}
+                  "lambdarank_grad": "ltr", "xendcg_grad": "xendcg",
+                  "cat_scan": "airline"}
         for rec in kernels:
             run = runs[serves.get(rec["name"], "persist")]
             if rec["name"] == "grow_step":
@@ -4103,6 +4322,10 @@ def main() -> int:
                 rec["xendcg_launches"] = runs["xendcg"][rec["name"]]
             if rec["name"] == "hist_window":
                 rec["knobs_launches"] = runs["knobs"]["hist_window"]
+            if rec["name"] in ("hist_window", "scan_pair", "cat_scan"):
+                rec["airline_launches"] = runs["airline"][rec["name"]]
+                rec["airline_onehot_launches"] = \
+                    runs["airline onehot"][rec["name"]]
             if rec["name"] == "split_pass":
                 rec["multiclass_consolidate_launches"] = \
                     runs["multiclass"]["consolidate"]
@@ -4123,6 +4346,7 @@ def main() -> int:
         gr = rank_sizes(len(yr), 8, longest=400)
         wr = np.random.default_rng(9).uniform(0.5, 2.0, len(yr))
         data["ltr-w"] = (Xr, yr, wr, gr)
+        data["airline"] = make_airline_like(args.cat_parity_rows, seed=5)
         log("data: make_ltr_like(%d, seed=7) in %d queries of 1 to %d rows"
             % (args.rank_parity_rows, len(gr), gr.max()))
         phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters,

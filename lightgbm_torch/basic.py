@@ -1,7 +1,9 @@
 """User-facing Dataset and Booster of the port.
 
 The port of the slice of lightgbm_tpu/basic.py that training needs: a
-``Dataset`` from an in-memory numpy matrix, with query groups for ranking
+``Dataset`` from an in-memory numpy matrix, with categorical columns
+(``categorical_feature=`` by index or by name, or the
+``categorical_feature`` parameter) and query groups for ranking
 (``group=``, ``set_group``/``get_group``; a validation set bins with its
 ``reference``'s mappers and keeps its own groups), and a ``Booster`` that
 trains (``update``), evaluates its training and validation sets
@@ -44,6 +46,42 @@ def resolve_device(config: Config) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def categorical_indices(categorical_feature, config: Config,
+                        names: Optional[List[str]], num_features: int
+                        ) -> List[int]:
+    """The column indices that bin as categories: the ``categorical_feature``
+    argument (indices, or names resolved against ``names``), else the
+    ``categorical_feature`` parameter (the reference's form: "0,3,5" or
+    "name:a,b"). "auto" and None name none (a numpy matrix has no category
+    dtype; the JAX package's basic.py:37-90)."""
+    cat = categorical_feature
+    if cat in ("auto", None) or (isinstance(cat, (list, tuple))
+                                 and len(cat) == 0):
+        spec = str(config.categorical_feature).strip()
+        if not spec:
+            return []
+        if spec.startswith("name:"):
+            cat = [c.strip() for c in spec[5:].split(",") if c.strip()]
+        else:
+            cat = [int(c) for c in spec.split(",") if c.strip()]
+    if isinstance(cat, (str, int)):
+        cat = [cat]
+    out = []
+    for c in cat:
+        if isinstance(c, (int, np.integer)):
+            i = int(c)
+        elif names is not None and c in names:
+            i = names.index(c)
+        else:
+            raise LightGBMError("categorical_feature %r is neither a column "
+                                "index nor a feature name" % (c,))
+        if not 0 <= i < num_features:
+            raise LightGBMError("categorical_feature %d is out of range for "
+                                "%d features" % (i, num_features))
+        out.append(i)
+    return sorted(set(out))
+
+
 class Dataset:
     """Training data container (reference basic.py:730), built lazily."""
 
@@ -69,11 +107,6 @@ class Dataset:
         if self._inner is not None:
             return self
         cfg = Config(self.params)
-        cat = self.categorical_feature
-        if cat not in ("auto", None) and len(cat) > 0 or cfg.categorical_feature:
-            raise LightGBMError("categorical features are not ported yet "
-                                "(ROADMAP.md queue A, item 4: general split "
-                                "scan)")
         if self.data is None:
             raise LightGBMError("Cannot construct Dataset since the raw data "
                                 "has been freed")
@@ -86,9 +119,12 @@ class Dataset:
         ref = None
         if self.reference is not None:
             ref = self.reference.construct()._inner
+        cat_idx = categorical_indices(self.categorical_feature, cfg, names,
+                                      X.shape[1])
         self._inner = BinnedDataset.from_matrix(
             X, cfg, label=self.label, weight=self.weight, group=self.group,
-            init_score=self.init_score, feature_names=names, reference=ref)
+            init_score=self.init_score, feature_names=names, reference=ref,
+            categorical_features=cat_idx)
         if ref is None:
             # a validation set is uploaded by the Booster that evaluates
             # it, to its training device

@@ -123,9 +123,13 @@ class GBDT:
 
     @staticmethod
     def _feature_info(mapper) -> str:
-        """Dataset::get feature_infos: [min:max]."""
+        """Dataset::get feature_infos: [min:max], or the categories joined
+        by ':' (the JAX package's gbdt.py:128-136)."""
         if mapper.is_trivial:
             return "none"
+        if mapper.is_categorical:
+            return ":".join(str(c) for c in sorted(
+                c for c in mapper.bin_2_categorical if c >= 0))
         return "[%s:%s]" % (repr(float(mapper.min_val)),
                             repr(float(mapper.max_val)))
 

@@ -114,4 +114,4 @@ class ValidScoreUpdater:
         """score[class_id] += the leaf value of each row's leaf under a
         packed tree (ops/valid_walk.py:pack)."""
         valid_walk(self.bins, packed.nodes, packed.leaves,
-                   self._score[class_id])
+                   self._score[class_id], packed.words)

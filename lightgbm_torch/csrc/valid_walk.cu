@@ -16,6 +16,13 @@
 // its last bin (the NaN bin), the threshold bin, the decision type
 // (bits 2-3 the missing type, bit 1 default-left) and the children
 // (~leaf for a leaf). Leaves: [num_nodes + 1] f64 leaf values.
+// A categorical node (decision type bit 0) holds, in place of its last bin
+// and threshold, the count and the first index of its inner bitset's words
+// in `words` ([n_words] u32, one array for all trees of an upload): a row
+// goes left when bit b % 32 of word b / 32 is set, b its feature-local bin
+// (the most frequent bin outside the range), as the JAX package's
+// _decision_inner (models/tree.py:447-474) looks b up with FindInBitset; a
+// word past the node's count, or past the array, is 0.
 //
 // Design: one thread per row walks from the root; the node table sits in
 // shared memory when it fits (255 leaves: 10 KB), else it is read from
@@ -37,7 +44,8 @@ template <bool SMEM>
 __global__ void __launch_bounds__(VW_THREADS)
 valid_walk(const uint8_t* __restrict__ bins, long long n, int G,
            const int* __restrict__ nodes, const double* __restrict__ leaves,
-           int num_nodes, double* __restrict__ score) {
+           int num_nodes, const unsigned* __restrict__ words, int n_words,
+           double* __restrict__ score) {
   extern __shared__ int vw_smem[];
   const int* nd = nodes;
   if (SMEM) {
@@ -58,10 +66,17 @@ valid_walk(const uint8_t* __restrict__ bins, long long n, int G,
         const int b = (col >= rec[VW_LO] && col < rec[VW_HI])
                           ? col - rec[VW_LO] : rec[VW_MFB];
         const int dt = rec[VW_DT];
-        const int mt = (dt >> 2) & 3;
-        const bool dflt = (mt == 1 && b == rec[VW_DB]) ||
-                          (mt == 2 && b == rec[VW_NB1]);
-        const bool left = dflt ? (dt & 2) != 0 : b <= rec[VW_THR];
+        bool left;
+        if (dt & 1) {
+          const int wi = b >> 5, at = rec[VW_THR] + wi;
+          left = wi < rec[VW_NB1] && at < n_words &&
+                 ((__ldg(words + at) >> (b & 31)) & 1u) != 0;
+        } else {
+          const int mt = (dt >> 2) & 3;
+          const bool dflt = (mt == 1 && b == rec[VW_DB]) ||
+                            (mt == 2 && b == rec[VW_NB1]);
+          left = dflt ? (dt & 2) != 0 : b <= rec[VW_THR];
+        }
         node = left ? rec[VW_LEFT] : rec[VW_RIGHT];
       }
       node = ~node;
@@ -88,7 +103,8 @@ static int vw_sms() {
 // memory once per block.
 extern "C" int valid_walk_launch(const void* bins, long long n, int G,
                                  const void* nodes, const void* leaves,
-                                 int num_nodes, void* score, void* stream) {
+                                 int num_nodes, const void* words,
+                                 int n_words, void* score, void* stream) {
   if (n <= 0) return 0;
   const long long want = (n + VW_THREADS - 1) / VW_THREADS;
   const int grid = (int)(want < 4LL * vw_sms() ? want : 4LL * vw_sms());
@@ -98,11 +114,13 @@ extern "C" int valid_walk_launch(const void* bins, long long n, int G,
     valid_walk<true><<<grid, VW_THREADS, smem, s>>>(
         static_cast<const uint8_t*>(bins), n, G,
         static_cast<const int*>(nodes), static_cast<const double*>(leaves),
-        num_nodes, static_cast<double*>(score));
+        num_nodes, static_cast<const unsigned*>(words), n_words,
+        static_cast<double*>(score));
   else
     valid_walk<false><<<grid, VW_THREADS, 0, s>>>(
         static_cast<const uint8_t*>(bins), n, G,
         static_cast<const int*>(nodes), static_cast<const double*>(leaves),
-        num_nodes, static_cast<double*>(score));
+        num_nodes, static_cast<const unsigned*>(words), n_words,
+        static_cast<double*>(score));
   return (int)cudaGetLastError();
 }

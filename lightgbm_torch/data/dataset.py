@@ -7,6 +7,10 @@ EFB grouping, the group layout, and numpy binning into one dense
 is the JAX package's, so both packages see the same layout for the same
 data and config.
 
+Categorical columns (``categorical_features``, inner ids in
+``is_categorical``) bin with the reference's categorical mapper; EFB may
+bundle them like any feature.
+
 ``to_device`` hands the grower that matrix and the per-feature metadata as
 tensors on the chosen device (:class:`DeviceData`).
 
@@ -27,7 +31,7 @@ import torch
 
 from ..config import Config
 from ..utils.log import Log
-from .bin_mapper import BinMapper, kZeroThreshold
+from .bin_mapper import BinMapper, BinType, kZeroThreshold
 
 MAX_GROUP_BINS = 256  # keep bundled groups addressable by uint8
 
@@ -201,6 +205,7 @@ class BinnedDataset:
         self.most_freq_bin: Optional[np.ndarray] = None
         self.default_bin: Optional[np.ndarray] = None
         self.missing_type_arr: Optional[np.ndarray] = None
+        self.is_categorical: Optional[np.ndarray] = None  # [F_inner] bool
         self.monotone: Optional[np.ndarray] = None
         self.penalty: Optional[np.ndarray] = None
         self.needs_fix: Optional[np.ndarray] = None   # bundled features
@@ -212,8 +217,8 @@ class BinnedDataset:
     def from_matrix(cls, X, config: Config, label=None, weight=None,
                     group=None, init_score=None,
                     feature_names: Optional[List[str]] = None,
-                    reference: Optional["BinnedDataset"] = None
-                    ) -> "BinnedDataset":
+                    reference: Optional["BinnedDataset"] = None,
+                    categorical_features=()) -> "BinnedDataset":
         """Build from an in-memory dense matrix (reference
         DatasetLoader::CostructFromSampleData, dataset_loader.cpp:528).
 
@@ -221,7 +226,9 @@ class BinnedDataset:
         reference's BinMappers, used features, EFB groups and layout are
         reused, so the rows bin exactly as the training rows would
         (LoadFromFileAlignWithOtherDataset, dataset_loader.cpp:230; the
-        JAX package's dataset.py:236-244)."""
+        JAX package's dataset.py:236-244). `categorical_features` are the
+        column indices that bin as categories (ignored with a reference,
+        whose mappers decide)."""
         X = np.ascontiguousarray(X, dtype=np.float64)
         n, nf = X.shape
         ds = cls()
@@ -249,7 +256,8 @@ class BinnedDataset:
             return ds
         sample = _sample_data(X, config.bin_construct_sample_cnt,
                               config.data_random_seed)
-        ds._construct_from_sample(sample, n, config)
+        ds._construct_from_sample(sample, n, config,
+                                  set(int(c) for c in categorical_features))
         ds.binned = np.zeros((n, len(ds.groups)), dtype=ds._bin_dtype())
         ds._bin_rows(X, ds.binned)
         return ds
@@ -291,6 +299,7 @@ class BinnedDataset:
         ds.missing_type_arr = np.asarray(missing_type, np.int32)
         ds.default_bin = np.asarray(default_bin, np.int32)
         ds.most_freq_bin = np.asarray(most_freq_bin, np.int32)
+        ds.is_categorical = np.zeros(F, bool)
         ds.monotone = np.zeros(F, np.int32)
         ds.penalty = np.ones(F, np.float64)
         ds.total_bins = int(ds.bin_end.max()) if F else 0
@@ -300,7 +309,7 @@ class BinnedDataset:
         return ds
 
     def _construct_from_sample(self, sample: np.ndarray, n: int,
-                               config: Config) -> None:
+                               config: Config, cat_set=frozenset()) -> None:
         """BinMapper construction + EFB grouping + layout from a row sample
         (the JAX package's BinnedDataset._construct_from_sample, dense
         route)."""
@@ -323,6 +332,8 @@ class BinnedDataset:
                 int(mbbf[f]) if mbbf else config.max_bin,
                 config.min_data_in_bin, filter_cnt,
                 pre_filter=bool(config.feature_pre_filter),
+                bin_type=(BinType.CATEGORICAL if f in cat_set
+                          else BinType.NUMERICAL),
                 use_missing=config.use_missing,
                 zero_as_missing=config.zero_as_missing,
                 forced_upper_bounds=forced.get(f, ()))
@@ -381,6 +392,8 @@ class BinnedDataset:
             [m.default_bin for m in inner_mappers], dtype=np.int32)
         self.missing_type_arr = np.array(
             [m.missing_type for m in inner_mappers], dtype=np.int32)
+        self.is_categorical = np.array(
+            [m.is_categorical for m in inner_mappers], dtype=bool)
         mono = np.zeros(n_inner, dtype=np.int32)
         for i, f in enumerate(self.used_features):
             if f < len(config.monotone_constraints):
@@ -395,8 +408,8 @@ class BinnedDataset:
     def _finish_layout_like(self, ref: "BinnedDataset") -> None:
         for attr in ("group_of", "bin_start", "bin_end", "needs_fix",
                      "group_offset", "total_bins", "most_freq_bin",
-                     "default_bin", "missing_type_arr", "monotone",
-                     "penalty"):
+                     "default_bin", "missing_type_arr", "is_categorical",
+                     "monotone", "penalty"):
             setattr(self, attr, getattr(ref, attr))
 
     def _bin_dtype(self):

@@ -1,6 +1,7 @@
 """Synthetic benchmark data: the HIGGS-shaped set of the repo's north star,
-the Expo-shaped EFB-bundled set and the MSLR-WEB30K- and Yahoo-shaped
-learning-to-rank sets.
+the Expo-shaped EFB-bundled set, the MSLR-WEB30K- and Yahoo-shaped
+learning-to-rank sets, and the airline-shaped categorical set
+(:func:`make_airline_like`, the port's own).
 
 The port's own copies of ``make_higgs_like``, ``make_expo_like``,
 ``make_ltr_like`` and ``make_yahoo_like`` from the JAX package
@@ -74,3 +75,43 @@ def make_yahoo_like(n_rows=473_134, n_feat=700, docs_per_query=24, seed=11):
     ~24-doc queries (docs/Experiments.rst lists 473,134 x 700)."""
     return make_ltr_like(n_rows, n_feat=n_feat,
                          docs_per_query=docs_per_query, seed=seed)
+
+
+# the airline set's columns (szilard/benchm-ml's 2005-2006 airline data):
+# six categorical, then two numerical
+AIRLINE_NAMES = ("Month", "DayofMonth", "DayOfWeek", "UniqueCarrier",
+                 "Origin", "Dest", "DepTime", "Distance")
+AIRLINE_CATEGORICAL = (0, 1, 2, 3, 4, 5)
+AIRLINE_CARDS = (12, 31, 7, 22, 300, 300)
+
+
+def make_airline_like(n_rows: int, seed: int = 0):
+    """Airline-shaped synthetic of the shape of the public szilard
+    benchm-ml set (dep_delayed_15min): categorical Month (12 categories),
+    DayofMonth (31), DayOfWeek (7), UniqueCarrier (22), Origin (300) and
+    Dest (300) as integer codes, numerical DepTime (hhmm) and Distance
+    (miles). Category frequencies fall like a Zipf law (the airports and
+    carriers steeply, the calendar columns mildly), each category adds its
+    own effect to the delay logit, and about 19% of the rows are delayed.
+    The effects and the frequency laws are fixed, so sets drawn with other
+    seeds are held-out rows of the same task. Returns (X [n, 8] f64,
+    y [n] f64)."""
+    law = np.random.default_rng(20240917)      # the task: fixed
+    rng = np.random.default_rng(seed)          # the rows
+    X = np.empty((n_rows, 8), np.float64)
+    logit = np.full(n_rows, -1.75)
+    for j, (card, steep, scale) in enumerate(zip(
+            AIRLINE_CARDS, (0.3, 0.1, 0.2, 1.2, 1.3, 1.3),
+            (0.3, 0.1, 0.15, 0.4, 0.5, 0.5))):
+        p = 1.0 / np.arange(1, card + 1) ** steep
+        p = p[law.permutation(card)]
+        eff = law.normal(scale=scale, size=card)
+        codes = rng.choice(card, size=n_rows, p=p / p.sum())
+        X[:, j] = codes
+        logit += eff[codes]
+    hour = rng.choice(np.arange(5, 24), size=n_rows)
+    X[:, 6] = hour * 100 + rng.integers(0, 60, n_rows)
+    X[:, 7] = np.clip(np.round(rng.lognormal(6.5, 0.6, n_rows)), 30, 4983)
+    logit += 0.09 * (hour - 14) + 0.0001 * (X[:, 7] - 700)
+    y = rng.random(n_rows) < 1.0 / (1.0 + np.exp(-logit))
+    return X, y.astype(np.float64)

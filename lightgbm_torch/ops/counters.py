@@ -23,7 +23,7 @@ import torch
 SLOTS = ("root_hist", "split_pass", "seg_hist", "scan_pair", "scan_blocks",
          "consolidate", "grow_root", "grow_pick", "grow_commit",
          "grow_planes", "grow_assemble", "apply_scores", "renew_leaf",
-         "lambdarank_grad", "xendcg_grad", "scan_pair_knob")
+         "lambdarank_grad", "xendcg_grad", "scan_pair_knob", "cat_scan")
 _INDEX = {name: i for i, name in enumerate(SLOTS)}
 _COUNTS: Dict[str, torch.Tensor] = {}
 

@@ -32,8 +32,16 @@ the host, driving the device:
 
 The JAX package routes data below 65536 rows to its masked grower; the port
 routes every size here. Both give the same trees up to f32 summation order
-(grow.py:1363). f32 sums, no bagging, no forced splits, no categorical
-features (the tree learner refuses the rest).
+(grow.py:1363). f32 sums, no bagging, no forced splits (the tree learner
+refuses the rest).
+
+Categorical features (:class:`CatScan`) are kept out of scan_pair's feature
+mask (pallas_scan.py:646) and scanned by one ``cat_scan`` launch per
+evaluation beside it (ops/cat_scan.py: the JAX package's
+find_best_split_categorical); the host merges the two candidates of each
+node in numpy f32 as merge_candidates does (the higher gain; on equal gain
+the smaller feature id), and a categorical split partitions by its left-bin
+mask (grow.py:_go_left_decision).
 
 The split scan's numerical knobs (:class:`Knobs`: ``lambda_l1``,
 ``max_delta_step``, monotone constraints, ``extra_trees``,
@@ -55,11 +63,12 @@ import torch
 
 from ..data.dataset import DeviceData
 from ..utils import random as tf
+from .cat_scan import CatLayout, cat_candidates, cat_scalars, cat_scan
 from .histogram import hist_window
 from .scan import ScanLayout, knob_scalars, pair_scalars, scan_pair
-from .split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, FeatureMeta,
-                    SplitCandidate, SplitParams, fix_histogram, leaf_output,
-                    leaf_output_unconstrained, mono_bounds)
+from .split import (K_EPSILON, K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
+                    FeatureMeta, SplitCandidate, SplitParams, fix_histogram,
+                    leaf_output, leaf_output_unconstrained, mono_bounds)
 
 F32 = np.float32
 
@@ -86,6 +95,13 @@ class Knobs(NamedTuple):
     key: np.ndarray             # [2] uint32: the tree's key
 
 
+class CatScan(NamedTuple):
+    """The categorical features of a run: their layout and the cat_scan
+    parameter block on the grower's device (ops/cat_scan.py)."""
+    layout: CatLayout
+    par: torch.Tensor
+
+
 class TreeArrays(NamedTuple):
     """Split records + leaf state of one tree (numpy), as the JAX grower's
     TreeArrays: everything the host needs to build a Tree."""
@@ -100,6 +116,8 @@ class TreeArrays(NamedTuple):
     leaf_value: np.ndarray      # [L] f32
     leaf_count: np.ndarray      # [L] i32
     leaf_weight: np.ndarray     # [L] f32 (sum of hessians)
+    is_cat: np.ndarray = None   # [L-1] bool categorical split
+    cat_words: np.ndarray = None  # [L-1, 8] uint32 its left-bin mask
 
 
 def tb_source_index(group_offset, total_bins: int, hist_width: int, device):
@@ -198,14 +216,20 @@ def node_draws(knobs: Knobs, tags, feature_mask: np.ndarray, feat_nb,
 def scan_children(gh: torch.Tensor, hh: torch.Tensor, rows,
                   layout: ScanLayout, params: SplitParams, sgs, shs, cnts,
                   depths, max_depth: int, knobs: Knobs = None, cmins=None,
-                  cmaxs=None, node=None):
+                  cmaxs=None, node=None, cat: CatScan = None,
+                  cat_fmask=None, pair: bool = False):
     """SplitCandidates of B children from their rows of the [R, TB]
     grad/hess histogram planes: one scan_pair launch, which reads the
     children's planes through ``rows`` and ``layout.gidx`` itself, then the
     cross-feature argmax (first maximum = smallest feature id) and the host
     assembly. `depths` is each child's depth, or one depth for all. With
     ``knobs``, the knob form with each child's monotone bounds (cmins,
-    cmaxs) and its ``node`` draws (:func:`node_draws`)."""
+    cmaxs) and its ``node`` draws (:func:`node_draws`). With ``cat``, one
+    cat_scan launch over the categorical features that ``cat_fmask``
+    ([B, C] bool) leaves each node, merged into the candidates; ``pair``
+    marks the fast form's children, whose categorical scan sees the hessian
+    sums with kEpsilon added twice, as the JAX pair path hands them over
+    (grow.py:607, split.py:583)."""
     dev = gh.device
     if knobs is None:
         scal = pair_scalars(sgs, shs, cnts, params.lambda_l2,
@@ -216,34 +240,65 @@ def scan_children(gh: torch.Tensor, hh: torch.Tensor, rows,
         scal = knob_scalars(sgs, shs, cnts, params, cmins, cmaxs,
                             knobs.use_mc)
         extra = {"node": torch.as_tensor(node, device=dev)}
+    rows_d = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
     out = scan_pair(torch.as_tensor(scal, device=dev), gh, hh,
                     layout.keep_r, layout.keep_f, layout.valid_r,
-                    layout.valid_f, layout.aux,
-                    rows=torch.as_tensor(np.asarray(rows, np.int64),
-                                         device=dev),
-                    gidx=layout.gidx, **extra).cpu().numpy()
+                    layout.valid_f, layout.aux, rows=rows_d,
+                    gidx=layout.gidx, **extra)
+    if cat is not None:
+        # queued behind scan_pair, so the two outputs come back with one
+        # wait
+        use_mc = knobs is not None and knobs.use_mc
+        sh_adj = scal[:, 1] + F32(2 * K_EPSILON) if pair else scal[:, 1]
+        B = len(scal)
+        cs = cat_scalars(scal[:, 0], sh_adj, cnts, params,
+                         cmins if use_mc else np.full(B, -np.inf, F32),
+                         cmaxs if use_mc else np.full(B, np.inf, F32))
+        rec = cat_scan(torch.as_tensor(cs, device=dev), gh, hh, rows_d,
+                       cat.layout,
+                       torch.as_tensor(np.ascontiguousarray(cat_fmask, F32),
+                                       device=dev), cat.par)
+    out = out.cpu().numpy()
     bf = np.argmax(out[:, 0], axis=1)
     best = out[np.arange(len(bf)), :, bf]                        # [B, 8]
-    return assemble(best[:, 0], bf, best[:, 1], best[:, 2] > 0.5,
-                    best[:, 3], best[:, 4], best[:, 5],
-                    layout.forced_right[bf], scal, params.lambda_l2, depths,
-                    max_depth, None if knobs is None
-                    else (params, cmins, cmaxs, knobs.use_mc))
+    cands = assemble(best[:, 0], bf, best[:, 1], best[:, 2] > 0.5,
+                     best[:, 3], best[:, 4], best[:, 5],
+                     layout.forced_right[bf], scal, params.lambda_l2, depths,
+                     max_depth, None if knobs is None
+                     else (params, cmins, cmaxs, knobs.use_mc))
+    if cat is None:
+        return cands
+    rec = rec.cpu().numpy()
+    depths = np.broadcast_to(np.asarray(depths), (B,))
+    for b, cc in enumerate(cat_candidates(rec, cat.layout, cs, params,
+                                          use_mc)):
+        if max_depth > 0 and int(depths[b]) >= max_depth:
+            continue                    # no split at max_depth
+        a = cands[b]
+        if cc["gain"] > a.gain or (cc["gain"] == a.gain and cc["feature"] >= 0
+                                   and (a.feature < 0
+                                        or cc["feature"] < a.feature)):
+            cands[b] = SplitCandidate(threshold=0, default_left=False,
+                                      is_cat=True, **cc)
+    return cands
 
 
 def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
                           hess: torch.Tensor, meta: FeatureMeta,
                           params: SplitParams, feature_mask: np.ndarray,
                           gc: GrowConfig, tb_src: torch.Tensor,
-                          knobs: Knobs = None):
+                          knobs: Knobs = None, cat: CatScan = None):
     """Grow one tree. grad/hess: [N] tensors on the data's device (every
-    row is in the bag). With ``knobs``, the scans' knob form. Returns
-    (TreeArrays, row_leaf [N] int32 tensor in original row order)."""
+    row is in the bag). With ``knobs``, the scans' knob form; with ``cat``,
+    the categorical scan beside the numerical one. Returns (TreeArrays,
+    row_leaf [N] int32 tensor in original row order)."""
     device = data.bins.device
     n, G = data.bins.shape
     L, TB, F, W = gc.num_leaves, gc.total_bins, gc.num_features, gc.hist_width
     l2 = F32(params.lambda_l2)
     arr = _empty_arrays(L)
+    arr["is_cat"] = np.zeros(L - 1, bool)
+    arr["cat_words"] = np.zeros((L - 1, 8), np.uint32)
     grad = grad.to(torch.float32).contiguous()
     hess = hess.to(torch.float32).contiguous()
     # f64 sums rounded to f32: the same value on every device
@@ -276,7 +331,8 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         """Stable in-place partition of segment [s0, s0 + n_l) by the
         DenseBin::Split decision (dense_bin.hpp:112, _go_left_decision):
         the missing NaN bin / zero bin go the default direction, every
-        other bin compares local_bin <= threshold. Returns n_left."""
+        other bin compares local_bin <= threshold; a categorical split
+        sends the bins of its mask left. Returns n_left."""
         f = cand.feature
         g = int(meta.group_of[f])
         start, end = int(meta.bin_start[f]), int(meta.bin_end[f])
@@ -284,14 +340,20 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         col = binsP[seg, g].to(torch.int32) + int(meta.group_offset[g])
         in_range = (col >= start) & (col < end)
         b = torch.where(in_range, col - start, int(meta.most_freq_bin[f]))
-        go_left = b <= cand.threshold
         mt = int(meta.missing_type[f])
-        if mt == MISSING_NAN:
-            go_left = torch.where(b == end - start - 1, cand.default_left,
-                                  go_left)
-        elif mt == MISSING_ZERO:
-            go_left = torch.where(b == int(meta.default_bin[f]),
-                                  cand.default_left, go_left)
+        if cand.is_cat:
+            # the left-bin mask: bit b of word b // 32 (b < 256 always)
+            words = torch.as_tensor(cand.cat_words.astype(np.int64),
+                                    device=device)
+            go_left = ((words[b >> 5] >> (b & 31)) & 1) > 0
+        else:
+            go_left = b <= cand.threshold
+            if mt == MISSING_NAN:
+                go_left = torch.where(b == end - start - 1,
+                                      cand.default_left, go_left)
+            elif mt == MISSING_ZERO:
+                go_left = torch.where(b == int(meta.default_bin[f]),
+                                      cand.default_left, go_left)
         left = torch.nonzero(go_left).squeeze(1)
         order = torch.cat([left, torch.nonzero(~go_left).squeeze(1)])
         binsP[seg] = binsP[seg][order]
@@ -302,8 +364,12 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
 
     # ---- root ---------------------------------------------------------------
     root_hist = fix_histogram(hist_tb(0, n), sum_grad, sum_hess, *meta.fix)
+    num_mask = np.asarray(feature_mask, bool)
+    if cat is not None:         # categoricals scan in cat_scan only
+        num_mask = num_mask.copy()
+        num_mask[cat.layout.feature] = False
     layout = ScanLayout(meta.bin_start, meta.bin_end, meta.missing_type,
-                        meta.default_bin, meta.penalty, feature_mask,
+                        meta.default_bin, meta.penalty, num_mask,
                         gc.scan_width, TB, device,
                         None if knobs is None else knobs.monotone)
     feat_nb = np.asarray(meta.bin_end) - np.asarray(meta.bin_start)
@@ -315,19 +381,27 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
     leaf_hist = torch.zeros((2, L, TB), dtype=torch.float32, device=device)
     leaf_hist[:, 0] = root_hist.t()
 
-    def evaluate(leaves, sgs, shs, cnts, depth_child, tags):
+    def evaluate(leaves, sgs, shs, cnts, depth_child, tags, pair):
         """Candidates of the leaves; `tags` fold each node's key out of
-        the tree's (knob form only)."""
+        the tree's (knob form only); `pair`: a split's two children."""
         node = None if knobs is None else node_draws(
             knobs, tags, feature_mask, feat_nb, layout.Fp)
+        cat_fmask = None
+        if cat is not None:     # the tree's mask and each node's sample
+            cf = cat.layout.feature
+            cat_fmask = np.broadcast_to(np.asarray(feature_mask, bool)[cf],
+                                        (len(leaves), len(cf)))
+            if node is not None:
+                cat_fmask = cat_fmask & (node[:, 1, cf] > 0)
         return scan_children(leaf_hist[0], leaf_hist[1], leaves, layout,
                              params, sgs, shs, cnts, depth_child,
                              gc.max_depth, knobs, leaf_cmin[leaves],
-                             leaf_cmax[leaves], node)
+                             leaf_cmax[leaves], node, cat, cat_fmask,
+                             pair and knobs is None)
 
     best = [SplitCandidate.none() for _ in range(L)]
     best_gain = np.full(L, K_MIN_SCORE, F32)
-    best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0, [0])[0]
+    best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0, [0], False)[0]
     best_gain[0] = best[0].gain
     leaf_start = np.zeros(L, np.int64)
     leaf_nrows = np.zeros(L, np.int64)
@@ -367,6 +441,9 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         arr["threshold"][k] = cand.threshold
         arr["default_left"][k] = cand.default_left
         arr["gain"][k] = cand.gain
+        if cand.is_cat:
+            arr["is_cat"][k] = True
+            arr["cat_words"][k] = cand.cat_words
         arr["internal_value"][k] = arr["leaf_value"][l]
         arr["internal_count"][k] = arr["leaf_count"][l]
 
@@ -390,7 +467,7 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         cand_l, cand_r = evaluate(
             [l, s], [cand.left_sum_grad, cand.right_sum_grad],
             [cand.left_sum_hess, cand.right_sum_hess],
-            [left_cnt, right_cnt], depth_child, [2 * s, 2 * s + 1])
+            [left_cnt, right_cnt], depth_child, [2 * s, 2 * s + 1], True)
         best[l], best[s] = cand_l, cand_r
         best_gain[l], best_gain[s] = cand_l.gain, cand_r.gain
         s += 1

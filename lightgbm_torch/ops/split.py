@@ -19,7 +19,7 @@ out, which is how the fast path keeps its bits.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -90,6 +90,8 @@ class SplitCandidate:
     right_sum_hess: np.float32
     left_count: int             # hessian-recovered (reference semantics)
     right_count: int
+    is_cat: bool = False        # a categorical split: cat_words go left
+    cat_words: Optional[np.ndarray] = None    # [8] uint32 left-bin mask
 
     @classmethod
     def none(cls) -> "SplitCandidate":

@@ -12,8 +12,9 @@ raises, and a failed build or launch raises.
 
 :func:`pack` lays an iteration's trees out in one int32 host buffer (their
 f64 leaf values first, then their node records, models/tree.py:
-Tree.node_records) and uploads it with one copy; each tree's operands are
-views of it.
+Tree.node_records, then one word array of all their categorical nodes'
+inner bitsets, which the records index) and uploads it with one copy; each
+tree's operands are views of it.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..utils.log import LightGBMError
 class PackedTree(NamedTuple):
     nodes: torch.Tensor     # [num_leaves - 1, VW_COLS] int32
     leaves: torch.Tensor    # [num_leaves] f64
+    words: torch.Tensor     # int32: the pack's categorical bitset words
 
 
 def pack(trees: Sequence, leaf_values: Sequence[np.ndarray], dataset,
@@ -37,7 +39,10 @@ def pack(trees: Sequence, leaf_values: Sequence[np.ndarray], dataset,
     """The walk operands of `trees` (models.tree.Tree) with the leaf values
     `leaf_values[i]` (f64, one per leaf of tree i), for rows binned like
     `dataset`, in one buffer on `device` (one host-to-device copy)."""
-    recs = [t.node_records(dataset) for t in trees]
+    wbase = np.cumsum([0] + [len(t.cat_threshold_inner) for t in trees])
+    recs = [t.node_records(dataset, int(b)) for t, b in zip(trees, wbase)]
+    words = (np.concatenate([t.cat_words_inner() for t in trees])
+             if len(trees) else np.zeros(0, np.uint32)).view(np.int32)
     lvs = [np.ascontiguousarray(v, np.float64).reshape(-1)
            for v in leaf_values]
     for r, v in zip(recs, lvs):
@@ -45,49 +50,58 @@ def pack(trees: Sequence, leaf_values: Sequence[np.ndarray], dataset,
             raise LightGBMError("valid_walk.pack: %d leaf values for %d "
                                 "nodes" % (len(v), r.shape[0]))
     n_leaf = sum(len(v) for v in lvs)
-    buf = np.empty(2 * n_leaf + sum(r.size for r in recs), np.int32)
+    n_rec = sum(r.size for r in recs)
+    buf = np.empty(2 * n_leaf + n_rec + len(words), np.int32)
     if n_leaf:
         buf[:2 * n_leaf].view(np.float64)[:] = np.concatenate(lvs)
     if recs:
-        buf[2 * n_leaf:] = np.concatenate([r.reshape(-1) for r in recs])
+        buf[2 * n_leaf:2 * n_leaf + n_rec] = np.concatenate(
+            [r.reshape(-1) for r in recs])
+    buf[2 * n_leaf + n_rec:] = words
     dev = torch.as_tensor(buf, device=device)
     leaves = dev[:2 * n_leaf].view(torch.float64)
+    wdev = dev[2 * n_leaf + n_rec:]
     out, lo, no = [], 0, 2 * n_leaf
     for r, v in zip(recs, lvs):
         out.append(PackedTree(dev[no:no + r.size].view(-1, VW_COLS),
-                              leaves[lo:lo + len(v)]))
+                              leaves[lo:lo + len(v)], wdev))
         lo += len(v)
         no += r.size
     return out
 
 
 def valid_walk_plain(bins: torch.Tensor, nodes: torch.Tensor,
-                     leaves: torch.Tensor, score: torch.Tensor) -> None:
+                     leaves: torch.Tensor, score: torch.Tensor,
+                     words: torch.Tensor = None) -> None:
     """score += leaves[leaf(row)] in plain PyTorch (one f64 add per row)."""
-    score.add_(leaves[walk_leaves_plain(bins, nodes)])
+    score.add_(leaves[walk_leaves_plain(bins, nodes, words)])
 
 
-def _launch(bins, nodes, leaves, score) -> None:
+def _launch(bins, nodes, leaves, score, words) -> None:
     from .build import load
     fn = load("valid_walk").valid_walk_launch
     P = ctypes.c_void_p
     fn.argtypes = [P, ctypes.c_longlong, ctypes.c_int, P, P, ctypes.c_int,
-                   P, P]
+                   P, ctypes.c_int, P, P]
     fn.restype = ctypes.c_int
+    nw = 0 if words is None else words.numel()
     err = fn(P(bins.data_ptr()), bins.shape[0], bins.shape[1],
              P(nodes.data_ptr()), P(leaves.data_ptr()), nodes.shape[0],
-             P(score.data_ptr()),
+             P(words.data_ptr() if nw else None), nw, P(score.data_ptr()),
              P(torch.cuda.current_stream(bins.device).cuda_stream))
     if err != 0:
         raise LightGBMError("valid_walk launch failed: CUDA error %d" % err)
 
 
 def valid_walk(bins: torch.Tensor, nodes: torch.Tensor,
-               leaves: torch.Tensor, score: torch.Tensor) -> None:
+               leaves: torch.Tensor, score: torch.Tensor,
+               words: torch.Tensor = None) -> None:
     """score[r] += leaves[leaf(r)] for every row r of `bins` ([n, G]
     uint8, binned like the training set), walking the tree of node records
     `nodes` ([num_nodes, VW_COLS] int32) with leaf values `leaves`
-    ([num_nodes + 1] f64); `score` is an f64 [n] row, in place."""
+    ([num_nodes + 1] f64); `score` is an f64 [n] row, in place. `words`
+    (int32 [W]) holds the categorical nodes' inner bitsets; without it a
+    categorical node sends every row right."""
     n = bins.shape[0]
     if bins.dtype != torch.uint8 or bins.dim() != 2 \
             or not bins.is_contiguous():
@@ -104,14 +118,19 @@ def valid_walk(bins: torch.Tensor, nodes: torch.Tensor,
             or not score.is_contiguous():
         raise LightGBMError("valid_walk: score must be a contiguous [n] "
                             "f64 tensor")
+    if words is not None and (words.dtype != torch.int32 or words.dim() != 1
+                              or not words.is_contiguous()):
+        raise LightGBMError("valid_walk: words must be a contiguous 1-D "
+                            "int32 tensor")
     dev = bins.device
-    if any(t.device != dev for t in (nodes, leaves, score)):
+    if any(t.device != dev for t in (nodes, leaves, score)) or \
+            (words is not None and words.device != dev):
         raise LightGBMError("valid_walk: operands on different devices")
     if dev.type == "cpu":
-        return valid_walk_plain(bins, nodes, leaves, score)
+        return valid_walk_plain(bins, nodes, leaves, score, words)
     if dev.type != "cuda":
         raise LightGBMError("valid_walk: no kernel for device %s" % dev)
-    _launch(bins, nodes, leaves, score)
+    _launch(bins, nodes, leaves, score, words)
     valid_walk.launches += 1
 
 

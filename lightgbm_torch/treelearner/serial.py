@@ -22,7 +22,10 @@ both scanning splits with the ``scan_pair`` kernel:
     its persistent grower (``resolve_scan_impl``, serial.py:156-157,
     ``can_persist_scan``, :512). ``tpu_persist_scan=force`` with a knob
     raises: the JAX package's Pallas persistent scan would drop the knobs
-    in silence (grow_persist.py:1190-1193).
+    in silence (grow_persist.py:1190-1193). Categorical features train
+    here too, under ``auto`` and ``force`` alike, as the JAX package's
+    ``can_persist_scan`` (serial.py:529) sends them: scan_pair scans the
+    numerical features and ``cat_scan`` the categorical ones.
 
 The JAX package picks among more growers and scans (``resolve_scan_impl``,
 serial.py:138-167). :func:`check_fast_path` refuses every configuration the
@@ -37,7 +40,8 @@ import math
 
 from ..config import Config
 from ..objectives.base import PORTED
-from ..ops.grow import (GrowConfig, Knobs, grow_tree_partitioned,
+from ..ops.cat_scan import CatLayout, cat_params
+from ..ops.grow import (CatScan, GrowConfig, Knobs, grow_tree_partitioned,
                         tb_source_index)
 from ..ops.grow_persist import PersistGrower
 from ..ops.payload import build_assets, persist_pack_ok
@@ -132,6 +136,25 @@ def check_v1_layout(dataset) -> None:
                 "queue A, item 2: binned dataset layouts")
 
 
+def cat_scan_setup(config: Config, dataset, params, device, use_mc: bool):
+    """The grower's CatScan of a dataset with categorical features (None
+    without): the JAX package's build_cat_layout (serial.py:195) and the
+    scan's parameters on the device."""
+    is_cat = dataset.is_categorical
+    if is_cat is None or not np.any(is_cat):
+        return None
+    layout = CatLayout(is_cat, dataset.bin_start, dataset.bin_end,
+                       dataset.missing_type_arr, dataset.penalty,
+                       int(dataset.total_bins), device)
+    c = config
+    par = cat_params(params, {
+        "cat_l2": float(c.cat_l2), "cat_smooth": float(c.cat_smooth),
+        "min_data_per_group": int(c.min_data_per_group),
+        "max_cat_threshold": int(c.max_cat_threshold),
+        "max_cat_to_onehot": int(c.max_cat_to_onehot)}, use_mc)
+    return CatScan(layout, par.to(device))
+
+
 class ColSampler:
     """feature_fraction by-tree sampling (col_sampler.hpp:17-160), drawing
     from the same numpy stream as the JAX package's ColSampler."""
@@ -195,6 +218,8 @@ class SerialTreeLearner:
         self._tree_counter = 0
         self._persist_gr = None
         self._persist_carry = None
+        self.cat = cat_scan_setup(config, dataset, self.params, device,
+                                  bool(np.any(dataset.monotone)))
 
     def can_persist_scan(self, objective) -> bool:
         """Does this learner grow with the persistent-payload grower? The
@@ -207,6 +232,11 @@ class SerialTreeLearner:
         payload pack plan."""
         opt = str(self.config.tpu_persist_scan).lower()
         if opt in ("false", "0", "off"):
+            return False
+        if self.cat is not None:
+            Log.info("categorical features train on the v1 grower (the "
+                     "persistent grower's scans have no categorical split; "
+                     "ROADMAP.md queue A, item 4, step 2b)")
             return False
         if self.knobs:
             if opt == "force":
@@ -310,4 +340,5 @@ class SerialTreeLearner:
         mask = self.col_sampler.sample()
         return grow_tree_partitioned(self.data, grad, hess, self.meta,
                                      self.params, mask, self.grow_config,
-                                     self.tb_src, self.tree_knobs())
+                                     self.tb_src, self.tree_knobs(),
+                                     self.cat)

@@ -34,6 +34,7 @@ the port against the JAX package on the CPU.
 """
 import re
 
+import jax
 import numpy as np
 import pytest
 
@@ -53,6 +54,7 @@ from lightgbm_torch.data.synth import make_expo_like, make_higgs_like
 from lightgbm_torch.models.tree import Tree as PTree
 from lightgbm_torch.utils.log import LightGBMError, Log
 from test_torch_multiclass import BASE, assert_same_models, class_data
+from test_torch_objectives_renew import same_jax_models
 from test_torch_regression import reg_data
 from test_torch_train import _assert_same_trees
 from test_torch_train import _data as train_data
@@ -191,41 +193,60 @@ def _near_pair_share(score, label, tol):
 
 
 def test_early_stopping_matches_jax_v1():
+    """The JAX run takes its per-class path (a validation set), which is
+    not deterministic on the CPU (ROADMAP.md section C): its caches are
+    cleared first, and a failed comparison is held again against two JAX
+    reruns that agree (tests/test_torch_objectives_renew.py:
+    against_jax)."""
     X, y = higgs_rows(5000, 3, noise=0.3)
     Xv, yv = higgs_rows(2000, 4, noise=0.3)
     params = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
               "learning_rate": 0.3, "metric": ["binary_logloss", "auc"],
               "first_metric_only": True, "verbosity": -1}
-    bj, rj = _train(lt, params, X, y, Xv, yv, 40, early_stopping_rounds=5)
+    jax.clear_caches()
     bp, rp = _train(lp, dict(params, device_type="cpu",
                              tpu_persist_scan="false"),
                     X, y, Xv, yv, 40, early_stopping_rounds=5)
     assert not bp._booster.use_persist
-    vj = np.array(rj["valid_1"]["binary_logloss"])
-    # the JAX run stops early, and each of its improvement decisions
-    # is farther than 2 * TOL from a tie
-    assert 0 < bj.best_iteration < len(vj) < 40
-    assert all(abs(vj[i] - vj[:i].min()) > 2 * TOL
-               for i in range(1, len(vj)))
-    assert bp.best_iteration == bj.best_iteration
-    assert bp.num_trees() == bj.num_trees()
-    raw_j = bj.predict(Xv, raw_score=True, num_iteration=-1)
-    raw_p = bp.predict(Xv, raw_score=True, num_iteration=-1)
-    assert np.abs(raw_j - raw_p).max() <= TOL
-    for name, lab in (("training", y), ("valid_1", yv)):
-        assert rj[name].keys() == rp[name].keys()
-        for metric in ("binary_logloss", "auc"):
-            a, b = np.array(rj[name][metric]), np.array(rp[name][metric])
-            assert len(a) == len(b) == len(vj)
-            if metric == "auc":
-                sc = raw_j if name == "valid_1" else bj.predict(
-                    X, raw_score=True, num_iteration=-1)
-                tol = _near_pair_share(sc, lab, 2 * TOL)
-            else:
-                tol = TOL
-            assert np.abs(a - b).max() <= tol, (name, metric)
-    assert dict(bp.best_score["valid_1"]).keys() == \
-        dict(bj.best_score["valid_1"]).keys()
+
+    def check(ref):
+        bj, rj = ref
+        vj = np.array(rj["valid_1"]["binary_logloss"])
+        # the JAX run stops early, and each of its improvement decisions
+        # is farther than 2 * TOL from a tie
+        assert 0 < bj.best_iteration < len(vj) < 40
+        assert all(abs(vj[i] - vj[:i].min()) > 2 * TOL
+                   for i in range(1, len(vj)))
+        assert bp.best_iteration == bj.best_iteration
+        assert bp.num_trees() == bj.num_trees()
+        raw_j = bj.predict(Xv, raw_score=True, num_iteration=-1)
+        raw_p = bp.predict(Xv, raw_score=True, num_iteration=-1)
+        assert np.abs(raw_j - raw_p).max() <= TOL
+        for name, lab in (("training", y), ("valid_1", yv)):
+            assert rj[name].keys() == rp[name].keys()
+            for metric in ("binary_logloss", "auc"):
+                a, b = np.array(rj[name][metric]), np.array(rp[name][metric])
+                assert len(a) == len(b) == len(vj)
+                if metric == "auc":
+                    sc = raw_j if name == "valid_1" else bj.predict(
+                        X, raw_score=True, num_iteration=-1)
+                    tol = _near_pair_share(sc, lab, 2 * TOL)
+                else:
+                    tol = TOL
+                assert np.abs(a - b).max() <= tol, (name, metric)
+        assert dict(bp.best_score["valid_1"]).keys() == \
+            dict(bj.best_score["valid_1"]).keys()
+
+    def jax_run():
+        return _train(lt, params, X, y, Xv, yv, 40, early_stopping_rounds=5)
+
+    try:
+        check(jax_run())
+    except AssertionError:
+        r2, r3 = jax_run(), jax_run()
+        assert same_jax_models(r2[0], r3[0], Xv), \
+            "the JAX reference gave three different models"
+        check(r2)
     # predict and the model text default to the best iteration
     assert bp.model_to_string() == bp.model_to_string(
         num_iteration=bp.best_iteration)
@@ -429,14 +450,17 @@ def _stop_data(objective):
 @pytest.mark.parametrize("objective,min_gain", [
     ("binary", 10.0), ("multiclass", 3.0), ("regression", 10.0)])
 def test_stop_rule_with_validation_matches_jax(objective, min_gain):
+    """The JAX run takes its per-class path, which is not deterministic on
+    the CPU (ROADMAP.md section C): its caches are cleared first, and a
+    failed comparison is held again against two JAX reruns that agree
+    (tests/test_torch_objectives_renew.py:against_jax)."""
     X, y, Xv, yv = _stop_data(objective)
     params = dict(BASE, objective=objective, min_gain_to_split=min_gain,
                   learning_rate=0.3)
     if objective == "multiclass":
         params.update(num_class=3, metric="multi_logloss")
-    out = {}
-    for pkg, extra in ((lt, {}), (lp, {"device_type": "cpu",
-                                       "tpu_persist_scan": "false"})):
+
+    def run(pkg, extra):
         p = dict(params, **extra)
         dt = pkg.Dataset(X, y, params=dict(p))
         dv = pkg.Dataset(Xv, yv, reference=dt, params=dict(p))
@@ -445,14 +469,30 @@ def test_stop_rule_with_validation_matches_jax(objective, min_gain):
                         evals_result=rec, verbose_eval=False)
         models = (bst._booster._used_models() if pkg is lt
                   else bst._booster.models)
-        out[pkg] = ([t.num_leaves for t in models], rec["valid_0"],
-                    bst.predict(Xv, raw_score=True))
-    (lj, rj, pj), (lp_, rp, pp_) = out[lt], out[lp]
+        return bst, ([t.num_leaves for t in models], rec["valid_0"],
+                     bst.predict(Xv, raw_score=True))
+
+    jax.clear_caches()
+    lp_, rp, pp_ = run(lp, {"device_type": "cpu",
+                            "tpu_persist_scan": "false"})[1]
     K = 3 if objective == "multiclass" else 1
-    assert lj == lp_
-    assert len(lj) < 25 * K                 # training stopped early
-    assert all(len(v) == 25 for v in list(rj.values()) + list(rp.values()))
-    assert np.abs(pj - pp_).max() <= TOL
+
+    def check(ref):
+        lj, rj, pj = ref[1]
+        assert lj == lp_
+        assert len(lj) < 25 * K                 # training stopped early
+        assert all(len(v) == 25 for v in list(rj.values()) + list(rp.values()))
+        assert np.abs(pj - pp_).max() <= TOL
+
+    try:
+        ref = run(lt, {})
+        check(ref)
+    except AssertionError:
+        ref, b3 = run(lt, {}), run(lt, {})
+        assert same_jax_models(ref[0], b3[0], Xv), \
+            "the JAX reference gave three different models"
+        check(ref)
+    lj = ref[1][0]
     if K > 1:
         # a class without a split did not stop the iteration (the per-class
         # rule); without a validation set the fast rule stops there
