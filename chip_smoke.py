@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the thirteen CUDA kernel libraries from csrc/, in
+  2. build    nvcc builds the fourteen CUDA kernel libraries from csrc/, in
               parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
@@ -79,7 +79,14 @@ exits non-zero without printing a result:
               the first 4000 queries) but for at most 1 value in 10^5 one
               f32 ulp off (the card's f64 exp and log2), timed beside the
               plain version and the bound (f64 operations over the card's
-              f64 rate, or bytes);
+              f64 rate, or bytes). The bag step's kernels (csrc/bag.cu) on
+              the HIGGS rows (a permutation of the row ids, the labels,
+              binary gradients): bag_apply in the fraction (0.8), balanced
+              (0.9 / 0.5) and GOSS (0.2 / 0.1) modes and goss_select, two
+              launches equal and bit for bit equal to the plain versions
+              on the CPU, goss_select's threshold equal to
+              torch.kthvalue's, timed beside the plain versions on the
+              card, torch.kthvalue and the bounds;
      airline  (after the MSLR phase) on airline-shaped rows (the public
               szilard benchm-ml airline set's shape: 10M rows, categorical
               Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin, Dest and
@@ -142,6 +149,23 @@ exits non-zero without printing a result:
                        iteration, one get_gradients call per iteration,
                        the draws bit-equal to a sequential numpy replay of
                        the reference's LCG, NDCG@10 rising;
+              bagging  (after knobs) the persist path with bagging_fraction
+                       0.8 and bagging_freq 5 (upstream examples/
+                       binary_classification/train.conf), 6 iterations: the
+                       bag step in the graph (bag_apply once per tree), each
+                       tree's in-bag count equal to the plain count of its
+                       window (the row hash on the CPU), equal within a
+                       window and different across one; one more iteration
+                       eagerly with the bag step's rows and count held to
+                       the plain version;
+              goss     the persist path with boosting=goss, top_rate 0.2,
+                       other_rate 0.1, learning_rate 0.5, 6 iterations:
+                       every row in the bag for the first two, then
+                       goss_select once per iteration, its threshold on one
+                       more (eager) iteration equal to torch.kthvalue's and
+                       the weighed rows to the plain version's; both paths'
+                       iteration wall, busy and idle share beside the
+                       persist path's;
               regression  objective=regression (L2) on the latent plus
                        Gaussian noise, num_leaves=255, 3 iterations; its L2
                        loss must fall every iteration;
@@ -221,7 +245,10 @@ exits non-zero without printing a result:
               persist, v1 and softmax-persist routes and lambdarank on
               ndcg@5 (persist; half the early-stopping rows, in
               variable-length queries): the same best_iteration and trees,
-              records within 1e-12 relative, equal model text.
+              records within 1e-12 relative, equal model text; and
+              bagging (persist and v1), balanced bagging (persist) and
+              GOSS (persist and v1) on --bag-parity-rows HIGGS rows, 31
+              leaves, 6 iterations.
 
 The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
@@ -231,7 +258,8 @@ kernels, the card's name and power limit, and the result line
 --parity-iters, --mc-parity-iters, --valid-rows, --expo-valid-rows,
 --es-rows, --es-rounds, --ltr-rows, --ltr-valid-rows, --ltr-iters,
 --xendcg-iters, --rank-parity-rows, --knob-iters, --deep-parity-iters,
---skip-train, --skip-parity); the
+--airline-rows, --airline-iters, --airline-valid-rows, --cat-parity-rows,
+--bag-iters, --bag-parity-rows, --skip-train, --skip-parity); the
 defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
@@ -2094,6 +2122,20 @@ PATHS["airline"] = (AIRLINE, ("hist_window", "scan_pair", "cat_scan"),
 PATHS["airline onehot"] = (dict(AIRLINE, max_cat_to_onehot=32),
                            ) + PATHS["airline"][1:]
 V1_PATHS += ("airline", "airline onehot")
+# row sampling on the per-split persistent grower, the bag step in its
+# graph: bagging as upstream examples/binary_classification/train.conf sets
+# it (bagging_fraction 0.8, bagging_freq 5), and GOSS (top_rate 0.2,
+# other_rate 0.1; learning_rate 0.5, so sampling starts at iteration 2)
+BAG_PATHS = ("bagging", "goss")
+PATHS["bagging"] = ({"num_leaves": 255, "tpu_persist_scan": "auto",
+                     "bagging_fraction": 0.8, "bagging_freq": 5},
+                    PATHS["persist"][1] + ("bag_apply",),
+                    PATHS["persist"][2] + ("goss_select",))
+PATHS["goss"] = ({"num_leaves": 255, "tpu_persist_scan": "auto",
+                  "boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+                  "learning_rate": 0.5},
+                 PATHS["persist"][1] + ("bag_apply", "goss_select"),
+                 PATHS["persist"][2])
 # the model digests that the earlier paths' full runs recorded (sha256 of
 # the model text without its parameters; first and last hex digits,
 # PERF.md section 6): a run at the default sizes must reproduce them.
@@ -2166,8 +2208,10 @@ def expected_launches(bst, trees):
     score update per tree with a split; with leaf renewal one renew_leaf
     per tree with a split, on either grower; with a ranking objective its
     gradient kernel once per iteration; on a categorical Dataset (v1)
-    cat_scan once per evaluation, as scan_pair. Returns (counts, per-tree (level
-    programs, per-split splits))."""
+    cat_scan once per evaluation, as scan_pair; with a bag on the persistent
+    grower bag_apply once per tree and, for GOSS, goss_select once per
+    iteration from int(1 / learning_rate) on. Returns (counts, per-tree
+    (level programs, per-split splits))."""
     nodes = sum(t.num_leaves for t in trees)
     renew = sum(t.num_leaves > 1 for t in trees) \
         if bst._booster.objective.is_renew_tree_output else 0
@@ -2194,7 +2238,13 @@ def expected_launches(bst, trees):
     sep = not gr.inpass_hist
     roots = 0 if gr.use_level else T
     scan = "scan_blocks" if gr.blocks is not None else "scan_pair"
+    bagged = bst._booster.bag_spec()
+    K = bst._booster.num_tree_per_iteration
+    if bagged[0] == "goss":
+        skip = int(1.0 / float(bst._booster.config.learning_rate))
+        rank["goss_select"] = sum(i >= skip for i in range(T // K))
     return {"root_hist": T, "level_pass": lv, "split_pass": fb,
+            "bag_apply": T if bagged[0] != "none" else 0,
             "level_seg_hist": lv if sep else 0, "seg_hist": fb if sep else 0,
             scan: T + lv + fb,
             "consolidate": sum(has_odd_leaf(t) for t in trees),
@@ -2352,8 +2402,8 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         from lightgbm_torch.treelearner.serial import SerialTreeLearner
         train_arrays = SerialTreeLearner.train_arrays
 
-        def recording(self, grad, hess):
-            out = train_arrays(self, grad, hess)
+        def recording(self, grad, hess, bag=None):
+            out = train_arrays(self, grad, hess, bag)
             last_tree[:] = [(grad, hess) + tuple(out)]
             return out
         SerialTreeLearner.train_arrays = recording
@@ -2458,6 +2508,12 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         if not losses[-1] > losses[0]:
             raise AssertionError("training %s after the last iteration is "
                                  "not above the first's" % loss_name)
+    elif path == "goss":
+        # each tree fits an amplified sample at learning rate 0.5: the loss
+        # over every row need not fall at every step
+        if not losses[-1] < losses[0]:
+            raise AssertionError("training %s after the last iteration is "
+                                 "not below the first's" % loss_name)
     elif not all(b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError("training %s does not fall monotonically"
                              % loss_name)
@@ -2484,6 +2540,8 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         "raw scores" % path)
     if path == "l1":
         check_renewed_leaves(bst)
+    if path in BAG_PATHS:
+        check_bag_path(bst, path)
     if path == "knobs":
         t = time.time()
         at, nleaves, sens, bounded, L = check_knob_leaves(bst, last_tree[0])
@@ -2509,7 +2567,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
             "host checks)" % (int(bst._booster.config.extra_seed), nodes,
                               ntrees, time.time() - t))
     if keep is not None and path in ("persist", "l1", "ltr", "knobs",
-                                     "airline"):
+                                     "airline") + BAG_PATHS:
         keep["iteration"] = profile_iteration(bst.update)
     if keep is not None and path == "l1":
         keep["bst"] = bst
@@ -2920,6 +2978,229 @@ def phase_renew_kernel(bst):
             "lanes": gr.n, "segments": S}
 
 
+BAG_MODES = (("fraction", ("bagging", 0.8, 1.0, 1.0), 5, 0),
+             ("balanced", ("bagging", 1.0, 0.9, 0.5), 5, 0),
+             ("goss", ("goss", 0.2, 0.1), 5, 2))
+
+
+def phase_bag_kernels(y):
+    """bag_apply and goss_select at the HIGGS shape (len(y) live lanes: a
+    permutation of the row ids, the labels, binary gradients at random
+    scores, f32 rows as the payload holds them): in the
+    fraction (0.8, the bagging path's), balanced (0.9 / 0.5) and GOSS (top
+    0.2, other 0.1, past its skip count) modes, two launches equal and bit
+    for bit equal to the plain versions on the CPU (grad and hess rows, the
+    in-bag count, the threshold); goss_select's threshold equal to
+    torch.kthvalue's. Times (median per call on the card): each kernel,
+    its plain version on the card, torch.kthvalue on the same |g * h|
+    (goss_select's library call; bag_apply has none), and the bounds:
+    bag_apply reads the row-id, grad and hess rows (and the label row when
+    balanced) and writes grad and hess once; goss_select reads grad and
+    hess once. Returns the two kernels' records (launches filled in by
+    main)."""
+    import torch
+    from lightgbm_torch.ops import bag
+    n = len(y)
+    rng = np.random.default_rng(43)
+    p = 1.0 / (1.0 + np.exp(-1.5 * rng.normal(size=n)))
+    rows = np.zeros((4, n), np.int32)
+    rows[0] = np.asarray(y, np.float32).view(np.int32)
+    rows[1] = rng.permutation(n).astype(np.int32)
+    rows[2] = (p - y).astype(np.float32).view(np.int32)
+    rows[3] = (p * (1.0 - p)).astype(np.float32).view(np.int32)
+    host = torch.as_tensor(rows)
+    dev = host.cuda()
+    recs, t0 = {}, time.time()
+
+    def views(t):
+        return (t[1], t[0].view(torch.float32), t[2].view(torch.float32),
+                t[3].view(torch.float32))
+
+    def run(t, b, plain=False):
+        st = bag.BagState(t.device)
+        st.set(b)
+        rid, lab, g, h = views(t)
+        if b.mode == bag.MODE_GOSS:
+            (bag.goss_select_plain if plain else bag.goss_select)(g, h, n, st)
+        if plain:
+            bag.bag_apply_plain(rid, lab, g, h, n, b.mode, st)
+        else:
+            bag.bag_apply(rid, lab, g, h, n, b.mode, st)
+        return st
+    for name, spec, it, skip in BAG_MODES:
+        b = bag.bag_iteration(spec, 3, 5, it, n, skip)
+        outs = []
+        for _ in range(2):
+            t = dev.clone()
+            st = run(t, b)
+            outs.append((t, st.count.clone(), st.sel[:2].clone()))
+        tc = host.clone()
+        stc = run(tc, b, plain=True)
+        torch.cuda.synchronize()
+        _same("bag step %s: two launches" % name, outs[0], outs[1])
+        _same("bag step %s vs plain on the CPU" % name, outs[0],
+              (tc, stc.count, stc.sel[:2]))
+        cnt = int(outs[0][1])
+        extra = ""
+        st = bag.BagState("cuda")
+        st.set(b)
+        rid, lab, g, h = views(dev)
+        if b.mode == bag.MODE_GOSS:
+            s = (g[:n] * h[:n]).abs()
+            k = b.top_k
+            kth = torch.kthvalue(s, n - k + 1).values
+            thr = int(outs[0][2][0])
+            want = int(kth.view(torch.int32)) & 0xFFFFFFFF
+            if thr != want:
+                raise AssertionError("goss_select: threshold bits %#x, "
+                                     "torch.kthvalue's %#x" % (thr, want))
+            sel_ms = device_ms(lambda: bag.goss_select(g, h, n, st))
+            sel_plain = device_ms(lambda: bag.goss_select_plain(g, h, n, st),
+                                  reps=3, warmup=1)
+            kth_ms = device_ms(lambda: torch.kthvalue(s, n - k + 1), reps=5,
+                               warmup=1)
+            sb_ms, sb_by = bound_ms(8.0 * n, 2.0 * n)
+            recs["goss_select"] = {
+                "name": "goss_select", "route": "cuda",
+                "source": "lightgbm_torch/csrc/bag.cu",
+                "replaces": "lightgbm_tpu/ops/grow_persist.py:521 "
+                            "(_kth_largest, jnp in the fused driver's GOSS "
+                            "transform; no Pallas kernel)",
+                "launches": 0, "max_abs_err": 0.0, "ms": sel_ms,
+                "plain_ms": sel_plain, "bound_ms": sb_ms, "bound_by": sb_by,
+                "library_ms": kth_ms, "lanes": n, "top_k": k}
+            bag.goss_select(g, h, n, st)
+            extra = ("; goss_select %.4f ms (plain %.2f, torch.kthvalue "
+                     "%.4f, bound %.4f %s), threshold %r = torch.kthvalue's"
+                     % (sel_ms, sel_plain, kth_ms, sb_ms, sb_by,
+                        float(kth)))
+        # in place: a 0/1 weight is idempotent, GOSS's amplification only
+        # scales the rest (the time does not depend on the values)
+        work = dev.clone()
+        wr = views(work)
+        ms = device_ms(lambda: bag.bag_apply(*wr, n, b.mode, st))
+        plain_ms = device_ms(lambda: bag.bag_apply_plain(*wr, n, b.mode, st),
+                             reps=3, warmup=1)
+        per_lane = 24.0 if b.mode == bag.MODE_BALANCED else 20.0
+        b_ms, b_by = bound_ms(per_lane * n, 12.0 * n)
+        recs.setdefault("bag_apply", {
+            "name": "bag_apply", "route": "cuda",
+            "source": "lightgbm_torch/csrc/bag.cu",
+            "replaces": "lightgbm_tpu/ops/grow_persist.py:569 "
+                        "(make_bag_transform with _hash_uniform:498 and "
+                        "make_goss_weight_fn:540, jnp in the fused driver; "
+                        "no Pallas kernel)",
+            "launches": 0, "max_abs_err": 0.0, "library_ms": None,
+            "lanes": n})
+        r = recs["bag_apply"]
+        if name == "fraction":
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        else:
+            r.update({name + "_ms": ms, name + "_plain_ms": plain_ms,
+                      name + "_bound_ms": b_ms})
+        log("bag step %s (%s): %d of %d lanes in the bag; two launches and "
+            "the plain version on the CPU bit-identical (grad/hess rows, "
+            "count%s); bag_apply %.4f ms (plain on the card %.2f ms), bound "
+            "%.4f ms (%s, %d bytes a lane)%s"
+            % (name, spec, cnt, n, ", threshold" if b.mode == bag.MODE_GOSS
+               else "", ms, plain_ms, b_ms, b_by, per_lane, extra))
+        del work, wr
+    log("bag kernels: %.1f s" % (time.time() - t0))
+    return [recs["bag_apply"], recs["goss_select"]]
+
+
+def check_bag_path(bst, path):
+    """After the bagging or goss path: the in-bag count of each tree (its
+    root's count) against the plain count of its window (bagging: rows
+    whose hash at fold_in(PRNGKey(bagging_seed), it // bagging_freq) is
+    below the fraction, on the CPU), equal within a window and different
+    across one; then one more iteration eagerly (no graph) with the bag
+    step watched: goss_select's threshold equal to torch.kthvalue's over
+    that iteration's |g * h| and the weighed rows and count equal to the
+    plain version's on the CPU from the same rows."""
+    import torch
+    from lightgbm_torch.ops import bag
+    from lightgbm_torch.ops.grow_persist import PersistGrower
+    b = bst._booster
+    cfg, n = b.config, b.train_data.num_data
+    roots = [int(t.internal_count[0]) for t in b.models]
+    if path == "bagging":
+        freq = int(cfg.bagging_freq)
+        rid = torch.arange(n)
+        want = {}
+        for it in range(len(roots)):
+            w = it // freq
+            if w not in want:
+                k0, k1 = bag.window_key(cfg.bagging_seed, w)
+                want[w] = int((bag.hash_uniform_plain(rid, k0, k1)
+                               < np.float32(cfg.bagging_fraction)).sum())
+            if roots[it] != want[w]:
+                raise AssertionError("train bagging: iteration %d has %d "
+                                     "rows in the bag, the plain count of "
+                                     "window %d is %d" % (it, roots[it], w,
+                                                          want[w]))
+        if len(want) > 1 and len(set(want.values())) < 2:
+            raise AssertionError("train bagging: the windows' counts %s "
+                                 "do not change" % want)
+        log("train bagging: rows in the bag per iteration %s = the plain "
+            "count of each bagging_freq=%d window %s" % (roots, freq, want))
+    else:
+        skip = int(1.0 / float(cfg.learning_rate))
+        if roots[:skip] != [n] * min(skip, len(roots)) or \
+                max(roots[skip:], default=0) >= n:
+            raise AssertionError("train goss: rows in the bag %s" % roots)
+        log("train goss: rows in the bag per iteration %s (all %d below "
+            "int(1 / learning_rate) = %d)" % (roots, n, skip))
+    gr = b.tree_learner._persist_gr
+    seen = {}
+    step = PersistGrower.bag_step
+
+    def watched(self, pay):
+        seen["rows"] = pay[self.nbw:self.nbw + 4, :self.n].to("cpu",
+                                                              copy=True)
+        step(self, pay)
+        seen["after"] = pay[self.nbw + 2:self.nbw + 4, :self.n].to(
+            "cpu", copy=True)
+        seen["count"] = int(self.bag.count[0])
+        seen["sel"] = self.bag.sel[:2].to("cpu", copy=True)
+        seen["ints"] = self.bag.ints.to("cpu", copy=True)
+        seen["flts"] = self.bag.flts.to("cpu", copy=True)
+    gr.capture = False
+    PersistGrower.bag_step = watched
+    try:
+        bst.update()
+        torch.cuda.synchronize()
+    finally:
+        PersistGrower.bag_step = step
+        gr.capture = True
+    rows = seen["rows"].clone()
+    st = bag.BagState("cpu")
+    st.ints.copy_(seen["ints"])
+    st.flts.copy_(seen["flts"])
+    lab, rid = rows[0].view(torch.float32), rows[1]
+    g, h = rows[2].view(torch.float32), rows[3].view(torch.float32)
+    msg = ""
+    if gr._bag_mode == bag.MODE_GOSS:
+        s = (g * h).abs()
+        k = int(st.ints[bag.BI_TOPK])
+        kth = torch.kthvalue(s, n - k + 1).values
+        if int(seen["sel"][0]) != int(kth.view(torch.int32)) & 0xFFFFFFFF:
+            raise AssertionError("train goss: threshold bits %#x, "
+                                 "torch.kthvalue's %r" % (
+                                     int(seen["sel"][0]), float(kth)))
+        bag.goss_select_plain(g, h, n, st)
+        msg = ", its threshold %r equal to torch.kthvalue's" % float(kth)
+    bag.bag_apply_plain(rid, lab, g, h, n, gr._bag_mode, st)
+    _same("train %s: one more iteration's bag step vs plain" % path,
+          seen["after"], rows[2:4])
+    if seen["count"] != int(st.count[0]):
+        raise AssertionError("train %s: bag count %d, plain %d"
+                             % (path, seen["count"], int(st.count[0])))
+    log("train %s: one more iteration (eager, the bag step watched): %d "
+        "rows in the bag%s; rows and count bit-identical to the plain "
+        "version on the CPU" % (path, seen["count"], msg))
+
+
 def np_eval_binary(lab, qb):
     return lambda sc: {m: fn(lab, sc) for m, fn in NP_METRICS.items()}
 
@@ -3152,7 +3433,8 @@ PROFILED = {
     "v1": (("hist_window", "hist_window_partial"),),
 }
 PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["l1"] = \
-    PROFILED["ltr"] = PROFILED["persist"]
+    PROFILED["ltr"] = PROFILED["bagging"] = PROFILED["goss"] = \
+    PROFILED["persist"]
 PROFILED["xendcg"] = PROFILED["knobs"] = PROFILED["airline"] = \
     PROFILED["airline onehot"] = PROFILED["v1"]
 # the kernels of the port's own sources (csrc/); every other kernel in a
@@ -3161,7 +3443,7 @@ OWN_KERNELS = ("payload_ordered_partial", "hist_window", "split_", "level_",
                "consolidate_copy", "gs_", "scan_pair", "scan_blocks",
                "seg_hist", "root_hist", "ordered_", "payload_hist_reduce",
                "empty_launch", "renew_leaf", "lambdarank_grad",
-               "xendcg_grad", "cat_scan")
+               "xendcg_grad", "cat_scan", "bag_apply", "gsel_")
 
 
 # the partition's kernels: count, scan and scatter of split_pass and
@@ -3461,7 +3743,25 @@ PARITY = (
      (False, False, False)),
     ("airline onehot", "airline", dict(PATHS["airline onehot"][0], iters=3,
                                        num_leaves=63),
-     (False, False, False)))
+     (False, False, False))) + tuple(
+    # bagging (the bagging path's fraction and window), balanced bagging
+    # and GOSS (the goss path's rates, sampling from iteration 2) on
+    # --bag-parity-rows HIGGS rows, 31 leaves, 6 iterations: a window
+    # boundary and four sampled GOSS iterations, the persistent grower's
+    # later iterations graph replays with new device scalars
+    ("%s %s" % (name, route), "higgs-bag",
+     dict(extra, num_leaves=31, iters=6,
+          tpu_persist_scan="force" if route == "persist" else "false"),
+     (route == "persist", False, False))
+    for name, extra, routes in (
+        ("bagging", {"bagging_fraction": 0.8, "bagging_freq": 5},
+         ("persist", "v1")),
+        ("balanced bagging", {"pos_bagging_fraction": 0.9,
+                              "neg_bagging_fraction": 0.5,
+                              "bagging_freq": 2}, ("persist",)),
+        ("goss", {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+                  "learning_rate": 0.5}, ("persist", "v1")))
+    for route in routes)
 # the paths trained `--deep-parity-iters` iterations (ROADMAP C7: the
 # binary persist and v1 paths and softmax on its three routes; the knob
 # and custom-objective paths)
@@ -4085,6 +4385,11 @@ def main() -> int:
     ap.add_argument("--cat-parity-rows", type=int, default=200_000,
                     help="make_airline_like rows of the categorical parity "
                     "paths")
+    ap.add_argument("--bag-iters", type=int, default=6,
+                    help="iterations of the bagging and goss paths (a "
+                    "bagging_freq=5 window boundary inside)")
+    ap.add_argument("--bag-parity-rows", type=int, default=100_000,
+                    help="HIGGS rows of the bagging and GOSS parity paths")
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
@@ -4124,6 +4429,7 @@ def main() -> int:
     kernels[1].update(scan_b256)                    # scan_pair's record
     kernels += payload_recs
     kernels.append(phase_grow_step())
+    kernels += phase_bag_kernels(y)
     runs, persist_keep = {}, {}
     Xv, yv = held_out_higgs(args.valid_rows)
     log("data: make_higgs_like(%d, seed=17) held out, %d NaN values"
@@ -4161,6 +4467,21 @@ def main() -> int:
         next(k for k in kernels if k["name"] == "scan_pair_knob").update(
             knob_wall_ms=wall, knob_busy_ms=busy)
         del knob_keep
+        # row sampling on the per-split graph: bagging, then GOSS
+        wall0, busy0 = persist_keep["iteration"][:2]
+        bag_rec = next(k for k in kernels if k["name"] == "bag_apply")
+        for path in BAG_PATHS:
+            keep_b = {}
+            runs[path] = phase_train(lgb, X, y, ds, args.bag_iters, card,
+                                     args.profile, path, keep=keep_b)
+            wall, busy = keep_b["iteration"][:2]
+            log("train %s: one more iteration %.1f ms wall, %.1f ms busy, "
+                "idle %.3f; the persist path's (no bag) %.1f / %.1f / %.3f "
+                "(%s)" % (path, wall, busy, 1 - busy / wall, wall0, busy0,
+                          1 - busy0 / wall0, card))
+            bag_rec.update({path + "_wall_ms": wall, path + "_busy_ms": busy,
+                            "persist_wall_ms": wall0,
+                            "persist_busy_ms": busy0})
         # the same bins with multiclass labels, then with an L2 target
         y5 = quantile_classes(latent, 5)
         ds.set_label(y5)
@@ -4299,7 +4620,8 @@ def main() -> int:
                   "level_seg_hist": "level", "scan_blocks": "bundled",
                   "valid_walk": "valid", "renew_leaf": "l1",
                   "lambdarank_grad": "ltr", "xendcg_grad": "xendcg",
-                  "cat_scan": "airline"}
+                  "cat_scan": "airline", "bag_apply": "bagging",
+                  "goss_select": "goss"}
         for rec in kernels:
             run = runs[serves.get(rec["name"], "persist")]
             if rec["name"] == "grow_step":
@@ -4329,6 +4651,8 @@ def main() -> int:
             if rec["name"] == "split_pass":
                 rec["multiclass_consolidate_launches"] = \
                     runs["multiclass"]["consolidate"]
+            if rec["name"] == "bag_apply":
+                rec["goss_launches"] = runs["goss"]["bag_apply"]
     if not args.skip_parity:
         Xp, yp, lat = higgs_latent(args.parity_rows, seed=11)
         counts = np.random.default_rng(17).poisson(np.exp(lat / 2))
@@ -4347,6 +4671,8 @@ def main() -> int:
         wr = np.random.default_rng(9).uniform(0.5, 2.0, len(yr))
         data["ltr-w"] = (Xr, yr, wr, gr)
         data["airline"] = make_airline_like(args.cat_parity_rows, seed=5)
+        data["higgs-bag"] = (Xp[:args.bag_parity_rows],
+                             yp[:args.bag_parity_rows])
         log("data: make_ltr_like(%d, seed=7) in %d queries of 1 to %d rows"
             % (args.rank_parity_rows, len(gr), gr.max()))
         phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters,

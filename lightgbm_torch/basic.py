@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .boosting import GBDT
+from .boosting import GBDT, create_boosting
 from .config import _METRIC_ALIASES, Config
 from .data.dataset import BinnedDataset
 from .metrics import create_metric
@@ -207,6 +207,7 @@ class Booster:
                 raise TypeError("Training data should be Dataset instance, "
                                 "met %s" % type(train_set).__name__)
             cfg = Config(self.params)
+            self._booster = create_boosting(cfg.boosting)
             device = resolve_device(cfg)
             train_set.params.update(self.params)
             inner = train_set.construct()._inner

@@ -42,9 +42,26 @@ gradients come from the host, one [K * n] pair per iteration, and the
 objective is "none", so the learner takes the v1 grower and the iteration
 the JAX package's per-class path (no BoostFromAverage, its stop rule).
 
+Bagging (``bagging_fraction`` with ``bagging_freq``, balanced
+``pos_``/``neg_bagging_fraction``) and GOSS (boosting/goss.py) sample rows
+as the JAX package samples them on the grower the iteration runs on:
+  * v1 grower (the JAX per-iteration path): the host draws of
+    :meth:`GBDT.bagging` (gbdt.py:190-214; a numpy Generator seeded with
+    ``bagging_seed``, one draw per ``bagging_freq`` window), the
+    gradients multiplied by the bag's weights before the tree
+    (gbdt.py:505-516, 692-703), the bag mask handed to the grower for its
+    in-bag counts; leaf renewal from in-bag rows only (gbdt.py:747-765);
+  * persistent grower (the JAX fused driver): a bag step on the device
+    after each gradient fill (ops/bag.py), its window key
+    ``fold_in(PRNGKey(bagging_seed), window)`` computed here per iteration
+    (gbdt.py:_persist_bag_keys:449-466) and written into device scalars.
+So the same run can bag differently in the two packages where the JAX
+package picks its per-iteration path and the port its persistent grower
+(a validation set, fewer than 16 rounds: ROADMAP.md C9).
+
 Not in this slice (ROADMAP.md queue A): the K-iteration fused scan, which
 the JAX package runs in batches of 16 iterations on its persistent path (a
-CUDA graph per iteration in the port, item 15), bagging/GOSS/DART/RF.
+CUDA graph per iteration in the port, item 15), DART and RF (item 7).
 """
 from __future__ import annotations
 
@@ -57,6 +74,7 @@ import torch
 from ..config import _BY_NAME, Config, alias_transform
 from ..models.tree import Tree
 from ..objectives import parse_objective_string
+from ..ops.bag import bag_iteration
 from ..ops.valid_walk import pack
 from ..treelearner.serial import SerialTreeLearner, check_v1_layout
 from ..utils.log import Log
@@ -120,6 +138,12 @@ class GBDT:
                             and self.tree_learner.can_persist_scan(objective))
         if not self.use_persist:
             check_v1_layout(train_data)
+        # the v1 grower's bag: a [n] bool mask and GOSS's [n] f32 weights on
+        # the device (None: every row, weight 1); the plan itself is set by
+        # _refresh_bagging_config (the ResetBaggingConfig analog)
+        self._bag_mask = None
+        self._bag_weight = None
+        self._refresh_bagging_config()
 
     @staticmethod
     def _feature_info(mapper) -> str:
@@ -181,21 +205,133 @@ class GBDT:
                             "the slow convergence" % self.objective.name)
         return 0.0
 
+    # the bagging keys GBDT::ResetConfig re-applies (the JAX package's
+    # _RESET_BAG, gbdt.py:226-229)
+    _RESET_BAG = frozenset({
+        "bagging_fraction", "bagging_freq", "pos_bagging_fraction",
+        "neg_bagging_fraction", "bagging_seed"})
+
     def reset_config(self, updates: dict) -> None:
         """GBDT::ResetConfig (gbdt.cpp:704) between iterations, for the
-        learning rate (the JAX package's reset_config, gbdt.py:230-280).
-        Any other key raises: changing it during training is not ported."""
+        learning rate and the bagging keys (the JAX package's reset_config,
+        gbdt.py:230-280): a bagging key re-plans the bag as
+        _refresh_bagging_config does, with a new draw at the next
+        iteration. On the persistent grower the bag's fractions, seed and
+        window are device scalars written before every iteration, so the
+        captured graph stays; turning the bag on or off changes the
+        iteration's steps, and the grower captures a new graph. Any other
+        key raises: changing it during training is not ported."""
         updates = alias_transform(dict(updates))
-        other = sorted(k for k in updates if k != "learning_rate")
+        other = sorted(k for k in updates if k != "learning_rate"
+                       and k not in self._RESET_BAG)
         if other:
             Log.fatal("reset_config: changing %s during training is not "
                       "ported yet (ROADMAP.md queue A, item 19: callbacks)"
                       % ", ".join(other))
+        cfg = self.config
+        for k, v in updates.items():
+            setattr(cfg, k, cfg._coerce(_BY_NAME[k], v))
         if "learning_rate" in updates:
-            v = self.config._coerce(_BY_NAME["learning_rate"],
-                                    updates["learning_rate"])
-            self.config.learning_rate = v
-            self.shrinkage_rate = float(v)
+            self.shrinkage_rate = float(cfg.learning_rate)
+        if self.train_data is not None and self._RESET_BAG & set(updates):
+            self._refresh_bagging_config()
+            if (self.use_persist and self.bag_spec()[0] != "none"
+                    and self.objective.is_renew_tree_output):
+                Log.fatal("reset_config: bagging with leaf renewal on the "
+                          "persistent grower is not ported yet (ROADMAP.md "
+                          "queue A, item 24); train with "
+                          "tpu_persist_scan=false")
+
+    # ---- bagging (the v1 grower's host draws) -----------------------------
+    def _refresh_bagging_config(self) -> None:
+        """GBDT::ResetBaggingConfig (gbdt.cpp:762-800; the JAX package's
+        gbdt.py:282-309): the bag plan from the config, a fresh numpy
+        Generator from bagging_seed, and a new draw at the next
+        iteration."""
+        cfg = self.config
+        n = self.train_data.num_data
+        self._bagging_rng = np.random.default_rng(cfg.bagging_seed)
+        self.balanced_bagging = False
+        self.bag_data_cnt = n
+        bag_on = False
+        if cfg.bagging_fraction < 1.0 and cfg.bagging_freq > 0:
+            self.bag_data_cnt = max(1, int(cfg.bagging_fraction * n))
+            bag_on = True
+        if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+            if cfg.bagging_freq <= 0:
+                Log.warning("pos/neg bagging needs bagging_freq > 0")
+            else:
+                self.balanced_bagging = True
+                self.bag_data_cnt = 0
+                bag_on = True
+        self.need_re_bagging = bag_on
+        if not bag_on:
+            self._bag_mask = None
+            self._bag_weight = None
+
+    def bagging(self, it: int, grad=None, hess=None) -> None:
+        """GBDT::Bagging (gbdt.cpp:210-244; the JAX package's gbdt.py:
+        190-214): a new bag mask at the start of every bagging_freq window
+        (or after a reset), u < bagging_fraction (balanced: the fraction of
+        the row's label sign) from the numpy Generator; one row when the bag
+        would be empty. `grad`/`hess` ([K, n]) are GOSS's."""
+        cfg = self.config
+        do_bag = (self.bag_data_cnt < self.train_data.num_data
+                  or self.balanced_bagging)
+        if not ((do_bag and cfg.bagging_freq > 0
+                 and it % cfg.bagging_freq == 0) or self.need_re_bagging):
+            return
+        self.need_re_bagging = False
+        n = self.train_data.num_data
+        u = self._bagging_rng.random(n)
+        if self.balanced_bagging:
+            pos = self.train_data.metadata.label > 0
+            mask = np.where(pos, u < cfg.pos_bagging_fraction,
+                            u < cfg.neg_bagging_fraction)
+        else:
+            mask = u < cfg.bagging_fraction
+        self.bag_data_cnt = int(mask.sum())
+        if self.bag_data_cnt == 0:
+            mask[self._bagging_rng.integers(n)] = True
+            self.bag_data_cnt = 1
+        Log.debug("Re-bagging, using %d data to train" % self.bag_data_cnt)
+        self._bag_mask = torch.as_tensor(mask, device=self.device)
+        self._bag_weight = None
+
+    def bag_spec(self):
+        """The persistent grower's bag step (the JAX package's
+        _persist_bag_spec, gbdt.py:327-337): ("bagging", fraction,
+        pos_fraction, neg_fraction), or ("none",)."""
+        cfg = self.config
+        if cfg.bagging_freq > 0 and self.balanced_bagging:
+            return ("bagging", 1.0, float(cfg.pos_bagging_fraction),
+                    float(cfg.neg_bagging_fraction))
+        if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0:
+            return ("bagging", float(cfg.bagging_fraction), 1.0, 1.0)
+        return ("none",)
+
+    def _persist_bag(self):
+        """This iteration's bag step on the persistent grower (None without
+        one): the window key folded from bagging_seed at it //
+        bagging_freq (GOSS: at it), the fractions or GOSS's constants."""
+        spec = self.bag_spec()
+        if spec[0] == "none":
+            return None
+        cfg = self.config
+        return bag_iteration(spec, cfg.bagging_seed, cfg.bagging_freq,
+                             self.iter, self.train_data.num_data,
+                             int(1.0 / float(cfg.learning_rate)))
+
+    def _bagged(self, g, h):
+        """g, h of one class times the bag's weights (GOSS) or mask, in
+        their dtype's promotion with f32, as the JAX package multiplies
+        (gbdt.py:505-516); unchanged without a bag."""
+        if self._bag_weight is not None:
+            return g * self._bag_weight, h * self._bag_weight
+        if self._bag_mask is not None:
+            m = self._bag_mask.to(g.dtype)
+            return g * m, h * m
+        return g, h
 
     def _grow(self, classes, gradients=None):
         """The TreeArrays of this iteration's tree of each class in
@@ -205,7 +341,7 @@ class GBDT:
             learner = self.tree_learner
             out = learner.train_persist(
                 self.objective, lambda: self.train_score.score,
-                self.shrinkage_rate, classes)
+                self.shrinkage_rate, classes, self._persist_bag())
             self.train_score.defer_to(learner.persist_finalize_scores)
             return out
         if gradients is not None:
@@ -214,10 +350,12 @@ class GBDT:
             grad, hess = self.objective.get_gradients(self.train_score.score)
             if self.num_tree_per_iteration == 1:
                 grad, hess = grad[None], hess[None]
+        self.bagging(self.iter, grad, hess)
         out = []
         for k in classes:
-            arrays, row_leaf = self.tree_learner.train_arrays(grad[k],
-                                                              hess[k])
+            g, h = self._bagged(grad[k], hess[k])
+            arrays, row_leaf = self.tree_learner.train_arrays(
+                g, h, self._bag_mask)
             if arrays.num_leaves > 1:
                 if (self.objective is not None
                         and self.objective.is_renew_tree_output):
@@ -229,15 +367,19 @@ class GBDT:
         return out
 
     def _renew_v1(self, arrays, row_leaf, class_id: int):
-        """The v1 tree's leaf outputs re-fit from its rows (the JAX
+        """The v1 tree's leaf outputs re-fit from its in-bag rows (the JAX
         package's _renew_tree_output, gbdt.py:747-766): the rows grouped
-        by leaf through the row -> leaf map, the f64 training scores before
-        the tree's update, one renew_leaf launch; the renewed f64 values
-        are read back once and replace the grower's f32 leaf values."""
+        by leaf through the row -> leaf map (out-of-bag rows under a key
+        past the last leaf, outside every segment), the f64 training
+        scores before the tree's update, one renew_leaf launch; the
+        renewed f64 values are read back once and replace the grower's f32
+        leaf values. A leaf without in-bag rows keeps its value."""
         L = arrays.num_leaves
         key = row_leaf.to(torch.int64)
-        count = torch.zeros(L, dtype=torch.int64, device=key.device) \
-            .scatter_add_(0, key, torch.ones_like(key))
+        if self._bag_mask is not None:
+            key = torch.where(self._bag_mask, key, L)
+        count = torch.zeros(L + 1, dtype=torch.int64, device=key.device) \
+            .scatter_add_(0, key, torch.ones_like(key))[:L]
         seg = torch.stack([torch.cumsum(count, 0) - count, count], 1)
         value = torch.as_tensor(
             np.asarray(arrays.leaf_value[:L], np.float64), device=key.device)

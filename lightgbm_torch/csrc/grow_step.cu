@@ -83,6 +83,9 @@ struct GsConst {
   float mgts;        // f32(min_gain_to_split)
   int max_depth;
   int C;             // the payload's chunk lanes (S_NCH)
+  int bagged;        // 1: the payload carries out-of-bag lanes (bagging or
+                     // GOSS), so the leaf counts are the candidates'
+                     // hessian-derived ones, not the segments' lengths
 };
 
 // Child b's row of the scan scalars: ops/scan.py:pair_scalars (in ps8
@@ -162,10 +165,12 @@ static __device__ __forceinline__ void gs_count(long long* counter) {
 // A new tree: every leaf and split record to its initial value (gain -inf,
 // split_feature -1, the rest 0), the root's state from root_hist's totals
 // sums [2] f32 (sum_grad, sum_hess), its scan scalars in ps row 0, rows[0]
-// = 0, s = 1, done = 0. One block.
+// = 0, s = 1, done = 0. The root's count is *cnt (the bag step's in-bag
+// count) when cnt is not NULL, else n; its segment is all n lanes. One
+// block.
 __global__ void __launch_bounds__(GS_THREADS)
-gs_root(GsState S, const float* __restrict__ sums, long long n, GsConst k,
-        long long* counter) {
+gs_root(GsState S, const float* __restrict__ sums, long long n,
+        const long long* __restrict__ cnt, GsConst k, long long* counter) {
   for (int i = threadIdx.x; i < S.L; i += GS_THREADS) {
     for (int c = 0; c < GS_LF; ++c) S.lf[(long long)i * GS_LF + c] = 0.f;
     for (int c = 0; c < GS_LI; ++c) S.li[(long long)i * GS_LI + c] = 0;
@@ -180,11 +185,12 @@ gs_root(GsState S, const float* __restrict__ sums, long long n, GsConst k,
   __syncthreads();
   if (threadIdx.x == 0) {
     const float sg = sums[0], sh = sums[1];
+    const long long count = cnt != nullptr ? *cnt : n;
     S.lf[LF_SUM_HESS] = sh;
     S.lf[LF_VALUE] = -sg / (sh + k.l2);
-    S.li[LI_COUNT] = n;
+    S.li[LI_COUNT] = count;
     S.li[LI_NROWS] = n;
-    gs_pair_row(S, 0, sg, sh, n, k);
+    gs_pair_row(S, 0, sg, sh, count, k);
     S.rows[0] = 0;
     for (int c = 0; c < GS_ST; ++c) S.st[c] = 0;
     S.st[ST_S] = 1;
@@ -244,7 +250,10 @@ gs_pick(GsState S, const int* __restrict__ feat, GsConst k,
 }
 
 // commit: after split_pass wrote n_left, the children's leaf state (left
-// keeps id l, right is s) and their scan scalars. One thread.
+// keeps id l, right is s) and their scan scalars. The children's segments
+// come from n_left; their counts too, unless the payload is bagged: then
+// the candidate's left and right counts (the JAX grower's stat_from_scan,
+// grow_persist.py:1592-1595). One thread.
 __global__ void gs_commit(GsState S, GsConst k, long long* counter) {
   if (S.st[ST_DONE] != 0) return;
   const long long l = S.st[ST_LEAF], s = S.st[ST_S];
@@ -254,7 +263,9 @@ __global__ void gs_commit(GsState S, GsConst k, long long* counter) {
   float* rfl = S.lf + s * GS_LF;
   long long* ril = S.li + s * GS_LI;
   const long long s0 = pi[LI_START], n_l = pi[LI_NROWS];
-  const long long left_cnt = n_left, right_cnt = pi[LI_COUNT] - n_left;
+  const long long left_cnt = k.bagged ? pi[LI_LCNT] : n_left;
+  const long long right_cnt =
+      k.bagged ? pi[LI_RCNT] : pi[LI_COUNT] - n_left;
   const long long depth = pi[LI_DEPTH] + 1;
   const float lsg = pf[LF_LSG], lsh = pf[LF_LSH];
   const float rsg = pf[LF_RSG], rsh = pf[LF_RSH];
@@ -422,17 +433,19 @@ static GsState gs_state(void* lf, void* li, void* rf, void* ri, void* st,
 #define GS_STATE gs_state(lf, li, rf, ri, st, scal, ps, ps8, rows, L)
 #define GS_CONST_ARGS                                                   \
   float l2, float eps2, float min_data, float min_hess, float mgts,    \
-      int max_depth, int C
-#define GS_CONST {l2, eps2, min_data, min_hess, mgts, max_depth, C}
+      int max_depth, int C, int bagged
+#define GS_CONST {l2, eps2, min_data, min_hess, mgts, max_depth, C, bagged}
 
 static int gs_err() { return (int)cudaGetLastError(); }
 
 // The launchers: each queues its kernel on `stream` and returns the CUDA
 // error of the launch, 0 on success. counter may be NULL.
 extern "C" int gs_root_launch(GS_ARGS, const void* sums, long long n,
-                              GS_CONST_ARGS, void* counter, void* stream) {
+                              const void* cnt, GS_CONST_ARGS, void* counter,
+                              void* stream) {
   gs_root<<<1, GS_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      GS_STATE, static_cast<const float*>(sums), n, GsConst GS_CONST,
+      GS_STATE, static_cast<const float*>(sums), n,
+      static_cast<const long long*>(cnt), GsConst GS_CONST,
       static_cast<long long*>(counter));
   return gs_err();
 }

@@ -32,8 +32,15 @@ the host, driving the device:
 
 The JAX package routes data below 65536 rows to its masked grower; the port
 routes every size here. Both give the same trees up to f32 summation order
-(grow.py:1363). f32 sums, no bagging, no forced splits (the tree learner
-refuses the rest).
+(grow.py:1363). f32 sums, no forced splits (the tree learner refuses
+them).
+
+Bagging and GOSS: the caller multiplies the gradients by the bag's weights
+and hands the bag mask over; the out-of-bag rows stay in the payload with
+zero gradients, and the counts are of rows in the bag, as the JAX grower
+carries the bag bit with the row id (grow.py:1386-1436, 1578-1599): the
+root's count is the bag's, a split's left count the in-bag rows that go
+left, its right count the parent's less that.
 
 Categorical features (:class:`CatScan`) are kept out of scan_pair's feature
 mask (pallas_scan.py:646) and scanned by one ``cat_scan`` launch per
@@ -287,10 +294,12 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
                           hess: torch.Tensor, meta: FeatureMeta,
                           params: SplitParams, feature_mask: np.ndarray,
                           gc: GrowConfig, tb_src: torch.Tensor,
-                          knobs: Knobs = None, cat: CatScan = None):
-    """Grow one tree. grad/hess: [N] tensors on the data's device (every
-    row is in the bag). With ``knobs``, the scans' knob form; with ``cat``,
-    the categorical scan beside the numerical one. Returns (TreeArrays,
+                          knobs: Knobs = None, cat: CatScan = None,
+                          bag: torch.Tensor = None):
+    """Grow one tree. grad/hess: [N] tensors on the data's device, zero
+    outside the bag; `bag`: the [N] bool bag mask (None: every row is in
+    the bag). With ``knobs``, the scans' knob form; with ``cat``, the
+    categorical scan beside the numerical one. Returns (TreeArrays,
     row_leaf [N] int32 tensor in original row order)."""
     device = data.bins.device
     n, G = data.bins.shape
@@ -304,6 +313,7 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
     # f64 sums rounded to f32: the same value on every device
     sum_grad = F32(grad.double().sum().item())
     sum_hess = F32(hess.double().sum().item())
+    n_root = n if bag is None else int(bag.sum())
     if knobs is None:
         root_out = leaf_output_unconstrained(sum_grad, sum_hess, l2)
     else:       # grow.py:1461-1463: L1 and the clamp, no monotone bounds
@@ -312,7 +322,7 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
             F32(params.max_delta_step), True, True))
     if F == 0 or TB == 0:
         arr["leaf_value"][0] = root_out
-        arr["leaf_count"][0] = n
+        arr["leaf_count"][0] = n_root
         arr["leaf_weight"][0] = sum_hess
         return (TreeArrays(num_leaves=1, **arr),
                 torch.zeros(n, dtype=torch.int32, device=device))
@@ -322,6 +332,7 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
     gradP = grad.clone()
     hessP = hess.clone()
     ridP = torch.arange(n, device=device)
+    bagP = None if bag is None else bag.to(torch.int64).clone()
 
     def hist_tb(start: int, length: int) -> torch.Tensor:
         h = hist_window(binsP, gradP, hessP, start, length, W)   # [G, W, 2]
@@ -360,6 +371,8 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         gradP[seg] = gradP[seg][order]
         hessP[seg] = hessP[seg][order]
         ridP[seg] = ridP[seg][order]
+        if bagP is not None:
+            bagP[seg] = bagP[seg][order]
         return int(left.numel())
 
     # ---- root ---------------------------------------------------------------
@@ -401,13 +414,14 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
 
     best = [SplitCandidate.none() for _ in range(L)]
     best_gain = np.full(L, K_MIN_SCORE, F32)
-    best[0] = evaluate([0], [sum_grad], [sum_hess], [n], 0, [0], False)[0]
+    best[0] = evaluate([0], [sum_grad], [sum_hess], [n_root], 0, [0],
+                       False)[0]
     best_gain[0] = best[0].gain
     leaf_start = np.zeros(L, np.int64)
     leaf_nrows = np.zeros(L, np.int64)
     leaf_nrows[0] = n
     leaf_depth = np.zeros(L, np.int32)
-    arr["leaf_count"][0] = n
+    arr["leaf_count"][0] = n_root
     arr["leaf_value"][0] = root_out
     arr["leaf_weight"][0] = sum_hess
 
@@ -421,7 +435,8 @@ def grow_tree_partitioned(data: DeviceData, grad: torch.Tensor,
         smaller_is_left = cand.left_count <= cand.right_count
         n_left = partition(s0, n_l, cand)
         n_right = n_l - n_left
-        left_cnt = n_left                       # every row is in the bag
+        left_cnt = (n_left if bagP is None      # the in-bag rows going left
+                    else int(bagP[s0:s0 + n_left].sum()))
         right_cnt = int(arr["leaf_count"][l]) - left_cnt
 
         if smaller_is_left:

@@ -93,8 +93,20 @@ with the plain versions. Leaf counts are the kernel's exact n_left
 (``stat_from_scan=False``). The level phase keeps its host loop (one
 read-back per level) and hands its leaves to the device loop. With K class
 trees per iteration each tree's state is copied into its row of a stash at
-the tree's end, and the K trees are read back with one copy. Not ported
-here: sharding, voting, quantization, bagging and the health vector.
+the tree's end, and the K trees are read back with one copy.
+
+Bagging and GOSS (make_scan_driver's bag_fn, :2150-2190): after each
+class's gradient fill the bag step (ops/bag.py: ``goss_select`` for GOSS,
+then ``bag_apply``) weighs every live lane's grad and hess in place from a
+hash of its row id and the iteration's window key (device scalars written
+before the iteration) and counts the lanes in the bag. Out-of-bag lanes
+still ride the payload with zero gradients, so the segments keep their
+geometry, but the statistics follow the JAX grower's ``stat_from_scan``
+(:706-712): the root's count is the bag step's count, and a split's
+children take the candidate's hessian-derived counts instead of n_left
+(grow_step's ``bagged`` flag; the level phase likewise on the host). With
+K classes every class tree uses the same key, one bag per iteration. Not
+ported here: sharding, voting, quantization and the health vector.
 """
 from __future__ import annotations
 
@@ -105,6 +117,7 @@ import torch
 
 from . import counters
 from . import grow_step as gs
+from .bag import MODE_GOSS, BagIteration, BagState, bag_apply, goss_select
 from .block_scan import BlockScanLayout, scan_blocks
 from .grow import TreeArrays, _empty_arrays, assemble, scan_children
 from .payload import PersistAssets, payload_weight_row
@@ -226,6 +239,11 @@ class PersistGrower:
                                 dtype=torch.int32, device=dev)
         self.state = gs.GrowState(L, dev)
         self.k = gs.StepConst.of(params, gc.max_depth, C)
+        # the bag step (ops/bag.py): its device scalars, allocated with the
+        # first bagged iteration, and the mode of the iteration in hand
+        # (None: no bag step; the kernels' mode otherwise)
+        self.bag = None
+        self._bag_mode = None
         if self.blocks is not None:
             self.masks = self.blocks.masks.clone()
             self.mode, self.Wp = gs.SCAN_BLOCKS, self.blocks.Wp
@@ -386,6 +404,32 @@ class PersistGrower:
         renew_fn(rs, key, li[:, gs.LI_START:gs.LI_NROWS + 1],
                  S.lf[:, gs.LF_VALUE], S.st[gs.ST_S:gs.ST_S + 1])
 
+    def bag_step(self, pay) -> None:
+        """The iteration's bag step on the grad/hess rows (in place): for
+        GOSS the threshold (goss_select), then each live lane's weight, its
+        grad and hess times it, and the in-bag count in ``self.bag.count``
+        (bag_apply), from the device scalars :meth:`iteration` wrote."""
+        n, nbw = self.n, self.nbw
+        g = self._f32_row(pay, nbw + 2)
+        h = self._f32_row(pay, nbw + 3)
+        if self._bag_mode == MODE_GOSS:
+            goss_select(g, h, n, self.bag)
+        bag_apply(pay[nbw + 1], self._f32_row(pay, nbw), g, h, n,
+                  self._bag_mode, self.bag)
+
+    def _set_bag(self, bag: BagIteration) -> None:
+        """The iteration's bag step: its mode, the grow_step constants'
+        bag flag, and its device scalars (written before the body or the
+        replay, as the learning rate)."""
+        mode = None if bag is None else bag.mode
+        if (mode is None) != (self._bag_mode is None):
+            self.k = self.k._replace(bagged=int(mode is not None))
+        self._bag_mode = mode
+        if bag is not None:
+            if self.bag is None:
+                self.bag = BagState(self.device)
+            self.bag.set(bag)
+
     def _write_grads(self, pay, g, h) -> None:
         """g, h ([n] f32) into the grad/hess rows, times the weight row
         when there is one; zeros on the padding lanes."""
@@ -541,7 +585,8 @@ class PersistGrower:
             root_hist(pay, self.plan, self.nbw, self.n, out=self.root_buf)
             self.gh[0].copy_(planes[0])
             self.hh[0].copy_(planes[1])
-            gs.root(self.state, sums, self.n, self.k)
+            gs.root(self.state, sums, self.n, self.k,
+                    None if self._bag_mode is None else self.bag.count)
         self._scan(1)
 
     def _step(self, pay) -> None:
@@ -601,18 +646,21 @@ class PersistGrower:
         gh[0].copy_(planes[0])
         hh[0].copy_(planes[1])
         sum_grad, sum_hess = (F32(v) for v in sums.cpu().numpy())
+        bagged = self._bag_mode is not None
+        n_root = int(self.bag.count[0]) if bagged else n
         st = LeafState(sum_hess=np.zeros(L, F32),
                        count=np.zeros(L, np.int64), value=np.zeros(L, F32),
                        depth=np.zeros(L, np.int32),
                        start=np.zeros(L, np.int64),
                        nrows=np.zeros(L, np.int64))
         st.sum_hess[0] = sum_hess
-        st.count[0], st.nrows[0] = n, n
+        st.count[0], st.nrows[0] = n_root, n
         st.value[0] = leaf_output_unconstrained(sum_grad, sum_hess,
                                                 F32(params.lambda_l2))
         best = [SplitCandidate.none() for _ in range(L)]
         best_gain = np.full(L, K_MIN_SCORE, F32)
-        best[0] = self._evaluate([0], [sum_grad], [sum_hess], [n], 0)[0]
+        best[0] = self._evaluate([0], [sum_grad], [sum_hess], [n_root],
+                                 0)[0]
         best_gain[0] = best[0].gain
 
         s, levels = 1, 0
@@ -659,7 +707,10 @@ class PersistGrower:
                 tree["gain"][k] = c.gain
                 tree["internal_value"][k] = st.value[l]
                 tree["internal_count"][k] = st.count[l]
-                left_cnt, right_cnt = n_left, int(st.count[l]) - n_left
+                if bagged:      # stat_from_scan: the candidate's counts
+                    left_cnt, right_cnt = c.left_count, c.right_count
+                else:
+                    left_cnt, right_cnt = n_left, int(st.count[l]) - n_left
                 depth = int(st.depth[l]) + 1
                 for leaf, sh_, cnt_, val_, st_, nr_ in (
                         (l, c.left_sum_hess, left_cnt, c.left_output, s0,
@@ -779,9 +830,11 @@ class PersistGrower:
         -> apply_scores; K > 1: the score snapshot, then for each class in
         `classes` its feature mask into the layout, fill_grad_multi -> its
         tree -> apply_scores on its score row (make_scan_driver's class
-        loop, grow_persist.py:2150-2166). Each tree's state is copied into
-        its row of the stash. The learning rate is read from the state's
-        device scalar, which :meth:`iteration` writes before the body."""
+        loop, grow_persist.py:2150-2166). With a bag step, it runs after
+        each gradient fill (:meth:`bag_step`). Each tree's state is copied
+        into its row of the stash. The learning rate and the bag step's
+        scalars are read from device scalars, which :meth:`iteration`
+        writes before the body."""
         if self.K > 1:
             with _range("grow::snapshot"):
                 self.snapshot_scores(pay)
@@ -797,6 +850,9 @@ class PersistGrower:
                     self.fill_grad_row(pay, grad_fn)
                 else:
                     self.fill_grad(pay, grad_fn)
+            if self._bag_mode is not None:
+                with _range("grow::bag"):
+                    self.bag_step(pay)
             self._tree(pay)
             levels.append(self._levels)
             if renew is not None:
@@ -811,12 +867,14 @@ class PersistGrower:
         self._body_levels = levels
 
     def iteration(self, pay, grad_fn, feature_masks, shrink: float,
-                  classes=(0,), mode="payload", renew=None):
+                  classes=(0,), mode="payload", renew=None,
+                  bag: BagIteration = None):
         """One boosting iteration on the payload: for each class in
         `classes` (every class with something to train), its gradients
         (``grad_fn``: a payload_grad_fn when K = 1, a payload_grad_fn_multi
         otherwise; in the "row" `mode` a function of the row-ordered
-        scores), one tree on its feature mask (``feature_masks[j]`` for
+        scores), with `bag` (ops/bag.py's BagIteration) the bag step on
+        them, one tree on its feature mask (``feature_masks[j]`` for
         ``classes[j]``), with `renew` (an objective's renew_tree_output)
         its leaves re-fit, its score update. Returns one (LeafState, split
         records, num_leaves) per class, as :meth:`grow` does, all read back
@@ -830,18 +888,21 @@ class PersistGrower:
         classes replays it: the learning rate is written into the state's
         device scalar before the body or the replay (gs.set_shrink), so a
         rate that changes between iterations (``learning_rates=``) replays
-        the same graph. A failure raises: there is no fallback to an eager
-        loop."""
+        the same graph; so are the bag step's window key, iteration and
+        fractions, while a change of its mode (none, fraction, balanced,
+        GOSS) takes a new graph. A failure raises: there is no fallback to
+        an eager loop."""
         classes = tuple(int(c) for c in classes)
         if self.K > 1:
             self._stage_masks(feature_masks)
         else:
             self._prepare(feature_masks[0])
         gs.set_shrink(self.state, shrink)
+        self._set_bag(bag)
         if self.use_level or self.device.type != "cuda" or not self.capture:
             self._body(pay, grad_fn, classes, mode, renew)
             return self._read_stash(len(classes))
-        key = (pay.data_ptr(), classes)
+        key = (pay.data_ptr(), classes, self._bag_mode)
         if self._graph is not None and self._graph[1] == key:
             self._graph[0].replay()
             self.replays += 1

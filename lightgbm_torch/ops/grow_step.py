@@ -73,7 +73,10 @@ NEG_INF = float("-inf")
 
 class StepConst(NamedTuple):
     """The f32 constants of the split parameters, rounded as the numpy
-    code rounds them (pair_scalars, assemble)."""
+    code rounds them (pair_scalars, assemble), and the bag flag: with
+    ``bagged`` the payload carries out-of-bag lanes, so commit takes the
+    children's counts from the candidate (its hessian-derived counts, the
+    JAX grower's stat_from_scan) instead of the partition's n_left."""
     l2: np.float32
     eps2: np.float32
     min_data: np.float32
@@ -81,19 +84,22 @@ class StepConst(NamedTuple):
     mgts: np.float32
     max_depth: int
     C: int
+    bagged: int = 0
 
     @classmethod
-    def of(cls, params, max_depth: int, C: int) -> "StepConst":
+    def of(cls, params, max_depth: int, C: int,
+           bagged: bool = False) -> "StepConst":
         return cls(F32(params.lambda_l2), F32(2 * K_EPSILON),
                    F32(params.min_data_in_leaf),
                    F32(params.min_sum_hessian_in_leaf),
-                   F32(params.min_gain_to_split), int(max_depth), int(C))
+                   F32(params.min_gain_to_split), int(max_depth), int(C),
+                   int(bool(bagged)))
 
     def args(self):
         f = ctypes.c_float
         return (f(self.l2), f(self.eps2), f(self.min_data),
                 f(self.min_hess), f(self.mgts), int(self.max_depth),
-                int(self.C))
+                int(self.C), int(self.bagged))
 
 
 class GrowState:
@@ -219,7 +225,7 @@ def _set_pairs(S: GrowState, b0: int, rows9: torch.Tensor) -> None:
 
 
 def root_plain(S: GrowState, sums: torch.Tensor, n: int,
-               k: StepConst) -> None:
+               k: StepConst, count=None) -> None:
     S.lf.zero_()
     S.lf[:, LF_GAIN] = NEG_INF
     S.li.zero_()
@@ -228,11 +234,12 @@ def root_plain(S: GrowState, sums: torch.Tensor, n: int,
     S.ri.zero_()
     S.ri[:, RI_FEAT] = -1
     sg, sh = sums[0].to(torch.float32), sums[1].to(torch.float32)
+    cnt = n if count is None else int(count[0])
     S.lf[0, LF_SUM_HESS] = sh
     S.lf[0, LF_VALUE] = -sg / (sh + _f32(k.l2))
-    S.li[0, LI_COUNT] = n
+    S.li[0, LI_COUNT] = cnt
     S.li[0, LI_NROWS] = n
-    _set_pairs(S, 0, pair_rows(sg[None], sh[None], [n], k))
+    _set_pairs(S, 0, pair_rows(sg[None], sh[None], [cnt], k))
     S.rows[0] = 0
     S.st.zero_()
     S.st[ST_S] = 1
@@ -280,7 +287,10 @@ def commit_plain(S: GrowState, k: StepConst) -> None:
     l, s, n_left = int(st[ST_LEAF]), int(st[ST_S]), int(st[ST_NLEFT])
     pi = [int(v) for v in S.li[l].tolist()]
     cand = S.lf[l].clone()
-    left_cnt, right_cnt = n_left, pi[LI_COUNT] - n_left
+    if k.bagged:
+        left_cnt, right_cnt = pi[LI_LCNT], pi[LI_RCNT]
+    else:
+        left_cnt, right_cnt = n_left, pi[LI_COUNT] - n_left
     depth = pi[LI_DEPTH] + 1
     S.lf[l, LF_SUM_HESS], S.lf[l, LF_VALUE] = cand[LF_LSH], cand[LF_LOUT]
     S.lf[s, LF_SUM_HESS], S.lf[s, LF_VALUE] = cand[LF_RSH], cand[LF_ROUT]
@@ -372,7 +382,7 @@ def apply_plain(S: GrowState, score: torch.Tensor) -> None:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _STATE = [_P] * 9 + [_I]
-_CONST = [_F] * 5 + [_I, _I]
+_CONST = [_F] * 5 + [_I, _I, _I]
 
 
 def _launch(name, argtypes, S: GrowState, *args):
@@ -404,14 +414,20 @@ def _cnt(S, name):
     return counters.ptr(S.device, name)
 
 
-def root(S: GrowState, sums: torch.Tensor, n: int, k: StepConst) -> None:
+def root(S: GrowState, sums: torch.Tensor, n: int, k: StepConst,
+         count: torch.Tensor = None) -> None:
     """Start a tree: the table's initial values and the root's state from
-    root_hist's totals `sums` [2] f32."""
-    if not _on(S, sums):
-        return root_plain(S, sums, n, k)
-    _launch("gs_root_launch", [_P, _LL] + _CONST + [_P], S,
-            ctypes.c_void_p(sums.data_ptr()), int(n), *k.args(),
-            _cnt(S, "grow_root"))
+    root_hist's totals `sums` [2] f32; the root's count is `count` (a [1]
+    int64 device tensor: the bag step's in-bag count) or n."""
+    extra = () if count is None else (count,)
+    if count is not None and count.dtype != torch.int64:
+        raise LightGBMError("grow_step root: count must be int64")
+    if not _on(S, sums, *extra):
+        return root_plain(S, sums, n, k, count)
+    _launch("gs_root_launch", [_P, _LL, _P] + _CONST + [_P], S,
+            ctypes.c_void_p(sums.data_ptr()), int(n),
+            ctypes.c_void_p(None if count is None else count.data_ptr()),
+            *k.args(), _cnt(S, "grow_root"))
     root.launches += 1
 
 

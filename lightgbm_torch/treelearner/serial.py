@@ -14,7 +14,12 @@ both scanning splits with the ``scan_pair`` kernel:
     iterations (:meth:`train_persist`). ``tpu_level_grow`` routes its
     level phase (serial.py:550-554): ``auto`` runs it where
     ``can_level_grow`` holds (``max_depth`` in [1, 16]), ``off``/
-    ``false``/``0`` never. EFB-bundled data train only here;
+    ``false``/``0`` never. EFB-bundled data train only here. Bagging of
+    any kind and GOSS with one tree per iteration train here too, with
+    the bag step on the device; GOSS with K > 1 trees per iteration and
+    a leaf-renewal objective with a bag take the v1 grower under ``auto``
+    (the JAX package runs them on its per-iteration path only) and raise
+    under ``force``;
   * the v1 partitioned grower (ops/grow.py) otherwise, and always for
     the split scan's numerical knobs (``lambda_l1``, ``max_delta_step``,
     monotone constraints, ``extra_trees``, ``feature_fraction_bynode``),
@@ -54,6 +59,10 @@ _SCAN_F64 = ("queue A, item 4, step 1b: f64 accumulation and "
 _CEGB = "queue A, item 4, step 3: CEGB"
 _KNOBS_PERSIST = ("queue A, item 4, step 1c: the numerical knobs on the "
                   "persistent grower")
+_GOSS_MULTI = ("queue A, item 23: GOSS with K > 1 trees per iteration on the "
+               "persistent grower")
+_RENEW_BAG = ("queue A, item 24: leaf renewal with bagging or GOSS on the "
+              "persistent grower")
 # rows from which the JAX package takes the persistent grower on an
 # accelerator (treelearner/serial.py:33)
 PARTITION_MIN_ROWS = 65536
@@ -71,14 +80,9 @@ def check_fast_path(config: Config, dataset) -> None:
     if c.objective not in PORTED + ("none",):
         _refuse("objective=%s" % c.objective,
                 "queue A, item 17: other objectives")
-    if c.boosting == "goss":
-        _refuse("boosting=goss", "queue A, item 16: bagging and GOSS")
-    if c.boosting != "gbdt":
+    if c.boosting not in ("gbdt", "goss"):
         _refuse("boosting=%s" % c.boosting,
-                "queue A, item 7: other boosting modes")
-    if (c.bagging_freq > 0 and c.bagging_fraction < 1.0) \
-            or c.pos_bagging_fraction < 1.0 or c.neg_bagging_fraction < 1.0:
-        _refuse("bagging", "queue A, item 16: bagging and GOSS")
+                "queue A, item 7: DART and RF")
     if c.tree_learner != "serial" or c.num_machines > 1:
         _refuse("tree_learner=%s" % c.tree_learner,
                 "queue A, item 11: distributed training")
@@ -122,6 +126,15 @@ def scan_knobs(config: Config, dataset) -> list:
           ("extra_trees", bool(c.extra_trees)),
           ("feature_fraction_bynode", float(c.feature_fraction_bynode) < 1.0)]
     return [name for name, set_ in on if set_]
+
+
+def bag_configured(config: Config) -> bool:
+    """Does the run sample rows: bagging (a fraction below 1 with a
+    bagging_freq, or balanced fractions with one) or GOSS?"""
+    c = config
+    return c.boosting == "goss" or (c.bagging_freq > 0 and (
+        c.bagging_fraction < 1.0 or c.pos_bagging_fraction < 1.0
+        or c.neg_bagging_fraction < 1.0))
 
 
 def check_v1_layout(dataset) -> None:
@@ -249,6 +262,27 @@ class SerialTreeLearner:
                     "the v1 grower" % (", ".join(self.knobs),
                                        _KNOBS_PERSIST))
             return False
+        # row sampling the JAX package runs on its per-iteration path only
+        if self.config.boosting == "goss" \
+                and objective.num_model_per_iteration > 1:
+            why = ("GOSS with %d trees per iteration" %
+                   objective.num_model_per_iteration, _GOSS_MULTI,
+                   "the JAX package's fused driver does not batch it: its "
+                   "score sums |g * h| over the classes")
+        elif bag_configured(self.config) \
+                and objective.is_renew_tree_output:
+            why = ("%s with bagging or GOSS" % objective.name, _RENEW_BAG,
+                   "the JAX package renews leaves on its per-iteration "
+                   "path only")
+        else:
+            why = None
+        if why is not None:
+            if opt == "force":
+                Log.fatal("tpu_persist_scan=force with %s: not ported to the "
+                          "persistent grower yet (ROADMAP.md %s; %s). "
+                          "tpu_persist_scan=auto trains it on the v1 grower"
+                          % why)
+            return False
         dg = objective.device_gradients()
         if opt == "force" and dg is None:
             Log.fatal("tpu_persist_scan=force: objective '%s' has no device "
@@ -280,7 +314,7 @@ class SerialTreeLearner:
         return self._persist_gr
 
     def train_persist(self, objective, score0, shrink: float,
-                      classes=(0,)):
+                      classes=(0,), bag=None):
         """One boosting iteration on the payload: for each class in
         `classes` (K = 1: the one tree), the objective's gradients, one
         tree and its score update, all on the payload, which stays on the
@@ -296,7 +330,9 @@ class SerialTreeLearner:
         every synchronizing torch operation an error, and the later ones
         replay one captured CUDA graph; the trees are read back with one
         copy. An objective with leaf renewal re-fits each tree's leaves
-        inside the iteration, before its score update."""
+        inside the iteration, before its score update. `bag` (ops/bag.py's
+        BagIteration, None without one) is the iteration's bag step after
+        each gradient fill."""
         mode, grad_fn = objective.device_gradients()
         gr = self._persist_grower(objective.num_model_per_iteration,
                                   mode == "payload")
@@ -307,7 +343,7 @@ class SerialTreeLearner:
         renew = (objective.renew_tree_output
                  if objective.is_renew_tree_output else None)
         out = gr.iteration(self._persist_carry, grad_fn, masks, shrink,
-                           classes, mode, renew)
+                           classes, mode, renew, bag)
         return [gr.to_tree_arrays(*t) for t in out]
 
     def persist_add_const(self, val: float, cls: int) -> None:
@@ -334,11 +370,12 @@ class SerialTreeLearner:
                                            self.dataset.num_features),
                      key=tf.fold_in(self._key_base, self._tree_counter))
 
-    def train_arrays(self, grad, hess):
-        """Grow one tree from [N] grad/hess tensors on the learner's device;
-        returns (TreeArrays, row_leaf tensor)."""
+    def train_arrays(self, grad, hess, bag=None):
+        """Grow one tree from [N] grad/hess tensors on the learner's device
+        (zero outside the bag; `bag` the [N] bool bag mask, None for every
+        row); returns (TreeArrays, row_leaf tensor)."""
         mask = self.col_sampler.sample()
         return grow_tree_partitioned(self.data, grad, hess, self.meta,
                                      self.params, mask, self.grow_config,
                                      self.tb_src, self.tree_knobs(),
-                                     self.cat)
+                                     self.cat, bag)

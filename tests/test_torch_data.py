@@ -131,9 +131,14 @@ def test_config_matches_jax(params):
 @pytest.mark.parametrize("params,item", [
     ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
      "item 7"),
-    ({"boosting": "goss"}, "item 16"),
+    # GOSS with K > 1 and a renewal objective with a bag train on v1; the
+    # persistent grower refuses them
+    ({"boosting": "goss", "objective": "multiclass", "num_class": 3,
+      "tpu_persist_scan": "force"}, "item 23"),
     ({"boosting": "dart"}, "item 7"),
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "item 16"),
+    ({"bagging_fraction": 0.5, "bagging_freq": 1,
+      "objective": "regression_l1", "tpu_persist_scan": "force"},
+     "item 24"),
     # the split scan's knobs train on v1; the persistent grower refuses
     ({"lambda_l1": 1.0, "tpu_persist_scan": "force"}, "item 4"),
     ({"max_delta_step": 1.0, "tpu_persist_scan": "force"}, "item 4"),
