@@ -86,7 +86,14 @@ exits non-zero without printing a result:
               launches equal and bit for bit equal to the plain versions
               on the CPU, goss_select's threshold equal to
               torch.kthvalue's, timed beside the plain versions on the
-              card, torch.kthvalue and the bounds;
+              card, torch.kthvalue and the bounds. DART's and RF's
+              forms at the HIGGS payload (phase_dart_rf_kernels):
+              valid_walk_payload (a 255-leaf tree walked over the
+              training bins of a permuted payload's lanes onto f32
+              scores), bag_apply's rows form (a host mask at fraction 0.7)
+              and apply_scores_avg (255 segments, t = 5, a bias), two
+              launches equal and equal to the plain versions on the card,
+              timed beside them and their bounds;
      airline  (after the MSLR phase) on airline-shaped rows (the public
               szilard benchm-ml airline set's shape: 10M rows, categorical
               Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin, Dest and
@@ -166,6 +173,23 @@ exits non-zero without printing a result:
                        the weighed rows to the plain version's; both paths'
                        iteration wall, busy and idle share beside the
                        persist path's;
+              dart     (after goss) the persist path with boosting=dart,
+                       drop_rate 0.3, 8 iterations: each iteration's
+                       dropped iterations equal to a plain replay of the
+                       numpy Generator at drop_seed (plain_drops), the
+                       drop's and the normalize's walks on the payload
+                       (valid_walk_payload twice per dropped tree, counted
+                       by its wrapper) between the graph's replays, which
+                       go on; one tree read per iteration; the walks timed;
+              rf       boosting=rf, bagging_fraction 0.7, bagging_freq 1, 8
+                       iterations: the host mask uploaded before each
+                       iteration, bag_apply's rows form and
+                       apply_scores_avg once per tree in the graph, each
+                       tree's in-bag count equal to its mask's sum, every
+                       iteration's logloss below the constant init score's,
+                       the host draw's and the upload's ms; both paths'
+                       iteration wall, busy and idle share beside the
+                       persist path's;
               regression  objective=regression (L2) on the latent plus
                        Gaussian noise, num_leaves=255, 3 iterations; its L2
                        loss must fall every iteration;
@@ -212,8 +236,8 @@ exits non-zero without printing a result:
               of the largest score), and a model-text round trip; on the
               payload paths the second buffer's rows (wp_live) and bytes;
               at the default sizes, the persist, v1, level, multiclass,
-              regression, l1 and bundled digests must equal the ones
-              recorded in PERF.md (KNOWN_DIGESTS);
+              regression, l1, bundled, bagging and goss digests must
+              equal the ones recorded in PERF.md (KNOWN_DIGESTS);
   5. bundled  the Expo shape (make_expo_like: 8 dense + 640 one-hot
               columns, EFB-bundled into 18 groups; 2M rows), scan_blocks
               against its plain version at B = 256 children read in place
@@ -248,7 +272,9 @@ exits non-zero without printing a result:
               records within 1e-12 relative, equal model text; and
               bagging (persist and v1), balanced bagging (persist) and
               GOSS (persist and v1) on --bag-parity-rows HIGGS rows, 31
-              leaves, 6 iterations.
+              leaves, 6 iterations; DART and RF (persist and v1) on the
+              same rows and DART on the bundled Expo parity rows
+              (scan_blocks), 31 leaves, 8 iterations.
 
 The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
@@ -2136,31 +2162,58 @@ PATHS["goss"] = ({"num_leaves": 255, "tpu_persist_scan": "auto",
                   "learning_rate": 0.5},
                  PATHS["persist"][1] + ("bag_apply", "goss_select"),
                  PATHS["persist"][2])
+# DART (drop_rate 0.3, the rest at its defaults) and RF (bagging_fraction
+# 0.7, bagging_freq 1) on the per-split persistent grower, by default
+# routing: DART's drop and normalize walk the payload between the graph's
+# replays (valid_walk_payload, counted by its wrapper); RF's iteration
+# bags with the host's mask (bag_apply's rows form, slot bag_rows) and
+# ends with the running average (apply_scores_avg) in the graph
+DART_RF_PATHS = ("dart", "rf")
+DART_RF_ITERS = 8      # iterations of each; a short run cuts rows, not these
+PATHS["dart"] = ({"num_leaves": 255, "tpu_persist_scan": "auto",
+                  "boosting": "dart", "drop_rate": 0.3},
+                 PATHS["persist"][1] + ("valid_walk_payload",),
+                 PATHS["persist"][2] + ("bag_apply", "bag_rows",
+                                        "apply_scores_avg"))
+PATHS["rf"] = ({"num_leaves": 255, "tpu_persist_scan": "auto",
+                "boosting": "rf", "bagging_fraction": 0.7,
+                "bagging_freq": 1},
+               tuple(k for k in PATHS["persist"][1] if k != "apply_scores")
+               + ("bag_rows", "apply_scores_avg"),
+               PATHS["persist"][2] + ("apply_scores", "bag_apply",
+                                      "valid_walk_payload"))
 # the model digests that the earlier paths' full runs recorded (sha256 of
 # the model text without its parameters; first and last hex digits,
 # PERF.md section 6): a run at the default sizes must reproduce them.
 # (PERF.md had bundled's tail as "a85fe823", a miscopy of "...a8f414fe823":
-# its 8 leading and 5 trailing digits agree with the digest printed since.)
+# its 8 leading and 5 trailing digits agree with the digest printed since.
+# goss's text now starts with its driver's name, "goss", for "tree": the
+# same text with "tree" first hashes to the digest recorded before,
+# 5ff7b4ad...0712.)
 KNOWN_DIGESTS = {"persist": ("cab22751", "49c488"),
                  "v1": ("b122b60b", "eedebe"),
                  "level": ("b9771780", "807332c"),
                  "multiclass": ("40635bfe", "44a85dc"),
                  "regression": ("277f605d", "9145ce"),
                  "bundled": ("32e491a8", "fe823"),
-                 "l1": ("55c69e16", "d731d22a")}
+                 "l1": ("55c69e16", "d731d22a"),
+                 "bagging": ("8dad1e05", "0c85"),
+                 "goss": ("61428ba6", "1eaa6b")}
 FULL_SIZE = {"on": False}     # main sets it when every size is the default
 # the kernels whose launches a Python counter counts (they run eagerly on
 # every path); every other kernel of the paths counts its launches on the
 # device (ops/counters.py), replays of a CUDA graph included
-PY_COUNTED = ("hist_window", "level_pass", "level_seg_hist", "valid_walk")
+PY_COUNTED = ("hist_window", "level_pass", "level_seg_hist", "valid_walk",
+              "valid_walk_payload")
 
 
 def _wrappers():
     from lightgbm_torch.ops.histogram import hist_window
     from lightgbm_torch.ops.payload_kernels import level_pass, level_seg_hist
-    from lightgbm_torch.ops.valid_walk import valid_walk
+    from lightgbm_torch.ops.valid_walk import valid_walk, valid_walk_payload
     return {"hist_window": hist_window, "level_pass": level_pass,
-            "level_seg_hist": level_seg_hist, "valid_walk": valid_walk}
+            "level_seg_hist": level_seg_hist, "valid_walk": valid_walk,
+            "valid_walk_payload": valid_walk_payload}
 
 
 def reset_counts():
@@ -2196,7 +2249,7 @@ def has_odd_leaf(tree) -> bool:
     return False
 
 
-def expected_launches(bst, trees):
+def expected_launches(bst, trees, drops=0):
     """Each kernel's launches for the trees of `bst`: v1 scans and
     histograms once per node; the persistent grower runs root_hist per
     tree, one level_pass (level_seg_hist when G > 20) and one scan per
@@ -2210,8 +2263,10 @@ def expected_launches(bst, trees):
     gradient kernel once per iteration; on a categorical Dataset (v1)
     cat_scan once per evaluation, as scan_pair; with a bag on the persistent
     grower bag_apply once per tree and, for GOSS, goss_select once per
-    iteration from int(1 / learning_rate) on. Returns (counts, per-tree
-    (level programs, per-split splits))."""
+    iteration from int(1 / learning_rate) on; for RF the bag step's rows
+    form and the running average once per tree (no bag_apply, no score
+    add); for DART valid_walk_payload twice per dropped tree (`drops`).
+    Returns (counts, per-tree (level programs, per-split splits))."""
     nodes = sum(t.num_leaves for t in trees)
     renew = sum(t.num_leaves > 1 for t in trees) \
         if bst._booster.objective.is_renew_tree_output else 0
@@ -2243,14 +2298,22 @@ def expected_launches(bst, trees):
     if bagged[0] == "goss":
         skip = int(1.0 / float(bst._booster.config.learning_rate))
         rank["goss_select"] = sum(i >= skip for i in range(T // K))
+    # RF: the rows form of the bag step and the running average in place
+    # of bag_apply's hashed forms and the score add; DART: two payload
+    # walks per dropped tree (its subtraction and its normalization)
+    rf = bst._booster.config.boosting == "rf"
+    grown = sum(t.num_leaves > 1 for t in trees)
     return {"root_hist": T, "level_pass": lv, "split_pass": fb,
-            "bag_apply": T if bagged[0] != "none" else 0,
+            "bag_apply": T if bagged[0] != "none" and not rf else 0,
+            "bag_rows": T if rf else 0,
             "level_seg_hist": lv if sep else 0, "seg_hist": fb if sep else 0,
             scan: T + lv + fb,
             "consolidate": sum(has_odd_leaf(t) for t in trees),
             "grow_root": roots, "grow_pick": fb, "grow_commit": fb,
             "grow_planes": fb, "grow_assemble": fb + roots,
-            "apply_scores": sum(t.num_leaves > 1 for t in trees),
+            "apply_scores": 0 if rf else grown,
+            "apply_scores_avg": grown if rf else 0,
+            "valid_walk_payload": 2 * drops,
             "renew_leaf": renew, **rank}, stats
 
 
@@ -2357,6 +2420,140 @@ def check_renewed_leaves(bst):
                                              tree.num_leaves))
 
 
+def plain_drops(cfg, iters):
+    """The dropped iterations of each of `iters` DART iterations, drawn
+    apart from the port's code: numpy's Generator at drop_seed in
+    DroppingTrees' order (dart.hpp:97-146), the weighted drop (each tree's
+    weight its shrinkage, times k / (k + 1) when k trees are dropped with
+    it), the max_drop cap, skip_drop."""
+    if cfg.uniform_drop or cfg.xgboost_dart_mode:
+        raise AssertionError("plain_drops: the weighted drop only")
+    rng = np.random.default_rng(cfg.drop_seed)
+    weights, out = [], []
+    for it in range(iters):
+        drop = []
+        if not rng.random() < cfg.skip_drop and sum(weights) > 0:
+            total = sum(weights)
+            inv_avg = len(weights) / total
+            rate = cfg.drop_rate
+            if cfg.max_drop > 0:
+                rate = min(rate, cfg.max_drop * inv_avg / total)
+            for i in range(it):
+                if rng.random() < rate * weights[i] * inv_avg:
+                    drop.append(i)
+                    if len(drop) >= cfg.max_drop:
+                        break
+        k = len(drop)
+        for i in drop:
+            weights[i] *= k / (k + 1.0)
+        weights.append(cfg.learning_rate / (1.0 + k))
+        out.append(drop)
+    return out
+
+
+def watch_dart_rf(path, rec):
+    """Wrap the DART or RF host steps of the path in hand (None for
+    another path): DART's drop and normalize, timed with the card
+    synchronized around them, and each iteration's dropped iterations;
+    RF's host bag draw (its [n] mask's sum and ms) and its upload into the
+    bag step's buffer (ms, the card synchronized around it). Returns the
+    function that restores them."""
+    import torch
+    if path == "dart":
+        from lightgbm_torch.boosting.dart import DART
+        drop, norm = DART._dropping_trees, DART._normalize
+
+        def timed(fn, key):
+            def run(self):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn(self)
+                torch.cuda.synchronize()
+                rec.setdefault(key, []).append(
+                    (time.perf_counter() - t) * 1e3)
+                if key == "drop_ms":
+                    rec.setdefault("drops", []).append(list(self.drop_index))
+            return run
+        DART._dropping_trees = timed(drop, "drop_ms")
+        DART._normalize = timed(norm, "normalize_ms")
+
+        def undo():
+            DART._dropping_trees, DART._normalize = drop, norm
+        return undo
+    if path == "rf":
+        from lightgbm_torch.boosting.gbdt import GBDT
+        from lightgbm_torch.ops.bag import BagState
+        draw, put = GBDT._draw_bag, BagState.set
+
+        def drawn(self, it):
+            t = time.perf_counter()
+            mask = draw(self, it)
+            rec.setdefault("draw_ms", []).append(
+                (time.perf_counter() - t) * 1e3)
+            rec.setdefault("in_bag", []).append(
+                None if mask is None else int(mask.sum()))
+            return mask
+
+        def uploaded(self, b):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            put(self, b)
+            torch.cuda.synchronize()
+            if b.rows is not None:
+                rec.setdefault("upload_ms", []).append(
+                    (time.perf_counter() - t) * 1e3)
+        GBDT._draw_bag, BagState.set = drawn, uploaded
+
+        def undo():
+            GBDT._draw_bag, BagState.set = draw, put
+        return undo
+    return lambda: None
+
+
+def check_dart_rf_path(bst, path, rec):
+    """After the dart path: each iteration's dropped iterations equal the
+    plain replay's (plain_drops) and some iteration dropped trees; the
+    walks' times. After the rf path: each tree's in-bag count (its root's
+    count) equals the sum of its iteration's host mask, the masks differ,
+    the bag step's device buffer holds as many rows in the bag as the
+    last tree's root; the host draw's and the upload's times."""
+    b = bst._booster
+    if path == "dart":
+        want = plain_drops(b.config, len(rec["drops"]))
+        if rec["drops"] != want:
+            raise AssertionError("train dart: dropped iterations %s, the "
+                                 "plain replay's %s" % (rec["drops"], want))
+        if not sum(len(d) for d in want):
+            raise AssertionError("train dart: no iteration dropped a tree")
+        log("train dart: dropped iterations per iteration %s = the plain "
+            "replay of numpy's Generator at drop_seed %d; drop (subtract "
+            "walks) %s ms, normalize (walks) %s ms per iteration, the card "
+            "synchronized around each" % (
+                rec["drops"], b.config.drop_seed,
+                ["%.3f" % v for v in rec["drop_ms"]],
+                ["%.3f" % v for v in rec["normalize_ms"]]))
+        return
+    roots = [int(t.internal_count[0]) for t in b.models]
+    bags = rec["in_bag"]
+    if None in bags or roots[:len(bags)] != bags or len(set(bags)) < 2:
+        raise AssertionError("train rf: rows in the bag per tree %s, the "
+                             "host masks' sums %s" % (roots, bags))
+    # the buffer holds the mask of the model's last iteration (the run
+    # went on past the counted iterations)
+    gr = b.tree_learner._persist_gr
+    on_card = int(gr.bag.rows.sum())
+    if on_card != roots[-1]:
+        raise AssertionError("train rf: the bag step's buffer holds %d rows "
+                             "in the bag, the last tree %d"
+                             % (on_card, roots[-1]))
+    log("train rf: rows in the bag per tree %s = each iteration's host "
+        "mask's sum (bagging_fraction %g of %d rows); host draw "
+        "(rng.random(n) < fraction) %s ms, mask upload %s ms per iteration"
+        % (roots, b.config.bagging_fraction, b.train_data.num_data,
+           ["%.1f" % v for v in rec["draw_ms"]],
+           ["%.3f" % v for v in rec["upload_ms"]]))
+
+
 def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
                 keep=None):
     """Train on the card along one path, one iteration at a time (train,
@@ -2407,6 +2604,8 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
             last_tree[:] = [(grad, hess) + tuple(out)]
             return out
         SerialTreeLearner.train_arrays = recording
+    host = {}
+    unwatch = watch_dart_rf(path, host)
     reset_counts()
     torch.cuda.synchronize()
     bst = None
@@ -2426,6 +2625,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
                 kept = score.cpu().numpy()
         counts = read_counts()
     finally:
+        unwatch()
         if path == "xendcg":
             RankXENDCG._next_floats = next_floats
         if path == "knobs":
@@ -2460,7 +2660,9 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         % (path, X.shape[0], X.shape[1], len(trees), [s + 1 for s in splits]))
     log("train %s: %.3f s per iteration (%.1f s for %d iterations, learner "
         "set-up included) on %s" % (path, wall / iters, wall, iters, card))
-    want, stats = expected_launches(bst, trees)
+    K = bst._booster.num_tree_per_iteration
+    drops = sum(len(d) for d in host.get("drops", ())) * K
+    want, stats = expected_launches(bst, trees, drops)
     bad = {k: (counts[k], want.get(k, 0)) for k in counts
            if counts[k] != want.get(k, 0)}
     if bad or any(counts[k] == 0 for k in used) \
@@ -2472,7 +2674,6 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         % (path, counts, len(trees), sum(splits), "/".join(PY_COUNTED)))
     log("train %s: model digest %s (sha256 of the model text without its "
         "parameters, after %d iterations)" % (path, digest, iters))
-    K = bst._booster.num_tree_per_iteration
     if bst._booster.use_persist:
         from lightgbm_torch.ops.payload import payload_weight_row
         gr = bst._booster.tree_learner._persist_gr
@@ -2508,9 +2709,19 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         if not losses[-1] > losses[0]:
             raise AssertionError("training %s after the last iteration is "
                                  "not above the first's" % loss_name)
-    elif path == "goss":
-        # each tree fits an amplified sample at learning rate 0.5: the loss
-        # over every row need not fall at every step
+    elif path == "rf":
+        # the average of trees each fit to the constant's gradients: below
+        # the constant's loss at every iteration (logloss is convex in the
+        # raw score), not falling at every step
+        const = float(loss(y_d, torch.full_like(
+            bst._booster.train_score.score, bst._booster.init_scores[0])))
+        if not max(losses) < const:
+            raise AssertionError("training %s %s, the constant init "
+                                 "score's %.6f" % (loss_name, losses, const))
+    elif path in ("goss", "dart"):
+        # goss: each tree fits an amplified sample at learning rate 0.5;
+        # dart: the drops move the scores back: the loss over every row
+        # need not fall at every step
         if not losses[-1] < losses[0]:
             raise AssertionError("training %s after the last iteration is "
                                  "not below the first's" % loss_name)
@@ -2525,8 +2736,11 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
     gap = float(np.abs(dev_score - raw).max())
     # v1 keeps f64 scores; the payload keeps f32 scores, each iteration
     # adding one rounded f32 product to a rounded f32 sum
+    # (DART: its two walks per dropped tree add too; RF: the average takes
+    # a multiply, an add and a multiply per iteration)
+    adds = len(trees) // K + 1 + 2 * drops // K
     tol = (1e-9 if path in V1_PATHS else
-           2 * (len(trees) // K + 1) * 1.1920929e-07
+           (3 if path == "rf" else 2) * adds * 1.1920929e-07
            * max(1.0, np.abs(raw).max()))
     log("train %s: device scores vs numpy walk on the first %d rows, max abs "
         "diff %.3g (limit %.3g)" % (path, len(sub), gap, tol))
@@ -2542,6 +2756,10 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         check_renewed_leaves(bst)
     if path in BAG_PATHS:
         check_bag_path(bst, path)
+    if path in DART_RF_PATHS:
+        check_dart_rf_path(bst, path, host)
+        if keep is not None:
+            keep["host"] = host
     if path == "knobs":
         t = time.time()
         at, nleaves, sens, bounded, L = check_knob_leaves(bst, last_tree[0])
@@ -2567,7 +2785,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
             "host checks)" % (int(bst._booster.config.extra_seed), nodes,
                               ntrees, time.time() - t))
     if keep is not None and path in ("persist", "l1", "ltr", "knobs",
-                                     "airline") + BAG_PATHS:
+                                     "airline") + BAG_PATHS + DART_RF_PATHS:
         keep["iteration"] = profile_iteration(bst.update)
     if keep is not None and path == "l1":
         keep["bst"] = bst
@@ -3109,6 +3327,167 @@ def phase_bag_kernels(y):
     return [recs["bag_apply"], recs["goss_select"]]
 
 
+def phase_dart_rf_kernels(tree, inner):
+    """DART's and RF's kernel forms at the HIGGS payload (its n live lanes
+    in a random permutation of the row ids, as a grown payload holds
+    them; G groups): valid_walk_payload (a 255-leaf tree of the persist
+    path, its values times -1/3 as a drop-and-normalize step scales them,
+    walked over the training bins onto an f32 score row), bag_apply's
+    rows form (a host mask drawn at fraction 0.7; -0.0 where a negative
+    gradient meets 0) and apply_scores_avg (255 random segments over the
+    lanes, a -0.0 leaf, t = 5, the binary init score as the bias): two
+    launches bit-identical, bit-identical to the plain version on the same
+    inputs on the card. Times (median per call): the kernel, the plain
+    version on the card, and the bound: the walk reads each lane's row
+    id, its row of bins and its score and writes the score (4 + G + 8
+    bytes; ~12 integer operations per node visit), the rows bag reads the
+    row id, the row's mask byte, grad and hess and writes both (21
+    bytes), the average reads and writes the score (8 bytes). No single
+    PyTorch call computes any of them. Returns the three records
+    (launches filled in by main)."""
+    import torch
+    from lightgbm_torch.models.tree import walk_leaves_plain
+    from lightgbm_torch.ops import bag
+    from lightgbm_torch.ops import grow_step as gs
+    from lightgbm_torch.ops.valid_walk import (pack, valid_walk_payload,
+                                               valid_walk_payload_plain)
+    dev = torch.device("cuda")
+    t0 = time.time()
+    n, G = inner.binned.shape
+    pad = 4096
+    rng = np.random.default_rng(47)
+    rid = torch.zeros(n + pad, dtype=torch.int32, device=dev)
+    rid[:n] = torch.as_tensor(rng.permutation(n).astype(np.int32),
+                              device=dev)
+    bins = inner.to_device(dev).bins
+    recs = []
+    # (a) the payload walk
+    L = tree.num_leaves
+    (pd,) = pack([tree], [tree.leaf_value[:L] * (-1.0 / 3.0)], inner, dev)
+    base = torch.as_tensor(rng.normal(size=n + pad).astype(np.float32),
+                           device=dev)
+    outs = []
+    for _ in range(2):
+        sc = base.clone()
+        valid_walk_payload(bins, rid, pd.nodes, pd.leaves, sc, n, pd.words)
+        outs.append(sc)
+    ref = base.clone()
+    valid_walk_payload_plain(bins, rid, pd.nodes, pd.leaves, ref, n,
+                             pd.words)
+    _same("valid_walk_payload: two launches", outs[0], outs[1])
+    err = _same("valid_walk_payload vs plain", outs[0], ref)
+    _same("valid_walk_payload: lanes past n", outs[0][n:], base[n:])
+    depth = leaf_depths(tree)
+    visits = int(torch.as_tensor(depth, device=dev)[walk_leaves_plain(
+        bins, pd.nodes, pd.words)].sum())
+    scratch = base.clone()
+    ms = device_ms(lambda: valid_walk_payload(bins, rid, pd.nodes, pd.leaves,
+                                              scratch, n, pd.words),
+                   sleep_cycles=20_000_000)
+    plain_ms = device_ms(lambda: valid_walk_payload_plain(
+        bins, rid, pd.nodes, pd.leaves, scratch, n, pd.words), reps=3,
+        warmup=1)
+    b_ms, b_by = bound_ms(n * (4.0 + G + 8.0) + pd.nodes.numel() * 4
+                          + pd.leaves.numel() * 8, 12.0 * visits)
+    log("valid_walk_payload: a %d-leaf tree over %d lanes x %d groups "
+        "(%d node visits): two launches and the plain version on the card "
+        "bit-identical, lanes past n untouched; kernel %.4f ms, plain %.4f "
+        "ms, bound %.4f ms (%s)" % (L, n, G, visits, ms, plain_ms, b_ms,
+                                    b_by))
+    recs.append({"name": "valid_walk_payload", "route": "cuda",
+                 "source": "lightgbm_torch/csrc/valid_walk.cu",
+                 "replaces": "lightgbm_tpu/ops/grow_persist.py:1816 "
+                             "(add_score_delta of DART's drop and "
+                             "normalize, jnp; no Pallas kernel)",
+                 "launches": 0, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None, "lanes": n, "leaves": L})
+    del outs, ref, scratch
+    # (b) the rows bag
+    g = torch.as_tensor(rng.normal(size=n + pad).astype(np.float32),
+                        device=dev)
+    g[n:] = 0.0
+    g[:4] = torch.tensor([-0.0, 0.0, -1.5, 2.0])
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, n + pad).astype(np.float32),
+                        device=dev)
+    h[n:] = 0.0
+    label = torch.zeros(n + pad, dtype=torch.float32, device=dev)
+    mask = rng.random(n) < 0.7
+    mask[rid[:3].cpu().numpy()] = False
+    st = bag.BagState(dev)
+    st.set(bag.rows_iteration(0, mask))
+    outs = []
+    for plain in (False, False, True):
+        gg, hh = g.clone(), h.clone()
+        (bag.bag_apply_plain if plain else bag.bag_apply)(
+            rid, label, gg, hh, n, bag.MODE_ROWS, st)
+        outs.append((gg, hh, st.count.clone()))
+    _same("bag_apply rows: two launches", outs[0], outs[1])
+    err = _same("bag_apply rows vs plain", outs[0], outs[2])
+    if int(outs[0][2][0]) != int(mask.sum()) or not (
+            float(outs[0][0][2]) == 0.0
+            and bool(torch.signbit(outs[0][0][2]))):
+        raise AssertionError("bag_apply rows: count %d, mask sum %d, lane 2 "
+                             "%r" % (int(outs[0][2][0]), int(mask.sum()),
+                                     float(outs[0][0][2])))
+    work = (g.clone(), h.clone())
+    ms = device_ms(lambda: bag.bag_apply(rid, label, *work, n,
+                                         bag.MODE_ROWS, st))
+    plain_ms = device_ms(lambda: bag.bag_apply_plain(
+        rid, label, *work, n, bag.MODE_ROWS, st), reps=3, warmup=1)
+    b_ms, b_by = bound_ms(21.0 * n, 3.0 * n)
+    log("bag_apply rows: %d of %d lanes in the bag; two launches and the "
+        "plain version on the card bit-identical (-0.0 kept); kernel %.4f "
+        "ms, plain %.4f ms, bound %.4f ms (%s, 21 bytes a lane)"
+        % (int(mask.sum()), n, ms, plain_ms, b_ms, b_by))
+    recs.append({"name": "bag_rows", "route": "cuda",
+                 "source": "lightgbm_torch/csrc/bag.cu",
+                 "replaces": "lightgbm_tpu/ops/grow_persist.py:1828 "
+                             "(apply_row_weights of the fused RF driver, "
+                             "jnp; no Pallas kernel)",
+                 "launches": 0, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None, "lanes": n})
+    del outs, work, g, h, label
+    # (c) the running average
+    S = gs.GrowState(255, dev)
+    cuts = np.sort(rng.choice(np.arange(1, n), 254, replace=False))
+    starts = np.concatenate([[0], cuts])
+    vals = rng.normal(size=255).astype(np.float32)
+    vals[7] = -0.0
+    S.li[:, gs.LI_START] = torch.as_tensor(starts, device=dev)
+    S.li[:, gs.LI_NROWS] = torch.as_tensor(
+        np.concatenate([cuts, [n]]) - starts, device=dev)
+    S.lf[:, gs.LF_VALUE] = torch.as_tensor(vals, device=dev)
+    S.st[gs.ST_S] = 255
+    gs.set_avg(S, 5.0, -0.37086)
+    outs = []
+    for plain in (False, False, True):
+        sc = base.clone()
+        (gs.apply_avg_plain if plain else gs.apply_scores_avg)(S, sc[:n])
+        outs.append(sc)
+    _same("apply_scores_avg: two launches", outs[0], outs[1])
+    err = _same("apply_scores_avg vs plain", outs[0], outs[2])
+    scratch = base.clone()
+    ms = device_ms(lambda: gs.apply_scores_avg(S, scratch[:n]))
+    plain_ms = device_ms(lambda: gs.apply_avg_plain(S, scratch[:n]),
+                         reps=3, warmup=1)
+    b_ms, b_by = bound_ms(8.0 * n, 4.0 * n)
+    log("apply_scores_avg: 255 leaves over %d lanes, t = 5: two launches and "
+        "the plain version on the card bit-identical; kernel %.4f ms, plain "
+        "%.4f ms, bound %.4f ms (%s)" % (n, ms, plain_ms, b_ms, b_by))
+    recs.append({"name": "apply_scores_avg", "route": "cuda",
+                 "source": "lightgbm_torch/csrc/grow_step.cu",
+                 "replaces": "lightgbm_tpu/ops/grow_persist.py:1775 "
+                             "(apply_scores_avg of the fused RF driver, "
+                             "jnp; no Pallas kernel)",
+                 "launches": 0, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None, "lanes": n})
+    log("dart/rf kernels: %.1f s" % (time.time() - t0))
+    return recs
+
+
 def check_bag_path(bst, path):
     """After the bagging or goss path: the in-bag count of each tree (its
     root's count) against the plain count of its window (bagging: rows
@@ -3434,7 +3813,7 @@ PROFILED = {
 }
 PROFILED["multiclass"] = PROFILED["regression"] = PROFILED["l1"] = \
     PROFILED["ltr"] = PROFILED["bagging"] = PROFILED["goss"] = \
-    PROFILED["persist"]
+    PROFILED["dart"] = PROFILED["rf"] = PROFILED["persist"]
 PROFILED["xendcg"] = PROFILED["knobs"] = PROFILED["airline"] = \
     PROFILED["airline onehot"] = PROFILED["v1"]
 # the kernels of the port's own sources (csrc/); every other kernel in a
@@ -3761,7 +4140,23 @@ PARITY = (
                               "bagging_freq": 2}, ("persist",)),
         ("goss", {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
                   "learning_rate": 0.5}, ("persist", "v1")))
-    for route in routes)
+    for route in routes) + tuple(
+    # DART (drop_rate 0.3: drops from iteration 3) and RF (the rf path's
+    # bag) on both growers on --bag-parity-rows HIGGS rows, and DART on the
+    # bundled Expo rows, 31 leaves, 8 iterations
+    ("%s %s" % (name, route), data,
+     dict(extra, num_leaves=31, iters=8,
+          tpu_persist_scan="force" if route in ("persist", "bundled")
+          else "false"),
+     (route != "v1", False, route == "bundled"))
+    for name, extra, routes in (
+        ("dart", {"boosting": "dart", "drop_rate": 0.3},
+         (("persist", "higgs-bag"), ("v1", "higgs-bag"),
+          ("bundled", "expo"))),
+        ("rf", {"boosting": "rf", "bagging_fraction": 0.7,
+                "bagging_freq": 1},
+         (("persist", "higgs-bag"), ("v1", "higgs-bag"))))
+    for route, data in routes)
 # the paths trained `--deep-parity-iters` iterations (ROADMAP C7: the
 # binary persist and v1 paths and softmax on its three routes; the knob
 # and custom-objective paths)
@@ -3816,9 +4211,9 @@ def phase_parity(lgb, data, iters, mc_iters, deep_iters):
             if bst._booster.use_persist != persist:
                 raise AssertionError("parity %s: wrong grower on %s"
                                      % (path, dev))
-            if level:
+            if level or blocks:
                 gr = bst._booster.tree_learner._persist_gr
-                if not sum(a for a, _ in gr.grow_stats) or \
+                if level and not sum(a for a, _ in gr.grow_stats) or \
                         (gr.blocks is not None) != blocks:
                     raise AssertionError("parity %s: the level phase or the "
                                          "block scan did not run on %s"
@@ -4398,7 +4793,7 @@ def main() -> int:
     # the recorded digests hold at the default sizes
     FULL_SIZE["on"] = all(getattr(args, k) == ap.get_default(k) for k in (
         "rows", "iters", "v1_iters", "level_iters", "mc_iters", "reg_iters",
-        "l1_iters", "expo_rows"))
+        "l1_iters", "expo_rows", "bag_iters"))
 
     import torch
     if not torch.cuda.is_available():
@@ -4445,6 +4840,7 @@ def main() -> int:
             ._booster.models[0]
         vinner = lgb.Dataset(Xv, yv, reference=ds).construct()._inner
     kernels.append(phase_valid_walk("HIGGS", tree, inner, vinner, 1))
+    kernels += phase_dart_rf_kernels(tree, inner)
     del Xv, yv, tree, vinner
     if not args.skip_train:
         runs["v1"] = phase_train(lgb, X, y, ds, args.v1_iters, card,
@@ -4482,6 +4878,26 @@ def main() -> int:
             bag_rec.update({path + "_wall_ms": wall, path + "_busy_ms": busy,
                             "persist_wall_ms": wall0,
                             "persist_busy_ms": busy0})
+        # DART and RF on the per-split graph
+        for path in DART_RF_PATHS:
+            keep_d = {}
+            runs[path] = phase_train(lgb, X, y, ds, DART_RF_ITERS, card,
+                                     args.profile, path, keep=keep_d)
+            wall, busy = keep_d["iteration"][:2]
+            log("train %s: one more iteration %.1f ms wall, %.1f ms busy, "
+                "idle %.3f; the persist path's %.1f / %.1f / %.3f (%s)"
+                % (path, wall, busy, 1 - busy / wall, wall0, busy0,
+                   1 - busy0 / wall0, card))
+            rec = next(k for k in kernels if k["name"] == (
+                "valid_walk_payload" if path == "dart" else "bag_rows"))
+            rec.update({path + "_wall_ms": wall, path + "_busy_ms": busy,
+                        "persist_wall_ms": wall0, "persist_busy_ms": busy0})
+            h = keep_d["host"]
+            if path == "dart":
+                rec.update(drops=h["drops"], drop_ms=h["drop_ms"],
+                           normalize_ms=h["normalize_ms"])
+            else:
+                rec.update(draw_ms=h["draw_ms"], upload_ms=h["upload_ms"])
         # the same bins with multiclass labels, then with an L2 target
         y5 = quantile_classes(latent, 5)
         ds.set_label(y5)
@@ -4621,7 +5037,8 @@ def main() -> int:
                   "valid_walk": "valid", "renew_leaf": "l1",
                   "lambdarank_grad": "ltr", "xendcg_grad": "xendcg",
                   "cat_scan": "airline", "bag_apply": "bagging",
-                  "goss_select": "goss"}
+                  "goss_select": "goss", "valid_walk_payload": "dart",
+                  "bag_rows": "rf", "apply_scores_avg": "rf"}
         for rec in kernels:
             run = runs[serves.get(rec["name"], "persist")]
             if rec["name"] == "grow_step":

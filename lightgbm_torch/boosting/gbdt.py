@@ -59,9 +59,16 @@ So the same run can bag differently in the two packages where the JAX
 package picks its per-iteration path and the port its persistent grower
 (a validation set, fewer than 16 rounds: ROADMAP.md C9).
 
+DART (boosting/dart.py) and RF (boosting/rf.py) override the hooks below:
+the stop rule (:meth:`GBDT._fast_path`), the route of a score delta
+between iterations (:meth:`GBDT._add_score_delta`: the payload when the
+persistent grower holds the scores, the f64 ScoreUpdater otherwise) and
+``average_output`` (RF's model text and prediction divide by the number of
+iterations). ``sub_model_name`` is the model text's first line.
+
 Not in this slice (ROADMAP.md queue A): the K-iteration fused scan, which
 the JAX package runs in batches of 16 iterations on its persistent path (a
-CUDA graph per iteration in the port, item 15), DART and RF (item 7).
+CUDA graph per iteration in the port, item 15).
 """
 from __future__ import annotations
 
@@ -87,6 +94,11 @@ K_MODEL_VERSION = "v3"
 class GBDT:
     """Gradient Boosting Decision Tree driver (gbdt.h), K trees per
     iteration."""
+
+    # the model text's first line (the JAX package's gbdt.py:1229)
+    sub_model_name = "tree"
+    # RF: the model's output is the mean of its iterations' trees
+    average_output = False
 
     def __init__(self):
         self.config: Optional[Config] = None
@@ -275,12 +287,20 @@ class GBDT:
         (or after a reset), u < bagging_fraction (balanced: the fraction of
         the row's label sign) from the numpy Generator; one row when the bag
         would be empty. `grad`/`hess` ([K, n]) are GOSS's."""
+        mask = self._draw_bag(it)
+        if mask is not None:
+            self._bag_mask = torch.as_tensor(mask, device=self.device)
+            self._bag_weight = None
+
+    def _draw_bag(self, it: int):
+        """The host draw of :meth:`bagging`: the new [n] bool numpy mask,
+        or None when iteration `it` keeps the last one."""
         cfg = self.config
         do_bag = (self.bag_data_cnt < self.train_data.num_data
                   or self.balanced_bagging)
         if not ((do_bag and cfg.bagging_freq > 0
                  and it % cfg.bagging_freq == 0) or self.need_re_bagging):
-            return
+            return None
         self.need_re_bagging = False
         n = self.train_data.num_data
         u = self._bagging_rng.random(n)
@@ -295,8 +315,7 @@ class GBDT:
             mask[self._bagging_rng.integers(n)] = True
             self.bag_data_cnt = 1
         Log.debug("Re-bagging, using %d data to train" % self.bag_data_cnt)
-        self._bag_mask = torch.as_tensor(mask, device=self.device)
-        self._bag_weight = None
+        return mask
 
     def bag_spec(self):
         """The persistent grower's bag step (the JAX package's
@@ -366,14 +385,15 @@ class GBDT:
             out.append(arrays)
         return out
 
-    def _renew_v1(self, arrays, row_leaf, class_id: int):
+    def _renew_v1(self, arrays, row_leaf, class_id: int, score=None):
         """The v1 tree's leaf outputs re-fit from its in-bag rows (the JAX
         package's _renew_tree_output, gbdt.py:747-766): the rows grouped
         by leaf through the row -> leaf map (out-of-bag rows under a key
         past the last leaf, outside every segment), the f64 training
-        scores before the tree's update, one renew_leaf launch; the
-        renewed f64 values are read back once and replace the grower's f32
-        leaf values. A leaf without in-bag rows keeps its value."""
+        scores before the tree's update (`score`, an [n] f64 row, in their
+        place: RF's constant), one renew_leaf launch; the renewed f64
+        values are read back once and replace the grower's f32 leaf
+        values. A leaf without in-bag rows keeps its value."""
         L = arrays.num_leaves
         key = row_leaf.to(torch.int64)
         if self._bag_mask is not None:
@@ -383,13 +403,29 @@ class GBDT:
         seg = torch.stack([torch.cumsum(count, 0) - count, count], 1)
         value = torch.as_tensor(
             np.asarray(arrays.leaf_value[:L], np.float64), device=key.device)
-        score = self.train_score.score
-        self.objective.renew_tree_output(
-            score if self.num_tree_per_iteration == 1 else score[class_id],
-            key, seg, value)
+        if score is None:
+            score = self.train_score.score
+            if self.num_tree_per_iteration > 1:
+                score = score[class_id]
+        self.objective.renew_tree_output(score, key, seg, value)
         leaf_value = np.asarray(arrays.leaf_value, np.float64).copy()
         leaf_value[:L] = value.cpu().numpy()
         return arrays._replace(leaf_value=leaf_value)
+
+    def _add_score_delta(self, packed, class_id: int) -> None:
+        """Training score row `class_id` += a packed tree's leaf value of
+        each row (ops/valid_walk.py:pack), where the scores live (the JAX
+        package's DART._add_score_delta, dart.py:51-62): on the persistent
+        grower's payload once it holds them (the f64 leaf value rounded to
+        f32, one f32 add per lane), else on the f64 ScoreUpdater (one f64
+        add per row)."""
+        learner = self.tree_learner
+        if self.use_persist and learner._persist_carry is not None:
+            learner.persist_add_tree(packed, class_id)
+            self.train_score.defer_to(learner.persist_finalize_scores)
+        else:
+            self.train_score.add_tree_walk(packed, class_id,
+                                           learner.data.bins)
 
     def _add_const(self, val: float, class_id: int) -> None:
         """score row `class_id` += val, in the payload when it owns the
@@ -508,13 +544,16 @@ class GBDT:
     def predict_raw(self, X: np.ndarray, start_iteration=0,
                     num_iteration=-1) -> np.ndarray:
         """Raw scores (PredictRaw) by the numpy walk: [N] for one tree per
-        iteration, else [N, K] (tree i adds to class i % K)."""
+        iteration, else [N, K] (tree i adds to class i % K); an averaged
+        model divides by its number of iterations (gbdt.py:1146-1148)."""
         X = np.ascontiguousarray(X, dtype=np.float64)
         K = self.num_tree_per_iteration
         out = np.zeros((X.shape[0], K))
-        for i, tree in enumerate(self._used_models(start_iteration,
-                                                   num_iteration)):
+        models = self._used_models(start_iteration, num_iteration)
+        for i, tree in enumerate(models):
             out[:, i % K] += tree.predict(X)
+        if self.average_output:
+            out /= max(len(models) // K, 1)
         return out[:, 0] if K == 1 else out
 
     def predict(self, X: np.ndarray, raw_score=False, start_iteration=0,
@@ -537,7 +576,7 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def save_model_to_string(self, start_iteration=0, num_iteration=-1) -> str:
-        buf = ["tree",
+        buf = [self.sub_model_name,
                "version=%s" % K_MODEL_VERSION,
                "num_class=%d" % self.num_class,
                "num_tree_per_iteration=%d" % self.num_tree_per_iteration,
@@ -545,6 +584,8 @@ class GBDT:
                "max_feature_idx=%d" % self.max_feature_idx]
         if self.objective is not None:
             buf.append("objective=%s" % self.objective.to_string())
+        if self.average_output:
+            buf.append("average_output")
         buf.append("feature_names=%s" % " ".join(self.feature_names))
         if self.monotone_constraints:
             buf.append("monotone_constraints=%s" % " ".join(
@@ -590,9 +631,7 @@ class GBDT:
         self.num_class = int(kv["num_class"])
         self.num_tree_per_iteration = int(
             kv.get("num_tree_per_iteration", self.num_class))
-        if "average_output" in kv:
-            Log.fatal("averaged models (random forest) are not ported yet "
-                      "(ROADMAP.md queue A, item 7: other boosting modes)")
+        self.average_output = "average_output" in kv
         self.label_idx = int(kv.get("label_index", 0))
         self.max_feature_idx = int(kv.get("max_feature_idx", 0))
         self.feature_names = kv.get("feature_names", "").split()

@@ -32,6 +32,8 @@ from .gbdt import GBDT
 
 class GOSS(GBDT):
 
+    sub_model_name = "goss"
+
     def init(self, config, train_data, objective, device) -> None:
         super().init(config, train_data, objective, device)
         if config.bagging_freq > 0 and config.bagging_fraction != 1.0:

@@ -76,6 +76,19 @@ class ScoreUpdater:
                              device=row.device)
         row.add_(lv[row_leaf.long()] * shrink)
 
+    def add_tree_walk(self, packed, class_id: int, bins) -> None:
+        """score[class_id] += the leaf value of each row under a packed
+        tree (ops/valid_walk.py:pack), walked over the training rows'
+        [n, G] uint8 bins `bins`: one f64 add per row, the JAX package's
+        add_score_np of a predict_binned delta (DART's drop and
+        normalize)."""
+        valid_walk(bins, packed.nodes, packed.leaves, self._row(class_id),
+                   packed.words)
+
+    def multiply_score(self, val: float, class_id: int = 0) -> None:
+        """score[class_id] *= val (RF's running average)."""
+        self._row(class_id).mul_(val)
+
 
 class ValidScoreUpdater:
     """The scores of one validation set: a [K, n] float64 tensor on the
@@ -115,3 +128,7 @@ class ValidScoreUpdater:
         packed tree (ops/valid_walk.py:pack)."""
         valid_walk(self.bins, packed.nodes, packed.leaves,
                    self._score[class_id], packed.words)
+
+    def multiply_score(self, val: float, class_id: int = 0) -> None:
+        """score[class_id] *= val (RF's running average)."""
+        self._score[class_id].mul_(val)

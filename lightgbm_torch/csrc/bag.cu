@@ -18,6 +18,9 @@
 //   GOSS:      1 where |g * h| >= the threshold goss_select wrote, else
 //              amp where u < p_rest, else 0; every lane 1 (nothing to
 //              do) while the iteration is below the skip count.
+//   rows:      mask[rid] (RF's host-drawn bag, an [N] uint8 mask uploaded
+//              before the iteration: the JAX package's apply_row_weights,
+//              grow_persist.py:1828-1843);
 // grad and hess are multiplied by w in place, in f32 (a multiply, so a
 // negative gradient times 0 is -0.0, as JAX's g * w), and the count of
 // lanes with w > 0 goes to `count`: per-block integer sums, added with one
@@ -45,8 +48,8 @@
 //                      prefix and remaining rank, its 256-bin histogram
 //
 // What bounds them on an H100: bytes. bag_apply reads the row-id, grad
-// and hess rows (and the label row when balanced) and writes grad and
-// hess: 20-24 bytes a lane. goss_select reads grad and hess once per pass
+// and hess rows (and the label row when balanced, a gathered mask byte in
+// the rows mode) and writes grad and hess: 20-24 bytes a lane. goss_select reads grad and hess once per pass
 // (four passes; the bound counts one). Each kernel's first thread adds one
 // to its device counter when the launch does its work (goss_select: when
 // it selects, not while the iteration is below the skip count).
@@ -57,7 +60,7 @@ enum { BI_KEY0 = 0, BI_KEY1, BI_IT, BI_SKIP, BI_TOPK, BAG_NI = 5 };
 enum { BF_FRAC = 0, BF_POS, BF_NEG, BF_PREST, BF_AMP, BAG_NF = 5 };
 enum { SEL_THR = 0, SEL_KEEP, SEL_PREFIX, SEL_KREM, SEL_HIST,
        SEL_LEN = SEL_HIST + 256 };
-enum { MODE_FRACTION = 0, MODE_BALANCED = 1, MODE_GOSS = 2 };
+enum { MODE_FRACTION = 0, MODE_BALANCED = 1, MODE_GOSS = 2, MODE_ROWS = 3 };
 #define BAG_THREADS 256
 #define BAG_WARPS (BAG_THREADS / 32)
 
@@ -77,7 +80,8 @@ bag_apply(const int* __restrict__ rid, const float* __restrict__ label,
           float* __restrict__ g, float* __restrict__ h, long long n,
           int mode, const long long* __restrict__ ints,
           const float* __restrict__ flts, const long long* __restrict__ sel,
-          unsigned long long* count, long long* counter) {
+          const uint8_t* __restrict__ rows, unsigned long long* count,
+          long long* counter) {
   __shared__ unsigned int warp_cnt[BAG_WARPS];
   if (blockIdx.x == 0 && threadIdx.x == 0 && counter != nullptr)
     *counter += 1;
@@ -96,10 +100,13 @@ bag_apply(const int* __restrict__ rid, const float* __restrict__ label,
   const long long stride = (long long)gridDim.x * BAG_THREADS;
   for (long long i = (long long)blockIdx.x * BAG_THREADS + threadIdx.x;
        i < n; i += stride) {
-    const float u = bag_uniform((uint32_t)rid[i], k0, k1);
+    const int r = rid[i];
+    const float u = mode == MODE_ROWS ? 0.f : bag_uniform((uint32_t)r, k0, k1);
     const float gi = g[i], hi = h[i];
     float w;
-    if (mode == MODE_GOSS) {
+    if (mode == MODE_ROWS) {
+      w = __ldg(rows + r) != 0 ? 1.f : 0.f;
+    } else if (mode == MODE_GOSS) {
       const float s = fabsf(gi * hi);
       w = s >= thr ? 1.f : (u < p_rest ? amp : 0.f);
     } else if (mode == MODE_BALANCED) {
@@ -227,12 +234,13 @@ static int bag_grid(long long n) {
 
 // The launchers queue their kernels on `stream` and return the CUDA error
 // of the launches, 0 on success. counter may be NULL; label is read only
-// in the balanced mode, sel only in the GOSS mode.
+// in the balanced mode, sel only in the GOSS mode, rows only in the rows
+// mode.
 extern "C" int bag_apply_launch(const void* rid, const void* label, void* g,
                                 void* h, long long n, int mode,
                                 const void* ints, const void* flts,
-                                const void* sel, void* count, void* counter,
-                                void* stream) {
+                                const void* sel, const void* rows,
+                                void* count, void* counter, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(count, 0, sizeof(long long), s);
   if (err != cudaSuccess) return (int)err;
@@ -240,7 +248,7 @@ extern "C" int bag_apply_launch(const void* rid, const void* label, void* g,
       static_cast<const int*>(rid), static_cast<const float*>(label),
       static_cast<float*>(g), static_cast<float*>(h), n, mode,
       static_cast<const long long*>(ints), static_cast<const float*>(flts),
-      static_cast<const long long*>(sel),
+      static_cast<const long long*>(sel), static_cast<const uint8_t*>(rows),
       static_cast<unsigned long long*>(count),
       static_cast<long long*>(counter));
   return (int)cudaGetLastError();

@@ -406,6 +406,36 @@ __global__ void gs_apply(GsState S, float* __restrict__ score,
   if (blockIdx.x == 0 && threadIdx.x == 0) gs_count(counter);
 }
 
+// RF's running average (the JAX package's apply_scores_avg, grow_persist.
+// py:1775-1805, jnp; no Pallas kernel): on every lane of each of the
+// tree's s leaves (none when s <= 1: a tree of one leaf leaves the average
+// as it is), score = (score * t + v) * inv with v = value + bias when the
+// bias flag is set (else the value, so a -0.0 leaf keeps its sign), each
+// operation rounded on its own (__fmul_rn / __fadd_rn: no contraction into
+// a fused multiply-add). avg [4] f32 in device memory: t, 1 / (t + 1), the
+// bias, its flag, written by the host before each iteration. The same
+// grid as gs_apply.
+__global__ void gs_apply_avg(GsState S, float* __restrict__ score,
+                             const float* __restrict__ avg,
+                             long long* counter) {
+  const long long s = S.st[ST_S];
+  if (s <= 1) return;
+  const float t = avg[0], inv = avg[1], bias = avg[2];
+  const bool use_bias = avg[3] != 0.f;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long q = 0; q < s; ++q) {
+    const long long start = S.li[q * GS_LI + LI_START];
+    const long long nr = S.li[q * GS_LI + LI_NROWS];
+    float v = S.lf[q * GS_LF + LF_VALUE];
+    if (use_bias) v = __fadd_rn(v, bias);
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < nr; i += stride)
+      score[start + i] =
+          __fmul_rn(__fadd_rn(__fmul_rn(score[start + i], t), v), inv);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) gs_count(counter);
+}
+
 static int gs_sms() {
   static int sms = 0;
   if (sms == 0) {
@@ -506,6 +536,19 @@ extern "C" int gs_apply_launch(GS_ARGS, void* score, const void* shrink,
   gs_apply<<<grid, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       GS_STATE, static_cast<float*>(score),
       static_cast<const float*>(shrink), static_cast<long long*>(counter));
+  return gs_err();
+}
+
+// RF's running average: the same grid as gs_apply_launch.
+extern "C" int gs_apply_avg_launch(GS_ARGS, void* score, const void* avg,
+                                   long long n, void* counter,
+                                   void* stream) {
+  const long long want = (n + 255) / 256;
+  const int grid = (int)(want < 4LL * gs_sms() ? (want < 1 ? 1 : want)
+                                                : 4LL * gs_sms());
+  gs_apply_avg<<<grid, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      GS_STATE, static_cast<float*>(score), static_cast<const float*>(avg),
+      static_cast<long long*>(counter));
   return gs_err();
 }
 

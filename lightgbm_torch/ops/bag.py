@@ -17,6 +17,13 @@ inside the per-iteration graph:
     "keep every row" while the iteration is below ``int(1 /
     learning_rate)`` (``make_goss_weight_fn:540-566``).
 
+RF's bag (``MODE_ROWS``, the JAX package's ``apply_row_weights``,
+grow_persist.py:1828-1843) is the host's numpy draw (boosting/gbdt.py:
+GBDT.bagging), uploaded as an [n] uint8 mask into a buffer of the
+:class:`BagState` at a fixed address before the iteration: bag_apply
+weighs each live lane by its row's mask, ``w = mask[rid]``, and counts the
+lanes with ``w > 0`` (device counter slot ``bag_rows``).
+
 Their inputs that change between iterations (the window key, the
 iteration, the skip count, the fractions) are device scalars of a
 :class:`BagState`, written by the host before each iteration, so one
@@ -52,7 +59,7 @@ BF_FRAC, BF_POS, BF_NEG, BF_PREST, BF_AMP = range(5)
 BAG_NF = 5
 SEL_THR, SEL_KEEP, SEL_PREFIX, SEL_KREM, SEL_HIST = range(5)
 SEL_LEN = SEL_HIST + 256
-MODE_FRACTION, MODE_BALANCED, MODE_GOSS = 0, 1, 2
+MODE_FRACTION, MODE_BALANCED, MODE_GOSS, MODE_ROWS = 0, 1, 2, 3
 
 F32 = np.float32
 _M32 = 0xFFFFFFFF
@@ -71,6 +78,8 @@ class BagIteration(NamedTuple):
     neg: float
     p_rest: float       # GOSS: keep probability of the rest
     amp: float          # GOSS: their weight
+    rows: np.ndarray = None     # MODE_ROWS: a new [n] bool mask, or None
+                                # to keep the one uploaded last
 
     def ints(self):
         return (int(self.key[0]), int(self.key[1]), int(self.it),
@@ -100,6 +109,13 @@ def window_key(seed: int, window: int) -> tuple:
     return int(k[0]), int(k[1])
 
 
+def rows_iteration(it: int, mask) -> BagIteration:
+    """RF's bag step of iteration `it`: the host's [n] bool mask (None:
+    the last one uploaded stays)."""
+    return BagIteration(MODE_ROWS, (0, 0), it, 0, 0, 1.0, 1.0, 1.0, 1.0,
+                        1.0, mask)
+
+
 def bag_iteration(spec, seed: int, freq: int, it: int, n: int,
                   skip: int = 0) -> BagIteration:
     """The bag step of iteration `it` for a bag spec of the boosting driver
@@ -121,19 +137,33 @@ class BagState:
     """The bag step's device scalars and outputs on one device: ``ints``
     [BAG_NI] int64, ``flts`` [BAG_NF] f32 (written before an iteration by
     :meth:`set`), ``sel`` [SEL_LEN] int64 (goss_select's threshold bits,
-    keep flag and scratch) and ``count`` [1] int64 (bag_apply's in-bag
-    count)."""
+    keep flag and scratch), ``count`` [1] int64 (bag_apply's in-bag
+    count) and, from the first MODE_ROWS iteration, ``rows`` [n] uint8
+    (the host's mask, at a fixed address)."""
 
     def __init__(self, device):
         self.ints = torch.zeros(BAG_NI, dtype=torch.int64, device=device)
         self.flts = torch.zeros(BAG_NF, dtype=torch.float32, device=device)
         self.sel = torch.zeros(SEL_LEN, dtype=torch.int64, device=device)
         self.count = torch.zeros(1, dtype=torch.int64, device=device)
+        self.rows = None
         self._host = None
 
     def set(self, b: BagIteration) -> None:
         """The iteration's scalars into device memory: a fill per value
-        that changed since the last call (queued on the card, no copy)."""
+        that changed since the last call (queued on the card, no copy);
+        a new MODE_ROWS mask is copied into ``rows`` (one host-to-device
+        copy)."""
+        if b.rows is not None:
+            mask = torch.from_numpy(np.ascontiguousarray(b.rows, np.bool_)
+                                    .view(np.uint8))
+            if self.rows is None:
+                self.rows = torch.empty(mask.shape[0], dtype=torch.uint8,
+                                        device=self.ints.device)
+            if self.rows.shape != mask.shape:
+                raise LightGBMError("bag: a mask of %d rows for a bag of %d"
+                                    % (mask.shape[0], self.rows.shape[0]))
+            self.rows.copy_(mask)
         vals = b.ints() + b.flts()
         old = self._host or (None,) * len(vals)
         for j, (v, o) in enumerate(zip(vals, old)):
@@ -188,6 +218,14 @@ def goss_select_plain(g, h, n: int, state: BagState) -> None:
 
 def bag_apply_plain(rid, label, g, h, n: int, mode: int,
                     state: BagState) -> None:
+    if mode == MODE_ROWS:
+        counters.bump(g.device, "bag_rows")
+        w = state.rows.index_select(0, rid[:n].to(torch.int64)) \
+            .to(torch.float32)
+        g[:n].mul_(w)
+        h[:n].mul_(w)
+        state.count[0] = int((w > 0).sum())
+        return
     counters.bump(g.device, "bag_apply")
     if mode == MODE_GOSS and int(state.sel[SEL_KEEP]):
         state.count[0] = n
@@ -228,8 +266,9 @@ def _check(name, rows, n, state: BagState):
         if t.dim() != 1 or not t.is_contiguous() or t.shape[0] < n:
             raise LightGBMError("%s: every row must be a contiguous 1-D "
                                 "tensor of at least %d lanes" % (name, n))
-    if any(t.device != dev for t in rows + (state.ints, state.flts,
-                                            state.sel, state.count)):
+    own = (state.ints, state.flts, state.sel, state.count) + (
+        () if state.rows is None else (state.rows,))
+    if any(t.device != dev for t in rows + own):
         raise LightGBMError("%s: operands on different devices" % name)
     if dev.type not in ("cpu", "cuda"):
         raise LightGBMError("%s: no kernel for device %s" % (name, dev))
@@ -264,23 +303,28 @@ def bag_apply(rid: torch.Tensor, label: torch.Tensor, g: torch.Tensor,
     """Weigh the n live lanes: `rid` the payload's int32 row-id row,
     `label` its f32 label row (read in the balanced mode), `g`/`h` its f32
     grad and hess rows, multiplied in place; the in-bag count into
-    ``state.count``. GOSS reads the threshold goss_select wrote."""
+    ``state.count``. GOSS reads the threshold goss_select wrote, MODE_ROWS
+    the mask ``state.rows`` (a lane's weight is its row's mask)."""
     if rid.dtype != torch.int32 or any(t.dtype != torch.float32
                                        for t in (label, g, h)):
         raise LightGBMError("bag_apply: rid must be int32, label/g/h f32")
-    if mode not in (MODE_FRACTION, MODE_BALANCED, MODE_GOSS):
+    if mode not in (MODE_FRACTION, MODE_BALANCED, MODE_GOSS, MODE_ROWS):
         raise LightGBMError("bag_apply: unknown mode %r" % (mode,))
+    if mode == MODE_ROWS and state.rows is None:
+        raise LightGBMError("bag_apply: MODE_ROWS without a mask")
     if not _check("bag_apply", (rid, label, g, h), n, state):
         return bag_apply_plain(rid, label, g, h, n, mode, state)
     from .build import load
     fn = load("bag").bag_apply_launch
     P = ctypes.c_void_p
     fn.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_int, P, P, P, P,
-                   P, P]
+                   P, P, P]
     fn.restype = ctypes.c_int
+    slot = "bag_rows" if mode == MODE_ROWS else "bag_apply"
     err = fn(_ptr(rid), _ptr(label), _ptr(g), _ptr(h), int(n), int(mode),
              _ptr(state.ints), _ptr(state.flts), _ptr(state.sel),
-             _ptr(state.count), counters.ptr(g.device, "bag_apply"),
+             _ptr(state.rows), _ptr(state.count),
+             counters.ptr(g.device, slot),
              P(torch.cuda.current_stream(g.device).cuda_stream))
     if err != 0:
         raise LightGBMError("bag_apply launch failed: CUDA error %d" % err)

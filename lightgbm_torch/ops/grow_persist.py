@@ -105,7 +105,22 @@ geometry, but the statistics follow the JAX grower's ``stat_from_scan``
 (:706-712): the root's count is the bag step's count, and a split's
 children take the candidate's hessian-derived counts instead of n_left
 (grow_step's ``bagged`` flag; the level phase likewise on the host). With
-K classes every class tree uses the same key, one bag per iteration. Not
+K classes every class tree uses the same key, one bag per iteration.
+
+DART (boosting/dart.py) moves the scores between iterations:
+:meth:`PersistGrower.add_tree` walks a dropped or renormalized tree over
+the training rows of the live lanes onto the score row (ops/valid_walk.py:
+valid_walk_payload, the JAX package's add_score_delta, :1816-1826), in
+place, so the next replay's gradient fill reads the new scores; the graph
+does not change.
+
+RF (boosting/rf.py; make_scan_driver's "rf" mode, the JAX package's
+serial.py:610): with ``rf`` set an iteration fills the gradients from the
+constant init score instead of the score row (:meth:`fill_grad_const`,
+:1941-1955), bags with the host's mask (ops/bag.py's MODE_ROWS,
+apply_row_weights :1828-1843) and ends the tree with the running average
+(grow_step.apply_scores_avg, apply_scores_avg :1775-1805); t, 1 / (t + 1),
+the bias and the mask are written before the body or the replay. Not
 ported here: sharding, voting, quantization and the health vector.
 """
 from __future__ import annotations
@@ -121,6 +136,7 @@ from .bag import MODE_GOSS, BagIteration, BagState, bag_apply, goss_select
 from .block_scan import BlockScanLayout, scan_blocks
 from .grow import TreeArrays, _empty_arrays, assemble, scan_children
 from .payload import PersistAssets, payload_weight_row
+from .valid_walk import valid_walk_payload
 from .payload_kernels import (HIST_W, N_SCALARS, S_DB, S_DL, S_LE, S_LS,
                               S_MASK, S_MF, S_MT, S_NB, S_NCH, S_NL, S_S0,
                               S_SH, S_SMALL_L, S_THR, S_WG,
@@ -289,6 +305,10 @@ class PersistGrower:
         # [n + 1] int32 segment marks, [n] int32 segment keys), allocated
         # at their first use (an eager iteration), then at fixed addresses
         self._rows = None
+        # RF: the [n] f32 constant score of its gradient fill (None: not
+        # an RF iteration), allocated with the first one
+        self._rf_bias = None
+        self._const = None
 
     # ---- payload <-> row order ---------------------------------------------
     def _f32_row(self, pay, r):
@@ -324,6 +344,17 @@ class PersistGrower:
         constant tree of a class with nothing to train."""
         self._f32_row(pay, self.score_row + cls)[:self.n] += val
 
+    def add_tree(self, pay, bins, packed, cls: int = 0) -> None:
+        """score row `cls` += f32(the leaf value of each live lane's row)
+        under a packed tree (ops/valid_walk.py:pack), walked over `bins`
+        (the training rows' [n, G] uint8 bins) through the row-id row, in
+        place: DART's drop and normalize (the JAX package's
+        add_score_delta)."""
+        valid_walk_payload(bins, pay[self.nbw + 1], packed.nodes,
+                           packed.leaves,
+                           self._f32_row(pay, self.score_row + cls), self.n,
+                           packed.words)
+
     def snapshot_scores(self, pay) -> None:
         """The K score rows into the snapshot rows (in place; grow_persist.
         py:1927): every class tree of an iteration reads the scores as
@@ -349,6 +380,31 @@ class PersistGrower:
         label = self._f32_row(pay, self.nbw)[:self.n]
         self._write_grads(pay, *payload_grad_fn_multi(
             self._scores(pay, self.snap_row), label, cls))
+
+    def fill_grad_const(self, pay, payload_grad_fn) -> None:
+        """RF's gradient fill (grow_persist.py:1941-1955): the objective's
+        payload gradient of the constant init score (an [n] f32 vector
+        :meth:`iteration` filled) and the label row, never of the average
+        the score row holds; weighted and written as :meth:`fill_grad`."""
+        label = self._f32_row(pay, self.nbw)[:self.n]
+        self._write_grads(pay, *payload_grad_fn(self._const, label))
+
+    def _set_rf(self, rf) -> None:
+        """RF's scalars of the iteration (`rf` = (t, bias), None when not
+        an RF iteration): t, 1 / (t + 1) and the bias into the state's
+        device scalars, the constant score vector refilled when the bias
+        changes."""
+        if rf is None:
+            self._rf_bias = None
+            return
+        t, bias = float(rf[0]), float(rf[1])
+        gs.set_avg(self.state, t, bias)
+        if self._const is None:
+            self._const = torch.empty(self.n, dtype=torch.float32,
+                                      device=self.device)
+        if self._rf_bias != bias:
+            self._const.fill_(float(F32(bias)))
+        self._rf_bias = bias
 
     def _row_buffers(self, dev):
         if self._rows is None:
@@ -823,7 +879,7 @@ class PersistGrower:
 
     # ---- one boosting iteration -------------------------------------------
     def _body(self, pay, grad_fn, classes, mode="payload",
-              renew=None) -> None:
+              renew=None, rf=False) -> None:
         """The iteration queued with no read-back (on the card: everything
         one CUDA graph captures): K = 1: fill_grad (fill_grad_row in the
         "row" `mode`) -> the tree -> the renewal (with a `renew` function)
@@ -831,9 +887,11 @@ class PersistGrower:
         `classes` its feature mask into the layout, fill_grad_multi -> its
         tree -> apply_scores on its score row (make_scan_driver's class
         loop, grow_persist.py:2150-2166). With a bag step, it runs after
-        each gradient fill (:meth:`bag_step`). Each tree's state is copied
-        into its row of the stash. The learning rate and the bag step's
-        scalars are read from device scalars, which :meth:`iteration`
+        each gradient fill (:meth:`bag_step`). With `rf` (K = 1) the fill
+        is :meth:`fill_grad_const` and the score update the running
+        average (grow_step.apply_scores_avg). Each tree's state is copied
+        into its row of the stash. The learning rate, the bag step's and
+        RF's scalars are read from device scalars, which :meth:`iteration`
         writes before the body."""
         if self.K > 1:
             with _range("grow::snapshot"):
@@ -846,6 +904,8 @@ class PersistGrower:
             with _range("grow::fill_grad"):
                 if self.K > 1:
                     self.fill_grad_multi(pay, grad_fn, cls)
+                elif rf:
+                    self.fill_grad_const(pay, grad_fn)
                 elif mode == "row":
                     self.fill_grad_row(pay, grad_fn)
                 else:
@@ -859,16 +919,18 @@ class PersistGrower:
                 with _range("grow::renew"):
                     self.renew(pay, renew)
             with _range("grow::apply_scores"):
-                gs.apply_scores(
-                    self.state,
-                    self._f32_row(pay, self.score_row + cls)[:self.n])
+                score = self._f32_row(pay, self.score_row + cls)[:self.n]
+                if rf:
+                    gs.apply_scores_avg(self.state, score)
+                else:
+                    gs.apply_scores(self.state, score)
             self.state.cnt.copy_(counters.counts(self.device))
             self.stash[j].copy_(self.state.blob)
         self._body_levels = levels
 
     def iteration(self, pay, grad_fn, feature_masks, shrink: float,
                   classes=(0,), mode="payload", renew=None,
-                  bag: BagIteration = None):
+                  bag: BagIteration = None, rf=None):
         """One boosting iteration on the payload: for each class in
         `classes` (every class with something to train), its gradients
         (``grad_fn``: a payload_grad_fn when K = 1, a payload_grad_fn_multi
@@ -876,9 +938,12 @@ class PersistGrower:
         scores), with `bag` (ops/bag.py's BagIteration) the bag step on
         them, one tree on its feature mask (``feature_masks[j]`` for
         ``classes[j]``), with `renew` (an objective's renew_tree_output)
-        its leaves re-fit, its score update. Returns one (LeafState, split
-        records, num_leaves) per class, as :meth:`grow` does, all read back
-        with one copy.
+        its leaves re-fit, its score update. `rf` = (t, bias) makes it an
+        RF iteration (K = 1, the "payload" `mode`; `bag` its MODE_ROWS
+        mask): the gradients of the constant bias, the running average
+        over t earlier iterations. Returns one (LeafState, split records,
+        num_leaves) per class, as :meth:`grow` does, all read back with one
+        copy.
 
         On the CPU, and after a level phase, it runs eagerly. On the card
         without a level phase the first iteration runs eagerly under
@@ -890,19 +955,25 @@ class PersistGrower:
         rate that changes between iterations (``learning_rates=``) replays
         the same graph; so are the bag step's window key, iteration and
         fractions, while a change of its mode (none, fraction, balanced,
-        GOSS) takes a new graph. A failure raises: there is no fallback to
-        an eager loop."""
+        GOSS, rows) takes a new graph, and so does RF. A failure raises:
+        there is no fallback to an eager loop."""
         classes = tuple(int(c) for c in classes)
+        if rf is not None and (self.K > 1 or mode != "payload"):
+            raise LightGBMError("PersistGrower: an RF iteration needs one "
+                                "tree per iteration and the payload "
+                                "gradient mode")
         if self.K > 1:
             self._stage_masks(feature_masks)
         else:
             self._prepare(feature_masks[0])
         gs.set_shrink(self.state, shrink)
         self._set_bag(bag)
+        self._set_rf(rf)
+        is_rf = rf is not None
         if self.use_level or self.device.type != "cuda" or not self.capture:
-            self._body(pay, grad_fn, classes, mode, renew)
+            self._body(pay, grad_fn, classes, mode, renew, is_rf)
             return self._read_stash(len(classes))
-        key = (pay.data_ptr(), classes, self._bag_mode)
+        key = (pay.data_ptr(), classes, self._bag_mode, is_rf)
         if self._graph is not None and self._graph[1] == key:
             self._graph[0].replay()
             self.replays += 1
@@ -910,7 +981,7 @@ class PersistGrower:
             sync = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self._body(pay, grad_fn, classes, mode, renew)
+                self._body(pay, grad_fn, classes, mode, renew, is_rf)
             finally:
                 torch.cuda.set_sync_debug_mode(sync)
             self._checked = key
@@ -936,7 +1007,7 @@ class PersistGrower:
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         with torch.cuda.graph(g):
-            self._body(pay, grad_fn, key[1], mode, renew)
+            self._body(pay, grad_fn, key[1], mode, renew, key[3])
         t1 = time.perf_counter()
         nodes = None
         if hasattr(g, "raw_cuda_graph"):

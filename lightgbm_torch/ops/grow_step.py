@@ -18,7 +18,12 @@ loop can be captured in a CUDA graph:
   * :func:`assemble` takes each child's best split from the scan output
     and writes its candidate (ops/grow.py:assemble), then ``s += 1``;
   * :func:`cons_table` and :func:`apply_scores` end the tree: the
-    consolidation's segment table and the score update, from the table.
+    consolidation's segment table and the score update, from the table;
+    RF's trees end with :func:`apply_scores_avg` instead, the running
+    average of the JAX package's ``apply_scores_avg`` (grow_persist.py:
+    1775-1805): ``score = (score * t + (value + bias)) * inv`` in f32, one
+    rounding per operation, no fused multiply-add, with t, 1 / (t + 1) and
+    the bias in device scalars the host writes before each iteration.
 
 Every step but the root's does nothing once the done flag is set, so a
 fixed trip count grows the tree a loop that stops at the first pick
@@ -146,6 +151,10 @@ class GrowState:
         # writes before each iteration (so a captured graph serves every
         # rate)
         self.shrink = torch.zeros(1, dtype=torch.float32, device=self.device)
+        # RF's running average: t, 1 / (t + 1), the bias and its flag
+        # (f32), written by the host before each iteration (set_avg)
+        self.avg = torch.zeros(4, dtype=torch.float32, device=self.device)
+        self._avg_host = None
         self.done = self.st[ST_DONE:ST_DONE + 1]
         self.parity = self.st[ST_PARITY:ST_PARITY + 1]
         self.res = self.st[ST_NLEFT:ST_NLEFT + 3]
@@ -377,6 +386,21 @@ def apply_plain(S: GrowState, score: torch.Tensor) -> None:
     counters.bump(S.device, "apply_scores")
 
 
+def apply_avg_plain(S: GrowState, score: torch.Tensor) -> None:
+    s = int(S.st[ST_S])
+    if s <= 1:
+        return
+    t, inv, bias, use_bias = S.avg
+    for q in range(s):
+        st, nr = int(S.li[q, LI_START]), int(S.li[q, LI_NROWS])
+        v = S.lf[q, LF_VALUE]
+        if bool(use_bias != 0):
+            v = v + bias
+        seg = score[st:st + nr]
+        seg.copy_((seg * t + v) * inv)
+    counters.bump(S.device, "apply_scores_avg")
+
+
 # ---- wrappers ---------------------------------------------------------------
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -518,7 +542,36 @@ def apply_scores(S: GrowState, score: torch.Tensor, shrink=None) -> None:
     apply_scores.launches += 1
 
 
-for _fn in (root, pick, commit, planes, assemble, cons_table, apply_scores):
+def set_avg(S: GrowState, t: float, bias: float) -> None:
+    """RF's scalars of the next apply_scores_avg into the state's device
+    memory (one small copy, queued on the card): f32(t), f32(1 / (t + 1))
+    (the f64 quotient rounded), f32(bias) and whether the f64 bias is
+    nonzero (the JAX package adds it only then, so a -0.0 leaf keeps its
+    sign)."""
+    t = float(t)
+    vals = (F32(t), F32(1.0 / (t + 1.0)), F32(bias),
+            F32(1.0 if bias != 0.0 else 0.0))
+    if S._avg_host != vals:
+        S.avg.copy_(torch.tensor(vals, dtype=torch.float32))
+        S._avg_host = vals
+
+
+def apply_scores_avg(S: GrowState, score: torch.Tensor) -> None:
+    """RF's running average on every lane of the tree's leaves (none for
+    a tree of one leaf): score = (score * t + (value + bias)) * inv in
+    f32, `score` the payload's f32 score row, t / inv / bias from
+    ``S.avg`` (:func:`set_avg`)."""
+    if not _on(S, score):
+        return apply_avg_plain(S, score)
+    _launch("gs_apply_avg_launch", [_P, _P, _LL, _P], S,
+            ctypes.c_void_p(score.data_ptr()),
+            ctypes.c_void_p(S.avg.data_ptr()),
+            score.shape[0], _cnt(S, "apply_scores_avg"))
+    apply_scores_avg.launches += 1
+
+
+for _fn in (root, pick, commit, planes, assemble, cons_table, apply_scores,
+            apply_scores_avg):
     _fn.launches = 0
 
 

@@ -10,6 +10,14 @@ the card, :func:`valid_walk_plain` (the vectorized per-level walk of
 models/tree.py) for tensors on the CPU. Nothing else: a tensor elsewhere
 raises, and a failed build or launch raises.
 
+:func:`valid_walk_payload` is the same walk onto the persistent grower's
+payload (DART's drop and normalize, the JAX package's add_score_delta,
+lightgbm_tpu/ops/grow_persist.py:1816-1826): for each live lane l of the
+payload, the row ``rid[l]`` of the training bins is walked and
+``score[l] += f32(leaf_value)``, the f64 leaf value rounded to the
+payload's f32 scores first (JAX: ``delta_row.astype(sc.dtype)``), one f32
+add per lane.
+
 :func:`pack` lays an iteration's trees out in one int32 host buffer (their
 f64 leaf values first, then their node records, models/tree.py:
 Tree.node_records, then one word array of all their categorical nodes'
@@ -103,35 +111,95 @@ def valid_walk(bins: torch.Tensor, nodes: torch.Tensor,
     (int32 [W]) holds the categorical nodes' inner bitsets; without it a
     categorical node sends every row right."""
     n = bins.shape[0]
-    if bins.dtype != torch.uint8 or bins.dim() != 2 \
-            or not bins.is_contiguous():
-        raise LightGBMError("valid_walk: bins must be a contiguous [n, G] "
-                            "uint8 tensor")
-    if nodes.dtype != torch.int32 or nodes.dim() != 2 \
-            or nodes.shape[1] != VW_COLS or not nodes.is_contiguous():
-        raise LightGBMError("valid_walk: nodes must be a contiguous "
-                            "[num_nodes, %d] int32 tensor" % VW_COLS)
-    if leaves.dtype != torch.float64 or leaves.numel() != nodes.shape[0] + 1:
-        raise LightGBMError("valid_walk: leaves must hold num_nodes + 1 "
-                            "f64 values")
     if score.dtype != torch.float64 or score.shape != (n,) \
             or not score.is_contiguous():
         raise LightGBMError("valid_walk: score must be a contiguous [n] "
                             "f64 tensor")
-    if words is not None and (words.dtype != torch.int32 or words.dim() != 1
-                              or not words.is_contiguous()):
-        raise LightGBMError("valid_walk: words must be a contiguous 1-D "
-                            "int32 tensor")
-    dev = bins.device
-    if any(t.device != dev for t in (nodes, leaves, score)) or \
-            (words is not None and words.device != dev):
-        raise LightGBMError("valid_walk: operands on different devices")
-    if dev.type == "cpu":
+    if not _check_walk("valid_walk", bins, nodes, leaves, words, (score,)):
         return valid_walk_plain(bins, nodes, leaves, score, words)
-    if dev.type != "cuda":
-        raise LightGBMError("valid_walk: no kernel for device %s" % dev)
     _launch(bins, nodes, leaves, score, words)
     valid_walk.launches += 1
 
 
+def _check_walk(name, bins, nodes, leaves, words, rows) -> bool:
+    """True to launch (operands on the card), False for the plain version
+    (on the CPU); raises for malformed bins, node records, leaf values or
+    words, or for operands (`rows`: the caller's own) on different
+    devices or on another device."""
+    if bins.dtype != torch.uint8 or bins.dim() != 2 \
+            or not bins.is_contiguous():
+        raise LightGBMError("%s: bins must be a contiguous [n, G] uint8 "
+                            "tensor" % name)
+    if nodes.dtype != torch.int32 or nodes.dim() != 2 \
+            or nodes.shape[1] != VW_COLS or not nodes.is_contiguous():
+        raise LightGBMError("%s: nodes must be a contiguous [num_nodes, %d] "
+                            "int32 tensor" % (name, VW_COLS))
+    if leaves.dtype != torch.float64 or leaves.numel() != nodes.shape[0] + 1:
+        raise LightGBMError("%s: leaves must hold num_nodes + 1 f64 values"
+                            % name)
+    if words is not None and (words.dtype != torch.int32 or words.dim() != 1
+                              or not words.is_contiguous()):
+        raise LightGBMError("%s: words must be a contiguous 1-D int32 "
+                            "tensor" % name)
+    dev = bins.device
+    if any(t.device != dev for t in (nodes, leaves) + tuple(rows)) or \
+            (words is not None and words.device != dev):
+        raise LightGBMError("%s: operands on different devices" % name)
+    if dev.type not in ("cpu", "cuda"):
+        raise LightGBMError("%s: no kernel for device %s" % (name, dev))
+    return dev.type == "cuda"
+
+
 valid_walk.launches = 0
+
+
+def valid_walk_payload_plain(bins: torch.Tensor, rid: torch.Tensor,
+                             nodes: torch.Tensor, leaves: torch.Tensor,
+                             score: torch.Tensor, n: int,
+                             words: torch.Tensor = None) -> None:
+    """score[:n] += f32(leaves[leaf(bins[rid[l]])]) in plain PyTorch: the
+    row-ordered walk, its f64 values rounded to f32 and gathered through
+    the row ids, one f32 add per lane."""
+    delta = leaves[walk_leaves_plain(bins, nodes, words)].to(torch.float32)
+    score[:n] += delta.index_select(0, rid[:n].to(torch.int64))
+
+
+def valid_walk_payload(bins: torch.Tensor, rid: torch.Tensor,
+                       nodes: torch.Tensor, leaves: torch.Tensor,
+                       score: torch.Tensor, n: int,
+                       words: torch.Tensor = None) -> None:
+    """score[l] += f32(leaves[leaf(bins[rid[l]])]) for the n live lanes of
+    a payload: `rid` its int32 row-id row, `score` its f32 score row (a
+    view of at least n lanes, in place), `bins` the training rows' [N, G]
+    uint8 bins; the tree as in :func:`valid_walk`. Lanes past n are left
+    alone."""
+    if rid.dtype != torch.int32 or rid.dim() != 1 or rid.shape[0] < n \
+            or not rid.is_contiguous():
+        raise LightGBMError("valid_walk_payload: rid must be a contiguous "
+                            "int32 row of at least n lanes")
+    if score.dtype != torch.float32 or score.dim() != 1 \
+            or score.shape[0] < n or not score.is_contiguous():
+        raise LightGBMError("valid_walk_payload: score must be a contiguous "
+                            "f32 row of at least n lanes")
+    if not _check_walk("valid_walk_payload", bins, nodes, leaves, words,
+                       (rid, score)):
+        return valid_walk_payload_plain(bins, rid, nodes, leaves, score, n,
+                                        words)
+    from .build import load
+    fn = load("valid_walk").valid_walk_payload_launch
+    P = ctypes.c_void_p
+    fn.argtypes = [P, ctypes.c_int, P, ctypes.c_longlong, P, P,
+                   ctypes.c_int, P, ctypes.c_int, P, P]
+    fn.restype = ctypes.c_int
+    nw = 0 if words is None else words.numel()
+    err = fn(P(bins.data_ptr()), bins.shape[1], P(rid.data_ptr()), int(n),
+             P(nodes.data_ptr()), P(leaves.data_ptr()), nodes.shape[0],
+             P(words.data_ptr() if nw else None), nw, P(score.data_ptr()),
+             P(torch.cuda.current_stream(bins.device).cuda_stream))
+    if err != 0:
+        raise LightGBMError("valid_walk_payload launch failed: CUDA error %d"
+                            % err)
+    valid_walk_payload.launches += 1
+
+
+valid_walk_payload.launches = 0

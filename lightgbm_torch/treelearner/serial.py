@@ -32,6 +32,13 @@ both scanning splits with the ``scan_pair`` kernel:
     ``can_persist_scan`` (serial.py:529) sends them: scan_pair scans the
     numerical features and ``cat_scan`` the categorical ones.
 
+DART trains on either grower as GBDT does. RF (always bagged: its host
+draw is the bag) takes the persistent grower where the JAX package's
+fused RF path runs it (rf.py:225-242: one tree per iteration, no init
+score, the "payload" gradient mode) and the data suit it as GBDT's; with K
+> 1, an init score or a "row"-mode objective it takes v1 under ``auto``
+and raises under ``force`` (ROADMAP.md queue A, item 25).
+
 The JAX package picks among more growers and scans (``resolve_scan_impl``,
 serial.py:138-167). :func:`check_fast_path` refuses every configuration the
 port's routes do not implement, naming the ROADMAP.md item that will bring
@@ -63,6 +70,8 @@ _GOSS_MULTI = ("queue A, item 23: GOSS with K > 1 trees per iteration on the "
                "persistent grower")
 _RENEW_BAG = ("queue A, item 24: leaf renewal with bagging or GOSS on the "
               "persistent grower")
+_RF_PERSIST = ("queue A, item 25: RF beyond the JAX fused RF gate on the "
+               "persistent grower")
 # rows from which the JAX package takes the persistent grower on an
 # accelerator (treelearner/serial.py:33)
 PARTITION_MIN_ROWS = 65536
@@ -80,9 +89,6 @@ def check_fast_path(config: Config, dataset) -> None:
     if c.objective not in PORTED + ("none",):
         _refuse("objective=%s" % c.objective,
                 "queue A, item 17: other objectives")
-    if c.boosting not in ("gbdt", "goss"):
-        _refuse("boosting=%s" % c.boosting,
-                "queue A, item 7: DART and RF")
     if c.tree_learner != "serial" or c.num_machines > 1:
         _refuse("tree_learner=%s" % c.tree_learner,
                 "queue A, item 11: distributed training")
@@ -132,7 +138,7 @@ def bag_configured(config: Config) -> bool:
     """Does the run sample rows: bagging (a fraction below 1 with a
     bagging_freq, or balanced fractions with one) or GOSS?"""
     c = config
-    return c.boosting == "goss" or (c.bagging_freq > 0 and (
+    return c.boosting in ("goss", "rf") or (c.bagging_freq > 0 and (
         c.bagging_fraction < 1.0 or c.pos_bagging_fraction < 1.0
         or c.neg_bagging_fraction < 1.0))
 
@@ -274,6 +280,8 @@ class SerialTreeLearner:
             why = ("%s with bagging or GOSS" % objective.name, _RENEW_BAG,
                    "the JAX package renews leaves on its per-iteration "
                    "path only")
+        elif self.config.boosting == "rf":
+            why = self._rf_beyond_gate(objective)
         else:
             why = None
         if why is not None:
@@ -295,6 +303,25 @@ class SerialTreeLearner:
                 and self.dataset.num_features > 0
                 and dg is not None)
 
+    def _rf_beyond_gate(self, objective):
+        """Why RF leaves the JAX package's fused RF gate (rf.py:225-242:
+        one tree per iteration, no init score, the "payload" gradient
+        mode), as a refusal's (what, item, reason); None inside it."""
+        K = objective.num_model_per_iteration
+        dg = objective.device_gradients()
+        if K > 1:
+            what = "RF with %d trees per iteration" % K
+        elif self.dataset.metadata.init_score is not None:
+            what = "RF with an init score"
+        elif dg is not None and dg[0] != "payload":
+            what = "RF with objective %s (the row gradient mode)" \
+                % objective.name
+        else:
+            return None
+        return (what, _RF_PERSIST, "the JAX package runs it on its host "
+                "path only, so there is no JAX reference; parity against "
+                "v1")
+
     def _persist_grower(self, num_scores: int = 1,
                         weight_row: bool = True) -> PersistGrower:
         """The grower over a payload of `num_scores` score rows (the
@@ -314,7 +341,7 @@ class SerialTreeLearner:
         return self._persist_gr
 
     def train_persist(self, objective, score0, shrink: float,
-                      classes=(0,), bag=None):
+                      classes=(0,), bag=None, rf=None):
         """One boosting iteration on the payload: for each class in
         `classes` (K = 1: the one tree), the objective's gradients, one
         tree and its score update, all on the payload, which stays on the
@@ -332,7 +359,9 @@ class SerialTreeLearner:
         copy. An objective with leaf renewal re-fits each tree's leaves
         inside the iteration, before its score update. `bag` (ops/bag.py's
         BagIteration, None without one) is the iteration's bag step after
-        each gradient fill."""
+        each gradient fill. `rf` = (t, bias) makes it an RF iteration
+        (PersistGrower.iteration): the gradients of the constant bias, the
+        running average of the scores."""
         mode, grad_fn = objective.device_gradients()
         gr = self._persist_grower(objective.num_model_per_iteration,
                                   mode == "payload")
@@ -343,12 +372,19 @@ class SerialTreeLearner:
         renew = (objective.renew_tree_output
                  if objective.is_renew_tree_output else None)
         out = gr.iteration(self._persist_carry, grad_fn, masks, shrink,
-                           classes, mode, renew, bag)
+                           classes, mode, renew, bag, rf)
         return [gr.to_tree_arrays(*t) for t in out]
 
     def persist_add_const(self, val: float, cls: int) -> None:
         """score row `cls` of the carry += val (a constant tree)."""
         self._persist_gr.add_const(self._persist_carry, val, cls)
+
+    def persist_add_tree(self, packed, cls: int) -> None:
+        """score row `cls` of the carry += f32(a packed tree's leaf value of
+        each lane's row) (the JAX package's persist_add_score_delta,
+        serial.py:711): one valid_walk_payload launch."""
+        self._persist_gr.add_tree(self._persist_carry, self.data.bins,
+                                  packed, cls)
 
     def persist_finalize_scores(self):
         """Row-ordered f64 scores ([n] or [K, n]) from the carry (None

@@ -42,7 +42,7 @@ differences that a bag exposes:
     a child within the slack of min_data_in_leaf in either package.
 At least half of the trees must be held equal. Then the routing: GOSS
 with K > 1 and a renewal objective with a bag raise under ``force`` and
-take v1 under ``auto``; DART and RF stay refused. Then
+take v1 under ``auto``, and so does RF beyond the JAX fused RF gate. Then
 ``reset_parameter`` on the bagging keys.
 """
 import numpy as np
@@ -270,17 +270,22 @@ def test_auto_routing_on_the_card(name, extra, persist, monkeypatch):
     ({"objective": "quantile", "pos_bagging_fraction": 0.5,
       "bagging_freq": 1}, "item 24"),
     (dict(GOSS, objective="mape"), "item 24"),
-    ({"boosting": "dart"}, "item 7"),
-    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-     "item 7"),
+    # RF beyond the JAX fused RF gate: K > 1, an init score
+    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
+      "objective": "multiclass", "num_class": 3}, "item 25"),
+    ({"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1,
+      "init_score": 0.25}, "item 25"),
 ])
 def test_refused_routes(extra, item):
+    extra = dict(extra)
+    init = extra.pop("init_score", None)
     X, y = class_data(n=800, K=extra.get("num_class", 2), seed=2)
     if extra.get("objective") == "mape":
         y = y + 1.0
     p = dict(BASE, device_type="cpu", tpu_persist_scan="force", **extra)
     with pytest.raises(LightGBMError, match="ROADMAP.md queue A, %s" % item):
-        lp.train(p, lp.Dataset(X, y, params=p), 1)
+        lp.train(p, lp.Dataset(X, y, params=p, init_score=None if init is None
+                                else np.full(len(y), init)), 1)
 
 
 def test_reset_bagging_matches_jax_v1():

@@ -129,13 +129,17 @@ def test_config_matches_jax(params):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
-     "item 7"),
+    # RF beyond the JAX fused RF gate (K > 1, an init score) trains on v1;
+    # the persistent grower refuses it
+    ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5,
+      "objective": "multiclass", "num_class": 3,
+      "tpu_persist_scan": "force"}, "item 25"),
     # GOSS with K > 1 and a renewal objective with a bag train on v1; the
     # persistent grower refuses them
     ({"boosting": "goss", "objective": "multiclass", "num_class": 3,
       "tpu_persist_scan": "force"}, "item 23"),
-    ({"boosting": "dart"}, "item 7"),
+    ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5,
+      "init_score": 0.25, "tpu_persist_scan": "force"}, "item 25"),
     ({"bagging_fraction": 0.5, "bagging_freq": 1,
       "objective": "regression_l1", "tpu_persist_scan": "force"},
      "item 24"),
@@ -155,6 +159,10 @@ def test_config_matches_jax(params):
 ])
 def test_out_of_slice_configs_are_refused(params, item):
     X, y = _higgs_with_missing(n=800)
+    params = dict(params)
+    init = params.pop("init_score", None)
     p = dict({"objective": "binary", "device_type": "cpu"}, **params)
     with pytest.raises(LightGBMError, match="ROADMAP.md queue A, %s" % item):
-        lp.train(p, lp.Dataset(X[:, :4], y, params=p), 1)
+        lp.train(p, lp.Dataset(X[:, :4], y, params=p,
+                               init_score=None if init is None
+                               else np.full(len(y), init)), 1)
