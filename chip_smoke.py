@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the fourteen CUDA kernel libraries from csrc/, in
+  2. build    nvcc builds the fifteen CUDA kernel libraries from csrc/, in
               parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
@@ -236,8 +236,45 @@ exits non-zero without printing a result:
               of the largest score), and a model-text round trip; on the
               payload paths the second buffer's rows (wp_live) and bytes;
               at the default sizes, the persist, v1, level, multiclass,
-              regression, l1, bundled, bagging and goss digests must
-              equal the ones recorded in PERF.md (KNOWN_DIGESTS);
+              regression, l1, bundled, bagging, goss, dart and rf
+              digests must equal the ones recorded in PERF.md
+              (KNOWN_DIGESTS); bst.predict on the card is the walk kernel
+              (csrc/predict.cu), so the checks against the device scores,
+              the model text round trip (a Booster read from text, on the
+              card) and the level paths' predictions hold it too; on the
+              multiclass, dart and rf paths the kernel's raw scores equal
+              the numpy walk's (predict_device=cpu) on 100k rows and the
+              converted ones (softmax, sigmoid of the average) within
+              1e-12;
+  4b. predict (bench.py:run_predict:879, run_serving:924) the served
+              model: the first --predict-rows (2M) HIGGS rows, binary,
+              255 leaves, --predict-iters (100) trees, default routing;
+              predict_walk against its plain version on the card over all
+              rows, bit for bit, in raw f64, raw f32 and leaf modes, each
+              timed beside its bound and the node visits per second; raw
+              f64 and the leaves equal to the numpy walk on 200k rows; f32
+              within 2 (T + 1) half-ulps of the largest score of f64 on the
+              rows whose f32 walk reaches the same leaves (the others, a
+              value between a threshold and its f32 rounding, counted and
+              at most 1%); then,
+              predict_walk's launch count set to 0 just before and read
+              just after (it must equal the sync servers' requests plus
+              the async servers' batches): BatchServer(256, 65536) over
+              --serve-rows (8M) rows of ragged batches (rows/s, staging
+              buckets used against max_compiles(): pinned buffers, the
+              walk takes each batch unpadded), BatchServer(256, 4096) under
+              open-loop Poisson traffic (400 requests at 50 rps: p50,
+              p99, queue depth), the run_serving mix (400 requests of 1-64
+              rows from 8 client threads over the first 500k rows,
+              max_wait_ms 5) through the sync server and AsyncBatchServer
+              (rps, vs_sync, p50/p99, coalesce_ratio), and a
+              ModelRegistry swapped between the model and its first 50
+              iterations every 2 ms under that mix, then a swap and a
+              rollback: every served row equal to the kernel's direct
+              output (raw) bit for bit. The airline model's walk over its
+              1M held-out rows and the bundled Expo model's over its 200k
+              (648 raw features) are held to the numpy walk likewise
+              (100k and 200k rows);
   5. bundled  the Expo shape (make_expo_like: 8 dense + 640 one-hot
               columns, EFB-bundled into 18 groups; 2M rows), scan_blocks
               against its plain version at B = 256 children read in place
@@ -285,7 +322,8 @@ kernels, the card's name and power limit, and the result line
 --es-rows, --es-rounds, --ltr-rows, --ltr-valid-rows, --ltr-iters,
 --xendcg-iters, --rank-parity-rows, --knob-iters, --deep-parity-iters,
 --airline-rows, --airline-iters, --airline-valid-rows, --cat-parity-rows,
---bag-iters, --bag-parity-rows, --skip-train, --skip-parity); the
+--bag-iters, --bag-parity-rows, --predict-rows, --predict-iters,
+--serve-rows, --skip-train, --skip-parity); the
 defaults are the full run. --profile
 adds a torch.profiler breakdown of one more iteration of each train path
 (PERF.md's "where the time goes"), with the partition's stages (count,
@@ -2198,7 +2236,9 @@ KNOWN_DIGESTS = {"persist": ("cab22751", "49c488"),
                  "bundled": ("32e491a8", "fe823"),
                  "l1": ("55c69e16", "d731d22a"),
                  "bagging": ("8dad1e05", "0c85"),
-                 "goss": ("61428ba6", "1eaa6b")}
+                 "goss": ("61428ba6", "1eaa6b"),
+                 "dart": ("3f872a5d", "5f3913e2"),
+                 "rf": ("d7e4138f", "c8fa3f1f")}
 FULL_SIZE = {"on": False}     # main sets it when every size is the default
 # the kernels whose launches a Python counter counts (they run eagerly on
 # every path); every other kernel of the paths counts its launches on the
@@ -2752,6 +2792,8 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
         raise AssertionError("model text round trip changes predictions")
     log("train %s: model_to_string -> Booster(model_str) predicts identical "
         "raw scores" % path)
+    if path in ("multiclass",) + DART_RF_PATHS:
+        check_predict_cover(bst, sub, path)
     if path == "l1":
         check_renewed_leaves(bst)
     if path in BAG_PATHS:
@@ -2787,7 +2829,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
     if keep is not None and path in ("persist", "l1", "ltr", "knobs",
                                      "airline") + BAG_PATHS + DART_RF_PATHS:
         keep["iteration"] = profile_iteration(bst.update)
-    if keep is not None and path == "l1":
+    if keep is not None and path in ("l1", "airline", "bundled"):
         keep["bst"] = bst
     if profile:
         phase_profile(bst, card, path)
@@ -4716,6 +4758,434 @@ def make_dataset(lgb, X, y, params, what, group=None):
     return ds, inner
 
 
+# ---- prediction and serving (predict/, serving/; bench.py:879-960) ---------
+
+# rows of the numpy walk's check of the served model, and of the other
+# paths' coverage checks against the numpy walk
+PREDICT_NUMPY_ROWS = 200_000
+PREDICT_COVER_ROWS = 100_000
+SERVE_MIX_ROWS = 500_000        # the run_serving mix's rows (bench.py:951)
+
+
+def walk_visits(trees, walk, leaf):
+    """Node visits of a leaf-mode result `leaf` ([n, T] int32 on the card):
+    the sum over rows and trees of the depth of the leaf reached."""
+    import torch
+    T = len(trees)
+    starts = walk.tree_leaf.cpu().numpy()
+    table = np.zeros(int(starts[-1]) + max(t.num_leaves for t in trees),
+                     np.int64)
+    for s, t in zip(starts, trees):
+        d = leaf_depths(t)
+        table[s:s + len(d)] = d
+    table_d = torch.as_tensor(table, device="cuda")
+    idx = walk.tree_leaf.long()[None, :T] + leaf.long()
+    return int(table_d[idx].sum())
+
+
+def walk_bound(n, F, x_bytes, out_bytes, walk, visits, trees_per_row):
+    """predict_walk's bound: the rows read once, the output and the
+    ensemble's tensors once; two operations (the threshold compare and the
+    zero test) per node visit and one add per tree and row, at the rows'
+    type's rate."""
+    ens_bytes = sum(t.numel() * t.element_size() for t in walk[:5])
+    ops = 2.0 * visits + float(n) * trees_per_row
+    return bound_ms(n * F * x_bytes + out_bytes + ens_bytes, ops,
+                    f64=x_bytes == 8)
+
+
+def check_predict_cover(bst, X, label, numpy_rows=PREDICT_COVER_ROWS):
+    """bst.predict on the card (its default route) over all rows of X: the
+    walk kernel, one launch; its raw scores equal to the numpy walk's
+    (predict_device=cpu) on the first `numpy_rows` rows, bit for bit, and
+    the converted predictions within 1e-12."""
+    from lightgbm_torch.ops.predict import predict_walk
+    t = time.time()
+    n0 = predict_walk.launches
+    raw = bst.predict(X, raw_score=True)
+    conv = bst.predict(X[:numpy_rows])
+    if predict_walk.launches != n0 + 2:
+        raise AssertionError("predict %s: %d walk launches for 2 calls"
+                             % (label, predict_walk.launches - n0))
+    t_card = time.time() - t
+    t = time.time()
+    want = bst.predict(X[:numpy_rows], raw_score=True, predict_device="cpu")
+    gap = float(np.abs(conv - bst.predict(X[:numpy_rows],
+                                          predict_device="cpu")).max())
+    if not np.array_equal(raw[:numpy_rows], want) or not gap <= 1e-12:
+        raise AssertionError("predict %s: the walk kernel differs from the "
+                             "numpy walk (raw equal: %s; converted max abs "
+                             "diff %.3g)" % (label, np.array_equal(
+                                 raw[:numpy_rows], want), gap))
+    gb = bst._booster
+    log("predict %s: %d trees (%d per iteration%s) over %d rows x %d "
+        "features on the card (%.2f s with the conversion); raw equal to "
+        "the numpy walk on the first %d (%.1f s), converted within %.3g "
+        "(limit 1e-12)" % (label, len(gb.models), gb.num_tree_per_iteration,
+                           ", average_output" if gb.average_output else "",
+                           X.shape[0], X.shape[1], t_card, numpy_rows,
+                           time.time() - t, gap))
+
+
+def poisson_open_loop(server, X, rps, n_requests, rng, direct):
+    """bench.py:poisson_open_loop's open-loop Poisson load (arrivals drawn
+    up front at `rps`, served in arrival order on this thread; latency from
+    the scheduled arrival, queue depth the arrived requests not yet
+    started), every answer held to `direct` (the kernel's output for X)."""
+    n = len(X)
+    lo, hi = server.min_batch // 2, server.min_batch * 4
+    arrivals = np.cumsum(rng.exponential(1.0 / rps, n_requests))
+    sizes = rng.integers(max(lo, 1), max(hi, 2), n_requests)
+    starts = rng.integers(0, max(n - int(sizes.max()), 1), n_requests)
+    lat = np.empty(n_requests)
+    qdepth = np.empty(n_requests, np.int64)
+    t0 = time.perf_counter()
+    for i in range(n_requests):
+        now = time.perf_counter() - t0
+        if now < arrivals[i]:
+            time.sleep(arrivals[i] - now)
+            now = arrivals[i]
+        qdepth[i] = int(np.searchsorted(arrivals, now, side="right")) - i
+        k, i0 = int(sizes[i]), int(starts[i])
+        out = server.predict(X[i0:i0 + k], raw_score=True,
+                             arrival_t=t0 + float(arrivals[i]))
+        lat[i] = (time.perf_counter() - t0) - arrivals[i]
+        if not np.array_equal(out, direct[i0:i0 + k]):
+            raise AssertionError("serve poisson: request %d differs from "
+                                 "the kernel's output" % i)
+    st = server.stats()
+    return {"requests": n_requests, "rps": float(rps),
+            "p50": float(np.percentile(lat, 50)),
+            "p99": float(np.percentile(lat, 99)),
+            "queue_wait_p99": float(st["queue_wait_p99"]),
+            "qdepth_mean": float(qdepth.mean()),
+            "qdepth_max": int(qdepth.max())}
+
+
+def drive_clients(predict_fn, reqs, clients):
+    """bench.py:run_serving's drive: `reqs` through `predict_fn` from a
+    pool of `clients` threads; (seconds, latencies, outputs)."""
+    from concurrent.futures import ThreadPoolExecutor
+    lat = np.empty(len(reqs))
+    outs = [None] * len(reqs)
+
+    def one(i):
+        t = time.perf_counter()
+        outs[i] = predict_fn(reqs[i][2])
+        lat[i] = time.perf_counter() - t
+
+    t0 = time.time()
+    with ThreadPoolExecutor(clients) as pool:
+        list(pool.map(one, range(len(reqs))))
+    return time.time() - t0, lat, outs
+
+
+def phase_predict(lgb, X, y, card, rows, iters):
+    """The served model (bench.py:run_predict:879-896: HIGGS rows, binary,
+    255 leaves, `iters` trees, default routing) trained on the first
+    `rows` rows; predict_walk against its plain version on the card over
+    all of them, bit for bit, in raw f64, raw f32 and leaf modes, each
+    timed beside its bound (and the node visits per second); raw f64 and
+    the leaves equal to the numpy walk on the first PREDICT_NUMPY_ROWS.
+    Returns (its kernel record, the booster, its rows, its raw scores on
+    the card)."""
+    import torch
+    from lightgbm_torch.ops.predict import predict_walk, predict_walk_plain
+    from lightgbm_torch.predict import CudaPredictor
+    n = min(rows, len(y))
+    Xp = np.ascontiguousarray(X[:n], np.float64)
+    params = dict(COMMON, num_leaves=255)
+    t = time.time()
+    ds = lgb.Dataset(Xp, y[:n], params=params)
+    bst = lgb.train(params, ds, iters)
+    torch.cuda.synchronize()
+    gb = bst._booster
+    trees = gb.models
+    if not gb.use_persist or len(trees) != iters:
+        raise AssertionError("predict: the served model took the wrong "
+                             "grower or stopped early (%d trees)"
+                             % len(trees))
+    log("predict: the served model: %d rows, %d trees of %d-%d leaves "
+        "(depth up to %d), trained in %.1f s (binning included)"
+        % (n, len(trees), min(t_.num_leaves for t_ in trees),
+           max(t_.num_leaves for t_ in trees),
+           max(int(leaf_depths(t_).max()) for t_ in trees),
+           time.time() - t))
+    del ds
+    t = time.time()
+    pr = gb.device_predictor()
+    pr32 = CudaPredictor(pr.ensemble, dtype="f32", device=pr.device)
+    log("predict: compiled ensemble (%d depth buckets, %d node slots) on "
+        "the card in %.2f s" % (len(pr.ensemble.buckets),
+                                pr.walk.records.shape[0], time.time() - t))
+    X64 = torch.as_tensor(Xp, device="cuda")
+    X32 = X64.float()
+    T = len(trees)
+    modes = (("f64", X64, pr.walk, False), ("f32", X32, pr32.walk, False),
+             ("leaf", X64, pr.walk, True))
+    outs, times = {}, {}
+    for mode, Xd, walk, leaf in modes:
+        a = predict_walk(Xd, walk, 1, leaf=leaf)
+        b = predict_walk(Xd, walk, 1, leaf=leaf)
+        plain = predict_walk_plain(Xd, walk, 1, leaf=leaf)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, plain)):
+            raise AssertionError(
+                "predict_walk %s: two launches equal %s, equal to the plain "
+                "version %s" % (mode, torch.equal(a, b),
+                                torch.equal(a, plain)))
+        del b, plain
+        ms = device_ms(lambda: predict_walk(Xd, walk, 1, leaf=leaf), reps=10)
+        plain_ms = device_ms(lambda: predict_walk_plain(Xd, walk, 1,
+                                                        leaf=leaf),
+                             reps=1, warmup=0)
+        outs[mode], times[mode] = a, (ms, plain_ms)
+    visits = walk_visits(trees, pr.walk, outs["leaf"])
+    bounds = {"f64": walk_bound(n, 28, 8, n * 8, pr.walk, visits, T),
+              "f32": walk_bound(n, 28, 4, n * 4, pr32.walk, visits, T),
+              "leaf": walk_bound(n, 28, 8, n * T * 4, pr.walk, visits, 0)}
+    for mode in ("f64", "f32", "leaf"):
+        ms, plain_ms = times[mode]
+        log("predict_walk %s: %d rows x %d trees, two launches and the "
+            "plain version on the card bit-identical; %.4f ms (plain "
+            "%.3f ms), bound %.4f ms (%s), %.3g node visits/s (%d visits, "
+            "%.2f per row and tree) (%s)"
+            % (mode, n, T, ms, plain_ms, bounds[mode][0], bounds[mode][1],
+               visits / (ms / 1e3), visits, visits / (n * T), card))
+    # the f32 mode against f64: a row whose f32 value lies between a
+    # threshold and its f32 rounding takes the other branch (the JAX
+    # package's f32 mode does the same); a row that reaches the same leaves
+    # differs by its T f32 adds, each off by at most half an ulp of the
+    # largest score, and the rounded leaf values
+    raw64 = outs["f64"][:, 0]
+    leaf32 = predict_walk(X32, pr32.walk, 1, leaf=True)
+    same = (leaf32 == outs["leaf"]).all(dim=1)
+    flips = n - int(same.sum())
+    diff32 = (outs["f32"][:, 0].double() - raw64).abs()
+    gap32 = float(diff32.max())
+    gap_same = float(diff32[same].max()) if flips < n else 0.0
+    lim32 = 2 * (T + 1) * 2.0 ** -24 * float(raw64.abs().max())
+    log("predict_walk f32: %d of %d rows (%.4f%%) reach another leaf in some "
+        "tree (a value between a threshold and its f32 rounding); the rest "
+        "within %.3g of f64 (limit %.3g: 2 (T + 1) f32 half-ulps of the "
+        "largest score); max abs diff over all rows %.3g"
+        % (flips, n, 100.0 * flips / n, gap_same, lim32, gap32))
+    if not gap_same <= lim32 or flips > n // 100:
+        raise AssertionError("predict_walk f32 drifts from f64")
+    del leaf32, same, diff32
+    m = min(PREDICT_NUMPY_ROWS, n)
+    t = time.time()
+    np_raw = gb.predict_raw(Xp[:m])
+    np_leaf = gb.predict_leaf_index(Xp[:m], device="cpu")
+    if not (np.array_equal(raw64[:m].cpu().numpy(), np_raw)
+            and np.array_equal(outs["leaf"][:m].cpu().numpy(), np_leaf)):
+        raise AssertionError("predict_walk differs from the numpy walk")
+    log("predict_walk: raw f64 scores and leaf indices equal to the numpy "
+        "walk's on the first %d rows, bit for bit (numpy %.1f s)"
+        % (m, time.time() - t))
+    ms, plain_ms = times["f64"]
+    rec = {"name": "predict_walk", "route": "cuda",
+           "source": "lightgbm_torch/csrc/predict.cu",
+           "replaces": "lightgbm_tpu/predict/runtime.py:85 (no TPU kernel: "
+                       "the XLA _traverse_bucket, with its lax.scan sum, "
+                       ":197)",
+           "launches": 0, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bounds["f64"][0],
+           "bound_by": bounds["f64"][1], "library_ms": None,
+           "rows": n, "trees": T, "node_visits": visits,
+           "node_visits_per_s": visits / (ms / 1e3), "f32_max_diff": gap32,
+           "f32_leaf_flip_rows": flips, "f32_same_leaf_max_diff": gap_same}
+    for mode in ("f32", "leaf"):
+        rec.update({mode + "_ms": times[mode][0],
+                    mode + "_plain_ms": times[mode][1],
+                    mode + "_bound_ms": bounds[mode][0],
+                    mode + "_bound_by": bounds[mode][1]})
+    direct = raw64.cpu().numpy()
+    del outs, X64, X32, pr32
+    torch.cuda.empty_cache()
+    return rec, bst, Xp, direct
+
+
+def phase_serve(bst, Xp, direct, card, serve_rows):
+    """The serving paths on the served model, predict_walk's launch count
+    set to 0 just before and read just after: BatchServer(256, 65536) over
+    `serve_rows` rows of ragged batches (bench.py:_predict_one_shape:790),
+    BatchServer(256, 4096) under open-loop Poisson traffic (400 requests at
+    50 rps, bench.py:poisson_open_loop:831), the run_serving mix (400
+    requests of 1-64 rows from 8 client threads, max_wait_ms 5, bench.py:
+    924) through the sync server and AsyncBatchServer, then a
+    ModelRegistry swapped between the model and its first 50 iterations
+    under that load, and a swap and rollback. Every served row equals the
+    kernel's direct output bit for bit (raw scores). Returns the record's
+    serving fields."""
+    import threading
+    import torch
+    from lightgbm_torch.ops.predict import predict_walk
+    from lightgbm_torch.predict import BatchServer
+    from lightgbm_torch.serving import AsyncBatchServer, ModelRegistry
+    pr = bst._booster.device_predictor()
+    n = len(Xp)
+    text_b = bst.model_to_string(num_iteration=50)
+    reg = ModelRegistry()
+    reg.load("a", booster=bst)
+    reg.load("b", model_str=text_b)
+    nm = min(SERVE_MIX_ROWS, n)
+    ref_b = reg.resolve("b").predict(Xp[:nm], raw_score=True)
+    torch.cuda.synchronize()
+    out = {}
+    predict_walk.launches = 0
+    # throughput: ragged batches over the ladder
+    server = BatchServer(pr, min_batch=256, max_batch=1 << 16)
+    b = server.min_batch
+    while b <= server.max_batch:
+        server.predict(Xp[:min(b, n)], raw_score=True)
+        b <<= 1
+    rng = np.random.default_rng(0)
+    served, t0 = 0, time.time()
+    while served < serve_rows:
+        k = int(rng.integers(server.min_batch // 2, server.max_batch))
+        i0 = int(rng.integers(0, max(n - k, 1)))
+        k = min(k, n - i0)
+        if not np.array_equal(server.predict(Xp[i0:i0 + k], raw_score=True),
+                              direct[i0:i0 + k]):
+            raise AssertionError("serve ragged: a batch differs from the "
+                                 "kernel's output")
+        served += k
+    wall = time.time() - t0
+    st = server.stats()
+    sync_launches = st["requests"]
+    out.update(serve_rows=served, serve_s=wall,
+               serve_rows_per_s=served / wall, serve_buckets=st["compiles"],
+               serve_bucket_bound=server.max_compiles())
+    log("serve ragged: %d rows in %d batches of %d-%d rows, %.3f s: %.4g "
+        "rows/s (%s); staging buckets used %d of max_compiles() %d (no "
+        "padding rows walked); every row equal to the kernel's output" % (
+            served, st["requests"] - len(st["buckets_compiled"]),
+            server.min_batch // 2, server.max_batch, wall, served / wall,
+            card, st["compiles"], server.max_compiles()))
+    if st["compiles"] > server.max_compiles():
+        raise AssertionError("serve ragged: more buckets than the ladder")
+    # open-loop Poisson traffic on the small ladder
+    server = BatchServer(pr, min_batch=256, max_batch=4096)
+    b = server.min_batch
+    while b <= server.max_batch:
+        server.predict(Xp[:b], raw_score=True)
+        b <<= 1
+    pois = poisson_open_loop(server, Xp, 50.0, 400,
+                             np.random.default_rng(7), direct)
+    sync_launches += server.stats()["requests"]
+    out.update({"poisson_" + k: v for k, v in pois.items()})
+    log("serve poisson: %d requests of %d-%d rows at %.0f rps, open loop: "
+        "p50 %.3f ms, p99 %.3f ms, queue wait p99 %.3f ms, queue depth mean "
+        "%.3f max %d (%s)" % (400, 128, 1023, 50.0, pois["p50"] * 1e3,
+                              pois["p99"] * 1e3,
+                              pois["queue_wait_p99"] * 1e3,
+                              pois["qdepth_mean"], pois["qdepth_max"], card))
+    # the run_serving mix: the sync server, then continuous batching
+    rng = np.random.default_rng(11)
+    sizes = rng.integers(1, 65, 400)
+    starts = rng.integers(0, nm - 65, 400)
+    reqs = [(int(s), int(k), Xp[int(s):int(s) + int(k)])
+            for s, k in zip(starts, sizes)]
+
+    def held(outs, refs, label):
+        for (s, k, _), o in zip(reqs, outs):
+            if not any(np.array_equal(o, r[s:s + k]) for r in refs):
+                raise AssertionError("serve %s: rows [%d:%d] equal no "
+                                     "model's kernel output" % (label, s,
+                                                                s + k))
+
+    sync = BatchServer(pr, min_batch=256, max_batch=4096)
+    b = sync.min_batch
+    while b <= sync.max_batch:
+        sync.predict(Xp[:b], raw_score=True)
+        b <<= 1
+    t_sync, lat_sync, outs = drive_clients(
+        lambda X_: sync.predict(X_, raw_score=True), reqs, 8)
+    held(outs, (direct,), "sync")
+    sync_launches += sync.stats()["requests"]
+    srv = AsyncBatchServer(pr, min_batch=256, max_batch=4096,
+                           max_wait_ms=5.0).start()
+    try:
+        t_async, lat_async, outs = drive_clients(
+            lambda X_: srv.predict(X_, raw_score=True, timeout=60.0), reqs,
+            8)
+    finally:
+        srv.stop(timeout=60.0)
+    held(outs, (direct,), "async")
+    ast = srv.stats()
+    async_launches = ast["batches"]
+    out.update(mix_requests=400, mix_clients=8,
+               sync_rps=400 / t_sync, async_rps=400 / t_async,
+               vs_sync=t_sync / t_async,
+               sync_p50=float(np.percentile(lat_sync, 50)),
+               sync_p99=float(np.percentile(lat_sync, 99)),
+               async_p50=float(np.percentile(lat_async, 50)),
+               async_p99=float(np.percentile(lat_async, 99)),
+               coalesce_ratio=ast["coalesce_ratio"],
+               async_batches=ast["batches"], flushes=ast["flushes"])
+    log("serve mix: 400 requests of 1-64 rows from 8 client threads: sync "
+        "%.1f rps (p50 %.3f ms, p99 %.3f ms), async %.1f rps (p50 %.3f ms, "
+        "p99 %.3f ms), vs_sync %.2f; async %d batches, coalesce_ratio %.2f, "
+        "flushes %s (%s)" % (
+            out["sync_rps"], out["sync_p50"] * 1e3, out["sync_p99"] * 1e3,
+            out["async_rps"], out["async_p50"] * 1e3,
+            out["async_p99"] * 1e3, out["vs_sync"], ast["batches"],
+            ast["coalesce_ratio"], ast["flushes"], card))
+    # hot swap under the same load, then a swap and a rollback
+    stop = threading.Event()
+
+    def swapper():
+        flip = True
+        while not stop.is_set():
+            reg.swap("b" if flip else "a")
+            flip = not flip
+            time.sleep(0.002)
+
+    srv = AsyncBatchServer(reg, min_batch=256, max_batch=4096,
+                           max_wait_ms=5.0).start()
+    sw = threading.Thread(target=swapper)
+    try:
+        sw.start()
+        _, _, outs = drive_clients(
+            lambda X_: srv.predict(X_, raw_score=True, timeout=60.0), reqs,
+            8)
+        stop.set()
+        sw.join(60.0)
+        held(outs, (direct, ref_b), "swap")
+        reg.swap("a")
+        a = reg.resolve()
+        reg.swap("b")
+        if not np.array_equal(srv.predict(Xp[:5000], raw_score=True,
+                                          timeout=60.0), ref_b[:5000]):
+            raise AssertionError("serve swap: model b differs")
+        reg.rollback()
+        if reg.resolve() is not a or not np.array_equal(
+                srv.predict(Xp[:5000], raw_score=True, timeout=60.0),
+                direct[:5000]):
+            raise AssertionError("serve rollback: not the same model")
+    finally:
+        stop.set()
+        sw.join(60.0)
+        srv.stop(timeout=60.0)
+    rst = srv.stats()
+    async_launches += rst["batches"]
+    torch.cuda.synchronize()
+    launches = predict_walk.launches
+    log("serve swap: %d swaps under the mix (every answer equal to one "
+        "model's kernel output, %d requests, %d errors), then swap and "
+        "rollback bit-exact; predict_walk launches in the serve phase %d "
+        "(sync requests %d + async batches %d)" % (
+            rst["registry"]["swaps"], rst["requests"], rst["errors"],
+            launches, sync_launches, async_launches))
+    if launches != sync_launches + async_launches or not launches \
+            or rst["errors"]:
+        raise AssertionError("serve: %d walk launches, expected %d"
+                             % (launches, sync_launches + async_launches))
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=10_500_000)
@@ -4785,6 +5255,13 @@ def main() -> int:
                     "bagging_freq=5 window boundary inside)")
     ap.add_argument("--bag-parity-rows", type=int, default=100_000,
                     help="HIGGS rows of the bagging and GOSS parity paths")
+    ap.add_argument("--predict-rows", type=int, default=2_000_000,
+                    help="HIGGS rows of the served model (the first rows "
+                    "of the training matrix) and of the walk's checks")
+    ap.add_argument("--predict-iters", type=int, default=100,
+                    help="trees of the served model (255 leaves)")
+    ap.add_argument("--serve-rows", type=int, default=8_000_000,
+                    help="rows served in ragged batches by the sync server")
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
@@ -4928,6 +5405,14 @@ def main() -> int:
         ds.set_label(l2_target(latent))
         kernels.append(phase_renew_kernel(lgb.train(
             dict(COMMON, **PATHS["l1"][0]), ds, 2)))
+    # prediction and serving on the served model (bench.py:879-960)
+    t = time.time()
+    rec, pbst, Xp, direct = phase_predict(lgb, X, y, card, args.predict_rows,
+                                          args.predict_iters)
+    rec.update(phase_serve(pbst, Xp, direct, card, args.serve_rows))
+    kernels.append(rec)
+    log("predict and serve: %.1f s" % (time.time() - t))
+    del pbst, Xp, direct
     del X, y, latent, ds, inner
 
     X, y = make_expo_like(args.expo_rows)
@@ -4946,10 +5431,13 @@ def main() -> int:
                                       args.profile, "bundled",
                                       args.off_iters, keep=expo_keep)
     else:
-        expo_keep["tree"] = lgb.train(params, ds, 1)._booster.models[0]
+        expo_keep["bst"] = lgb.train(params, ds, 1)
+        expo_keep["tree"] = expo_keep["bst"]._booster.models[0]
     Xe, ye = make_expo_like(args.expo_valid_rows, seed=9)
     erec = phase_valid_walk("Expo", expo_keep["tree"], inner, lgb.Dataset(
         Xe, ye, reference=ds).construct()._inner, 2)
+    check_predict_cover(expo_keep["bst"], Xe, "bundled Expo",
+                        numpy_rows=len(Xe))
     walk_rec = next(k for k in kernels if k["name"] == "valid_walk")
     walk_rec.update({"expo_" + k: erec[k] for k in (
         "ms", "plain_ms", "bound_ms", "max_abs_err", "rows", "leaves")})
@@ -5013,13 +5501,16 @@ def main() -> int:
         next(k for k in kernels if k["name"] == "cat_scan").update(
             airline_wall_ms=wall, airline_busy_ms=busy,
             airline_num_cat=cat_keep["num_cat"])
-        tree = cat_keep["tree"]
+        tree, cat_bst = cat_keep["tree"], cat_keep["bst"]
         del cat_keep
     else:
-        tree = lgb.train(params, ds, 1)._booster.models[0]
+        cat_bst = lgb.train(params, ds, 1)
+        tree = cat_bst._booster.models[0]
     Xa, ya = make_airline_like(args.airline_valid_rows, seed=2)
     arec = phase_valid_walk("airline", tree, inner, lgb.Dataset(
         Xa, ya, reference=ds).construct()._inner, 3)
+    check_predict_cover(cat_bst, Xa, "airline")
+    del cat_bst
     walk_rec.update({"airline_" + k: arec[k] for k in (
         "ms", "plain_ms", "bound_ms", "max_abs_err", "rows", "leaves")})
     del X, y, Xa, ya, ds, inner, tree
@@ -5040,6 +5531,8 @@ def main() -> int:
                   "goss_select": "goss", "valid_walk_payload": "dart",
                   "bag_rows": "rf", "apply_scores_avg": "rf"}
         for rec in kernels:
+            if rec["name"] == "predict_walk":
+                continue            # counted over the serve phase
             run = runs[serves.get(rec["name"], "persist")]
             if rec["name"] == "grow_step":
                 rec["launches"] = run["grow_commit"]

@@ -15,8 +15,10 @@ one evaluation call reads all its values back with one copy.
 
 Device: the ``device_type`` parameter, ``cuda`` by default, ``cpu`` on
 request. A CUDA request on a machine without a card raises; it never falls
-back to the CPU. A Booster read from model text predicts with the numpy
-walk on the host and touches no device.
+back to the CPU. Prediction follows ``predict_device`` (a ``predict``
+keyword or a parameter; unset, the ``device_type``): ``cuda`` walks the
+trees with the CUDA kernel of predict/ (a Booster read from model text
+too), ``cpu`` with the numpy walk on the host.
 """
 from __future__ import annotations
 
@@ -372,21 +374,51 @@ class Booster:
         return len(self._booster.models)
 
     def predict(self, data, num_iteration: Optional[int] = None,
-                raw_score: bool = False, start_iteration: int = 0):
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, start_iteration: int = 0,
+                **kwargs):
         """Predictions of the first `num_iteration` iterations from
         `start_iteration`: [n] for one tree per iteration, [n, K] for K
         (multiclass); through the objective's output transform (softmax,
         a sigmoid per class for one-vs-all, exp for the log-link
-        regressions) unless `raw_score`."""
+        regressions) unless `raw_score`; with `pred_leaf` the [n, T] int32
+        leaf indices. ``predict_device`` (a keyword here or a parameter of
+        the Booster; unset, its ``device_type``) picks the walk: ``cuda``
+        the kernel on the card, ``cpu`` the numpy walk.
+        ``predict_disable_shape_check`` lets the rows have another number
+        of features (the walk reads the model's features only)."""
+        if pred_contrib:
+            raise LightGBMError(
+                "pred_contrib (SHAP values) is not ported: ROADMAP queue A, "
+                "item 8, step 2 (TreeSHAP as a CUDA kernel)")
         X = np.asarray(data, dtype=np.float64)
         nf = self._booster.max_feature_idx + 1
-        if X.ndim != 2 or X.shape[1] != nf:
+        cfg = self._predict_config(kwargs)
+        if X.ndim != 2 or (X.shape[1] != nf and not (
+                cfg.predict_disable_shape_check and X.shape[1] >= nf)):
             raise LightGBMError("The number of features in data (%s) is not "
                                 "the same as it was in training data (%d)"
                                 % (X.shape[1:] or X.shape, nf))
+        device = cfg.predict_device
+        num_iteration = self._default_iterations(num_iteration)
+        if pred_leaf:
+            return self._booster.predict_leaf_index(
+                X, start_iteration, num_iteration, device=device)
         return self._booster.predict(
             X, raw_score=raw_score, start_iteration=start_iteration,
-            num_iteration=self._default_iterations(num_iteration))
+            num_iteration=num_iteration, device=device)
+
+    _PREDICT_KEYS = ("predict_device", "predict_backend",
+                     "predict_disable_shape_check")
+
+    def _predict_config(self, kwargs: dict) -> Config:
+        """The Booster's parameters with `kwargs`' prediction keys on top
+        (unknown keywords raise)."""
+        bad = [k for k in kwargs if k not in self._PREDICT_KEYS]
+        if bad:
+            raise TypeError("predict() got unexpected keyword arguments %s"
+                            % bad)
+        return Config(dict(self.params, **kwargs))
 
     def _default_iterations(self, num_iteration: Optional[int]) -> int:
         """num_iteration, by default the best iteration when early stopping

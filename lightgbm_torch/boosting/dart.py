@@ -138,6 +138,7 @@ class DART(GBDT):
             first, second = 1.0 / (k + 1.0), -k
         else:
             first, second = self.shrinkage_rate, -k / cfg.learning_rate
+        self._invalidate_predictors()      # earlier trees are rescaled
         valid_values = []
         for tree in trees:
             tree.shrink(first)

@@ -9,8 +9,10 @@ row -> leaf map -> shrinkage and the iteration-0 bias (gbdt.cpp:338-420).
 A class with nothing to train (``class_need_train``) gets a constant tree.
 Model text IO follows gbdt_model_text.cpp (SaveModelToString :301,
 LoadModelFromString :385), K trees per iteration in class order, so the
-two packages read each other's models; prediction is the numpy walk, [n]
-raw scores for K = 1 and [n, K] otherwise.
+two packages read each other's models. Prediction ([n] raw scores for K = 1
+and [n, K] otherwise) runs the walk kernel on the card through a cached
+:meth:`GBDT.device_predictor` (predict/runtime.py; the JAX package's
+gbdt.py:1071-1093), or the numpy walk on the host for ``device="cpu"``.
 
 When the learner takes the persistent-payload grower (its
 ``can_persist_scan``, decided once at init), every iteration goes through
@@ -120,6 +122,8 @@ class GBDT:
         self.valid_metrics: List[list] = []
         self.valid_names: List[str] = []
         self._finished = False
+        # device predictors by (iteration range, model size, device)
+        self._predictors: Dict[tuple, object] = {}
 
     # ------------------------------------------------------------------
     def init(self, config: Config, train_data, objective, device) -> None:
@@ -463,6 +467,7 @@ class GBDT:
         custom = gradients is not None and hessians is not None
         if self.objective is None and not custom:
             Log.fatal("No objective function provided")
+        self._invalidate_predictors()
         if self._finished:
             return True
         K = self.num_tree_per_iteration
@@ -556,14 +561,95 @@ class GBDT:
             out /= max(len(models) // K, 1)
         return out[:, 0] if K == 1 else out
 
+    def _invalidate_predictors(self) -> None:
+        """Drop the device predictors: the model changed (a new iteration,
+        DART rescaling earlier trees, a loaded model)."""
+        self._predictors.clear()
+
+    def _predict_device(self, device) -> torch.device:
+        """The torch device of a kernel prediction: ``cuda`` is the
+        training card (or the current one), anything else as given."""
+        from ..predict.runtime import predict_device
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            trained = getattr(self, "device", None)
+            if trained is not None and torch.device(trained).type == "cuda":
+                dev = torch.device(trained)
+        return predict_device(dev)
+
+    def device_predictor(self, start_iteration=0, num_iteration=-1,
+                         device="cuda"):
+        """The predictor (predict/runtime.py:CudaPredictor) of the trees of
+        iterations [start, start + num_iteration) on `device`, cached per
+        (range, model size, device, dtype) while the model is unchanged.
+        ``tpu_predict_dtype`` sets its dtype."""
+        from ..predict import (CudaPredictor, EnsembleCompileError,
+                               compile_ensemble)
+        dev = self._predict_device(device)
+        cfg = self.config
+        dtype = str(getattr(cfg, "tpu_predict_dtype", "f64")) \
+            if cfg is not None else "f64"
+        key = (int(start_iteration), int(num_iteration), len(self.models),
+               str(dev), dtype)
+        pred = self._predictors.get(key)
+        if pred is None:
+            try:
+                ens = compile_ensemble(
+                    self._used_models(start_iteration, num_iteration),
+                    self.num_tree_per_iteration, self.average_output,
+                    self.max_feature_idx)
+            except EnsembleCompileError as exc:
+                # no quiet host fallback (the JAX package's
+                # _predict_device_or_none walks on the host here)
+                raise EnsembleCompileError(
+                    "%s; predict_device=cpu predicts with the numpy walk"
+                    % exc) from exc
+            pred = CudaPredictor(ens, self.objective, dtype=dtype,
+                                 device=dev)
+            if len(self._predictors) >= 8:
+                self._predictors.clear()
+            self._predictors[key] = pred
+        return pred
+
+    def _nothing_to_walk(self, device, start_iteration,
+                         num_iteration) -> bool:
+        """True when a kernel prediction selects no tree (the device is
+        still resolved: no card raises)."""
+        self._predict_device(device)
+        return not self._used_models(start_iteration, num_iteration)
+
     def predict(self, X: np.ndarray, raw_score=False, start_iteration=0,
-                num_iteration=-1) -> np.ndarray:
+                num_iteration=-1, device="cpu") -> np.ndarray:
         """predict_raw through the objective's ConvertOutput (softmax per
-        row for multiclass, a sigmoid per class for one-vs-all)."""
+        row for multiclass, a sigmoid per class for one-vs-all): by the
+        numpy walk for ``device="cpu"``, else by the walk kernel on
+        `device` (``cuda``: the card), the objective's conversion there
+        too. A range without trees gives the numpy
+        walk's answer (zeros through the conversion) on either route."""
+        if device != "cpu" and not self._nothing_to_walk(
+                device, start_iteration, num_iteration):
+            return self.device_predictor(
+                start_iteration, num_iteration, device).predict(
+                    X, raw_score=raw_score)
         raw = self.predict_raw(X, start_iteration, num_iteration)
         if not raw_score and self.objective is not None:
             return self.objective.convert_output(raw)
         return raw
+
+    def predict_leaf_index(self, X: np.ndarray, start_iteration=0,
+                           num_iteration=-1, device="cpu") -> np.ndarray:
+        """[n, T] int32 leaf indices of the selected trees (pred_leaf), by
+        the walk kernel on `device`, or the numpy walk for ``cpu``."""
+        if device != "cpu" and not self._nothing_to_walk(
+                device, start_iteration, num_iteration):
+            return self.device_predictor(
+                start_iteration, num_iteration, device).predict_leaf(X)
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        models = self._used_models(start_iteration, num_iteration)
+        out = np.zeros((X.shape[0], len(models)), dtype=np.int32)
+        for i, tree in enumerate(models):
+            out[:, i] = tree.predict_leaf(X)
+        return out
 
     def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
         """Split counts per feature (GBDT::FeatureImportance, "split")."""
@@ -612,6 +698,7 @@ class GBDT:
 
     def load_model_from_string(self, text: str) -> None:
         """GBDT::LoadModelFromString (gbdt_model_text.cpp:385+)."""
+        self._invalidate_predictors()
         self.models = []
         lines = text.splitlines()
         kv: Dict[str, str] = {}

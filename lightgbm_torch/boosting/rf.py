@@ -112,6 +112,7 @@ class RF(GBDT):
         """One iteration, one tree per class; never a stop."""
         if gradients is not None or hessians is not None:
             Log.fatal("RF mode does not support custom objective functions")
+        self._invalidate_predictors()
         t = float(self.iter)
         if self.use_persist:
             self._iteration_persist(t)

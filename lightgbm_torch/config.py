@@ -14,7 +14,9 @@ only when a knob asks for such a path.
 ``device_type`` is where the port differs: ``cuda`` (the default; ``gpu``
 is an alias) runs the hand-written kernels on the card, ``cpu`` runs their
 plain PyTorch versions on the host. A CUDA request on a machine without a
-card raises; it never falls back to the CPU.
+card raises; it never falls back to the CPU. ``predict_device`` follows
+``device_type`` where unset: ``cuda`` predicts with the walk kernel,
+``cpu`` with the numpy walk (``tpu`` is refused, naming ``cuda``).
 """
 from __future__ import annotations
 
@@ -220,8 +222,9 @@ PARAMS: List[_P] = [
     _P("tpu_telemetry", str, "off"),         # off | timers | trace (telemetry/)
     _P("telemetry_out", str, ""),            # Chrome-trace/metrics path base
     # ---- inference subsystem (predict/) ----
-    _P("predict_device", str, "cpu",         # cpu = numpy walk (default),
-       ("predict_backend",)),                # tpu = compiled device runtime
+    _P("predict_device", str, "",            # cuda (gpu) = the walk kernel,
+       ("predict_backend",)),                # cpu = numpy walk; unset =
+    #                                        # device_type
     _P("tpu_predict_dtype", str, "f64"),     # f64 (exact parity) | f32
     _P("tpu_predict_min_batch", int, 256, lo=1),   # serve bucket ladder
     _P("tpu_predict_max_batch", int, 65536, lo=1),  # bounds (pow2-rounded)
@@ -507,8 +510,15 @@ class Config:
             Log.fatal("Unknown device type %s (expected cuda|cpu)" % dev)
         self.device_type = dev
         pdev = str(self.predict_device).lower()
-        if pdev not in ("cpu", "tpu"):
-            Log.fatal("Unknown predict_device %s (expected cpu|tpu)" % pdev)
+        if pdev == "tpu":
+            Log.fatal("predict_device=tpu is the JAX package's; this package "
+                      "predicts on cuda (alias gpu) or cpu")
+        if pdev == "gpu":
+            pdev = "cuda"
+        if pdev == "":
+            pdev = dev
+        if pdev not in ("cpu", "cuda"):
+            Log.fatal("Unknown predict_device %s (expected cuda|cpu)" % pdev)
         self.predict_device = pdev
         pdt = str(self.tpu_predict_dtype).lower()
         if pdt not in ("f64", "f32", "float64", "float32"):
@@ -526,12 +536,12 @@ class Config:
             Log.fatal("Unknown tpu_serve_quant %s (expected "
                       "none|f16|int8)" % sq)
         self.tpu_serve_quant = "f16" if sq == "float16" else sq
-        if self.tpu_serve_async and self.predict_device != "tpu":
+        if self.tpu_serve_async and self.predict_device != "cuda":
             # asking for the async service loop IS asking for the device
-            # runtime; without this the serving knobs silently fall
-            # through to the host walk
-            Log.info("tpu_serve_async=true implies predict_device=tpu")
-            self.predict_device = "tpu"
+            # walk; without this the serving knobs would fall through to
+            # the host walk
+            Log.info("tpu_serve_async=true implies predict_device=cuda")
+            self.predict_device = "cuda"
         hq = str(self.tpu_hist_quant).lower()
         if hq in ("", "false", "0"):
             hq = "off"

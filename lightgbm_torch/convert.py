@@ -23,9 +23,10 @@ from .data.dataset import BinnedDataset
 from .ops.payload import PersistAssets
 
 
-def booster_from_reference(model_text: str) -> Booster:
-    """A port Booster from the JAX package's model text."""
-    return Booster(model_str=model_text)
+def booster_from_reference(model_text: str, params=None) -> Booster:
+    """A port Booster from the JAX package's model text (with `params`:
+    ``{"device_type": "cpu"}`` predicts with the numpy walk)."""
+    return Booster(params=params, model_str=model_text)
 
 
 def dataset_from_reference(arrays: Dict[str, np.ndarray]) -> BinnedDataset:

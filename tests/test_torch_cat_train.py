@@ -247,13 +247,15 @@ def test_model_text_both_ways():
                                atol=TOL)
     # the port's text read by both packages
     np.testing.assert_array_equal(
-        lp.Booster(model_str=tp).predict(Xt, raw_score=True), p_port)
+        lp.Booster(model_str=tp, params={"device_type": "cpu"}).predict(
+            Xt, raw_score=True), p_port)
     np.testing.assert_allclose(
         lt.Booster(model_str=tp).predict(Xt, raw_score=True), p_port,
         rtol=0, atol=1e-12)
     # the JAX package's text read by the port
     np.testing.assert_allclose(
-        lp.Booster(model_str=tj).predict(Xt, raw_score=True),
+        lp.Booster(model_str=tj, params={"device_type": "cpu"}).predict(
+            Xt, raw_score=True),
         bj.predict(Xt, raw_score=True), rtol=0, atol=1e-12)
     assert lp.Booster(model_str=tp).model_to_string().split(
         "\nparameters:")[0] == tp.split("\nparameters:")[0]
@@ -275,7 +277,8 @@ def test_validation_walk_equals_predict():
                                rtol=0, atol=1e-12)
     # a model read from text, bound to the validation bins, walks the same
     inner = dv._inner
-    loaded = lp.Booster(model_str=bst.model_to_string())
+    loaded = lp.Booster(model_str=bst.model_to_string(),
+                        params={"device_type": "cpu"})
     for t_tr, t_ld in zip(bst._booster.models, loaded._booster.models):
         t_ld.bind_to_dataset(inner)
         np.testing.assert_array_equal(t_ld.predict_leaf_binned(inner),

@@ -122,9 +122,11 @@ ALIAS_SETS = [
 def test_config_matches_jax(params):
     a, b = lp.Config(params), lt.Config(params)
     for p in PARAMS:
-        if p.name == "device_type":     # cuda | cpu here, tpu there
+        # cuda | cpu here, tpu there; prediction follows the device here
+        if p.name in ("device_type", "predict_device"):
             continue
         assert getattr(a, p.name) == getattr(b, p.name), p.name
+    assert a.predict_device == a.device_type
     assert a.extra == b.extra
 
 

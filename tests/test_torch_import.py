@@ -21,7 +21,10 @@ def test_import_leaves_jax_out():
             "lightgbm_torch.convert, lightgbm_torch.ops.grow, "
             "lightgbm_torch.ops.grow_persist, lightgbm_torch.ops.payload, "
             "lightgbm_torch.ops.payload_kernels, lightgbm_torch.ops.build, "
-            "lightgbm_torch.ops.block_scan; "
+            "lightgbm_torch.ops.block_scan, lightgbm_torch.ops.predict, "
+            "lightgbm_torch.predict, lightgbm_torch.predict.serve, "
+            "lightgbm_torch.serving, lightgbm_torch.serving.registry, "
+            "lightgbm_torch.telemetry; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('lightgbm_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

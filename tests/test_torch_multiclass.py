@@ -259,7 +259,7 @@ def test_model_text_loads_both_ways(objective):
     for src, dst_cls in ((bj, lp.Booster), (bp, lt.Booster)):
         text = src.model_to_string()
         assert "num_tree_per_iteration=3" in text
-        dst = dst_cls(model_str=text)
+        dst = dst_cls(model_str=text, params={"device_type": "cpu"})
         assert len(dst._booster.models) == 9
         assert dst._booster.current_iteration == 3
         for raw in (True, False):

@@ -264,7 +264,7 @@ def test_model_text_loads_both_ways(name, extra):
     for src, dst_cls in ((bj, lp.Booster), (bp, lt.Booster)):
         text = src.model_to_string()
         assert "objective=%s\n" % want in text
-        dst = dst_cls(model_str=text)
+        dst = dst_cls(model_str=text, params={"device_type": "cpu"})
         for raw in (True, False):
             np.testing.assert_array_equal(src.predict(X, raw_score=raw),
                                           dst.predict(X, raw_score=raw))

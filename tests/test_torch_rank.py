@@ -432,7 +432,8 @@ def test_model_text_round_trips():
     train_jax, bp = _train_pair(params, X, y, g, 4)
     bj = train_jax()
     for src, dst in ((bp, lt), (bj, lp)):
-        b = dst.Booster(model_str=src.model_to_string())
+        b = dst.Booster(model_str=src.model_to_string(),
+                        params={"device_type": "cpu"})
         np.testing.assert_array_equal(b.predict(X), src.predict(X))
     assert "objective=lambdarank" in bp.model_to_string()
 

@@ -132,7 +132,8 @@ def test_regression_model_text_loads_both_ways(objective):
     bj = lt.train(dict(params), lt.Dataset(X, y), 3)
     bp = train_port(dict(params, tpu_persist_scan="force"), X, y, 3)
     for src, dst_cls in ((bj, lp.Booster), (bp, lt.Booster)):
-        dst = dst_cls(model_str=src.model_to_string())
+        dst = dst_cls(model_str=src.model_to_string(),
+                      params={"device_type": "cpu"})
         for raw in (True, False):
             np.testing.assert_array_equal(src.predict(X, raw_score=raw),
                                           dst.predict(X, raw_score=raw))

@@ -393,7 +393,7 @@ def test_average_output_text_both_ways():
     for src, reader in ((bj, lp.Booster), (bp, lt.Booster)):
         text = src.model_to_string()
         assert "\naverage_output\n" in text
-        other = reader(model_str=text)
+        other = reader(model_str=text, params={"device_type": "cpu"})
         for raw in (True, False):
             np.testing.assert_array_equal(other.predict(X, raw_score=raw),
                                           src.predict(X, raw_score=raw))

@@ -124,7 +124,8 @@ def test_jax_model_loads_in_port():
     params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
               "verbosity": -1}
     bj = lt.train(dict(params), lt.Dataset(X, y), 5)
-    bp = booster_from_reference(bj.model_to_string())
+    bp = booster_from_reference(bj.model_to_string(),
+                                params={"device_type": "cpu"})
     assert bp.num_trees() == 5
     np.testing.assert_allclose(bp.predict(X, raw_score=True),
                                bj.predict(X, raw_score=True), rtol=0,
