@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without printing a result:
 
   1. card     the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds the fifteen CUDA kernel libraries from csrc/, in
+  2. build    nvcc builds the sixteen CUDA kernel libraries from csrc/, in
               parallel;
   3. kernels  each kernel against its plain PyTorch version at the main
               paths' shapes (HIGGS: 28 groups x 255 bins): hist_window and
@@ -218,6 +218,19 @@ exits non-zero without printing a result:
                        the training scores; wall, busy and idle share of an
                        iteration with its evaluation beside the persist
                        path's;
+              api      (after the valid path) on the persist path's
+                       Booster: rollback_one_iter (model text equal to the
+                       shorter text, payload scores against predict, one
+                       more update grows a tree), reset_parameter of
+                       num_leaves 63, lambda_l2 1 and min_data_in_leaf 200
+                       (the grower rebuilt, a new graph captured, at most
+                       63 leaves, the launch counts of its two iterations
+                       equal to the trees'), refit on the 500k held-out
+                       rows (structures kept, leaf_sums once per tree and
+                       held against its plain version on the CPU on the
+                       last tree's inputs and on one leaf of every row,
+                       timed beside index_add_ and its bound), pickle and
+                       deepcopy predicting bit-equal;
               launch counts checked against the trees, splits, level
               programs and per-split splits grown (level programs at most
               max_depth per tree) and, for the consolidation, the trees
@@ -283,7 +296,12 @@ exits non-zero without printing a result:
               iterations; scan_blocks, no scan_pair) with the same checks
               and 3 iterations with tpu_level_grow=off (split_pass's
               in-pass histogram) bit-equal to the first 3 trees;
-  6. parity   cuda against the CPU (the plain versions), 2 iterations (5
+  6. parity   cuda against the CPU (the plain versions; the CPU sides
+              train in a child process, this script with
+              --parity-cpu-worker and no card visible, started with the
+              script so that they run while the card's phases do; its
+              results are pickled under .cache/chip_smoke/ and its log
+              is echoed with "cpu worker |"), 2 iterations (5
               for the DEEP_PARITY paths: binary persist and v1, softmax
               on its three routes, the knobs, fobj), for
               the persistent (force) and v1 (false) growers and the level
@@ -311,7 +329,11 @@ exits non-zero without printing a result:
               GOSS (persist and v1) on --bag-parity-rows HIGGS rows, 31
               leaves, 6 iterations; DART and RF (persist and v1) on the
               same rows and DART on the bundled Expo parity rows
-              (scan_blocks), 31 leaves, 8 iterations.
+              (scan_blocks), 31 leaves, 8 iterations; the Booster API on
+              the 200k HIGGS rows at 31 leaves (phase_parity_api):
+              rollback then update on the persistent grower, a split key
+              reset after one iteration on both growers, refit of the v1
+              run's model on half of the rows: model digests equal.
 
 The last lines are a JSON object of per-kernel numbers, the list of
 kernels, the card's name and power limit, and the result line
@@ -2829,7 +2851,7 @@ def phase_train(lgb, X, y, ds, iters, card, profile, path, off_iters=0,
     if keep is not None and path in ("persist", "l1", "ltr", "knobs",
                                      "airline") + BAG_PATHS + DART_RF_PATHS:
         keep["iteration"] = profile_iteration(bst.update)
-    if keep is not None and path in ("l1", "airline", "bundled"):
+    if keep is not None and path in ("persist", "l1", "airline", "bundled"):
         keep["bst"] = bst
     if profile:
         phase_profile(bst, card, path)
@@ -3782,37 +3804,44 @@ ES_ROUTES = (
 )
 
 
-def phase_parity_es(lgb, data, rounds):
-    """Early stopping on cuda and on the CPU: each route of ES_ROUTES with
-    noisy labels and learning_rate 0.5, valid_sets=[train, valid],
-    early_stopping_rounds=3, at most `rounds` rounds; the same
-    best_iteration and number of trees (the stop must fire), records
-    within 1e-12 relative, equal model text."""
+def parity_es_side(lgb, data, dev, rounds):
+    """Early stopping on `dev`: each route of ES_ROUTES with noisy labels
+    and learning_rate 0.5, valid_sets=[train, valid],
+    early_stopping_rounds=3, at most `rounds` rounds: {route:
+    (best_iteration, trees, evals_result, model digest)}."""
+    out = {}
     for route, extra, persist, key in ES_ROUTES:
         X, y, Xv, yv, *groups = data[key]
         g, gv = groups or (None, None)
-        out = {}
-        for dev in ("cuda", "cpu"):
-            p = dict(COMMON, learning_rate=0.5, **extra, device_type=dev)
-            p.setdefault("metric", ["binary_logloss", "auc"])
-            t = time.time()
-            dt = lgb.Dataset(X, y, group=g, params=p)
-            dv = lgb.Dataset(Xv, yv, group=gv, reference=dt, params=p)
-            rec = {}
-            bst = lgb.train(p, dt, rounds, valid_sets=[dt, dv],
-                            early_stopping_rounds=3, evals_result=rec,
-                            verbose_eval=False)
-            if bst._booster.use_persist != persist:
-                raise AssertionError("parity es %s: wrong grower on %s"
-                                     % (route, dev))
-            out[dev] = (bst.best_iteration, bst.num_trees(), rec,
-                        model_digest(bst, -1))
-            first = next(iter(rec["valid_1"]))
-            log("parity es %s: %s stopped after %d rounds (best %d, %d "
-                "trees) in %.1f s" % (route, dev, len(rec["valid_1"][first]),
-                                      bst.best_iteration, bst.num_trees(),
-                                      time.time() - t))
-        (bc, tc, rc, dc), (bp, tp, rp, dp) = out["cuda"], out["cpu"]
+        p = dict(COMMON, learning_rate=0.5, **extra, device_type=dev)
+        p.setdefault("metric", ["binary_logloss", "auc"])
+        t = time.time()
+        dt = lgb.Dataset(X, y, group=g, params=p)
+        dv = lgb.Dataset(Xv, yv, group=gv, reference=dt, params=p)
+        rec = {}
+        bst = lgb.train(p, dt, rounds, valid_sets=[dt, dv],
+                        early_stopping_rounds=3, evals_result=rec,
+                        verbose_eval=False)
+        if bst._booster.use_persist != persist:
+            raise AssertionError("parity es %s: wrong grower on %s"
+                                 % (route, dev))
+        out[route] = (bst.best_iteration, bst.num_trees(), rec,
+                      model_digest(bst, -1))
+        first = next(iter(rec["valid_1"]))
+        log("parity es %s: %s stopped after %d rounds (best %d, %d "
+            "trees) in %.1f s" % (route, dev, len(rec["valid_1"][first]),
+                                  bst.best_iteration, bst.num_trees(),
+                                  time.time() - t))
+    return out
+
+
+def phase_parity_es(cuda, cpu, rounds):
+    """Early stopping on cuda and on the CPU (parity_es_side's results):
+    the same best_iteration and number of trees (the stop must fire),
+    records within 1e-12 relative, equal model text."""
+    for route, _, _, _ in ES_ROUTES:
+        (bc, tc, rc, dc), (bp, tp, rp, dp) = cuda[route], cpu[route]
+        first = next(iter(rc["valid_1"]))
         if not 0 < bc < len(rc["valid_1"][first]) < rounds:
             raise AssertionError("parity es %s: early stopping did not fire "
                                  "(best %d)" % (route, bc))
@@ -4219,15 +4248,13 @@ def binary_fobj(preds, ds):
 FOBJ = {"binary": binary_fobj}
 
 
-def phase_parity(lgb, data, iters, mc_iters, deep_iters):
-    """Each path on cuda and on the CPU grows the same trees, with the same
-    leaf values and the same model text (sha256 without the parameters).
-    `data` maps a PARITY data name to (X, y), (X, y, weights) or (X, y,
-    weights or None, query sizes); the DEEP_PARITY paths train
-    `deep_iters` iterations, the other multiclass paths `mc_iters` (3
-    trees each), the rest `iters`."""
-    built = {}
-    t_all = time.time()
+def parity_side(lgb, data, dev, iters, mc_iters, deep_iters):
+    """Every PARITY path trained on `dev`: {path: (trees, model digest,
+    iterations)}. `data` maps a PARITY data name to (X, y), (X, y,
+    weights) or (X, y, weights or None, query sizes); the DEEP_PARITY
+    paths train `deep_iters` iterations, the other multiclass paths
+    `mc_iters` (3 trees each), the rest `iters`."""
+    built, out = {}, {}
     for path, name, extra, (persist, level, blocks) in PARITY:
         X, y, *rest = data[name]
         w = rest[0] if rest else None
@@ -4239,32 +4266,38 @@ def phase_parity(lgb, data, iters, mc_iters, deep_iters):
         n_it = own_iters or (
             deep_iters if path in DEEP_PARITY else
             mc_iters if params.get("num_class", 1) > 1 else iters)
-        out, digest = {}, {}
-        for dev in ("cuda", "cpu"):
-            p = dict(params, device_type=dev)
-            t = time.time()
-            ds = built.get((name, dev)) or lgb.Dataset(
-                X, y, weight=w, group=g, params=p)
-            if g is not None:
-                # the ranking paths share one binned Dataset per device
-                # (137 features take seconds to bin)
-                built[(name, dev)] = ds
-            bst = lgb.train(p, ds, n_it, fobj=fobj)
-            if bst._booster.use_persist != persist:
-                raise AssertionError("parity %s: wrong grower on %s"
+        p = dict(params, device_type=dev)
+        t = time.time()
+        ds = built.get(name) or lgb.Dataset(X, y, weight=w, group=g,
+                                            params=p)
+        if g is not None:
+            # the ranking paths share one binned Dataset per device (137
+            # features take seconds to bin)
+            built[name] = ds
+        bst = lgb.train(p, ds, n_it, fobj=fobj)
+        if bst._booster.use_persist != persist:
+            raise AssertionError("parity %s: wrong grower on %s"
+                                 % (path, dev))
+        if level or blocks:
+            gr = bst._booster.tree_learner._persist_gr
+            if level and not sum(a for a, _ in gr.grow_stats) or \
+                    (gr.blocks is not None) != blocks:
+                raise AssertionError("parity %s: the level phase or the "
+                                     "block scan did not run on %s"
                                      % (path, dev))
-            if level or blocks:
-                gr = bst._booster.tree_learner._persist_gr
-                if level and not sum(a for a, _ in gr.grow_stats) or \
-                        (gr.blocks is not None) != blocks:
-                    raise AssertionError("parity %s: the level phase or the "
-                                         "block scan did not run on %s"
-                                         % (path, dev))
-            out[dev] = bst._booster.models
-            digest[dev] = model_digest(bst)
-            log("parity %s: %s trained %d trees in %.1f s"
-                % (path, dev, len(out[dev]), time.time() - t))
-        a, b = out["cuda"], out["cpu"]
+        out[path] = (bst._booster.models, model_digest(bst), n_it)
+        log("parity %s: %s trained %d trees in %.1f s"
+            % (path, dev, len(out[path][0]), time.time() - t))
+    return out
+
+
+def phase_parity(cuda, cpu, rows):
+    """Each PARITY path grew the same trees on cuda and on the CPU
+    (`cuda`, `cpu`: parity_side's results), with the same leaf values and
+    the same model text (sha256 without the parameters); `rows`: the rows
+    of each data name."""
+    for path, name, _, _ in PARITY:
+        (a, dc, n_it), (b, dp, _) = cuda[path], cpu[path]
         if len(a) != len(b):
             raise AssertionError("parity %s: %d trees on cuda, %d on cpu"
                                  % (path, len(a), len(b)))
@@ -4284,14 +4317,386 @@ def phase_parity(lgb, data, iters, mc_iters, deep_iters):
                     "parity %s: tree %d leaf values differ, max abs diff "
                     "%.3g" % (path, i, float(np.abs(
                         ta.leaf_value[:k + 1] - tb.leaf_value[:k + 1]).max())))
-        if digest["cuda"] != digest["cpu"]:
+        if dc != dp:
             raise AssertionError("parity %s: model text differs (sha256 %s "
-                                 "on cuda, %s on cpu)"
-                                 % (path, digest["cuda"], digest["cpu"]))
+                                 "on cuda, %s on cpu)" % (path, dc, dp))
         log("parity %s: %d rows x %d iterations (%d trees): tree structure, "
             "leaf values and model text (sha256 %s) equal on cuda and cpu"
-            % (path, X.shape[0], n_it, len(a), digest["cuda"][:16]))
-    log("parity: %d paths in %.1f s" % (len(PARITY), time.time() - t_all))
+            % (path, rows[name], n_it, len(a), dc[:16]))
+
+
+# ---- the Booster API between iterations: rollback, reset, refit ------------
+
+# the split keys the api phase resets on the persist path's Booster
+API_RESET = {"num_leaves": 63, "lambda_l2": 1.0, "min_data_in_leaf": 200}
+
+
+def leaf_sums_record(cap, card):
+    """leaf_sums on the inputs of refit's last tree (`cap`: its leaf of
+    every held-out row, the f32 grad and hess, its leaf count; the rows
+    ordered by leaf as refit orders them) and on one leaf holding every
+    row: two launches equal, equal bit for bit to the plain version on the
+    CPU. Times (median per call on the card): the kernel,
+    the plain version on the card (a loop over the leaves), and one
+    index_add_ of the (grad, hess, 1) rows by leaf, widened to f64 (a
+    library call that sums the same values in an order of its own). Bound:
+    the function's data, each row's int32 leaf and f32 grad and hess read
+    once and each leaf's (sums, count) written once; two f64 adds a
+    row."""
+    import torch
+    from lightgbm_torch.ops.refit import (leaf_segments, leaf_sums,
+                                          leaf_sums_plain)
+    order, seg = leaf_segments(cap["leaf"], cap["num_leaves"])
+    g, h = cap["grad"], cap["hess"]
+    n, L = order.numel(), seg.shape[0]
+    err = 0.0
+    whole = torch.tensor([[0, n]], dtype=torch.int64, device=order.device)
+    for label, o, sg in (("the last tree's %d leaves" % L, order, seg),
+                         ("one leaf holding every row", order, whole)):
+        outs = []
+        for _ in range(2):
+            out = torch.full((sg.shape[0], 3), 7.5, dtype=torch.float64,
+                             device=o.device)
+            leaf_sums(o, g, h, sg, out)
+            outs.append(out)
+        cpu = torch.empty((sg.shape[0], 3), dtype=torch.float64)
+        leaf_sums_plain(o.cpu(), g.cpu(), h.cpu(), sg.cpu(), cpu)
+        torch.cuda.synchronize()
+        err = max(err, _same("leaf_sums two launches, " + label,
+                             outs[0], outs[1]),
+                  _same("leaf_sums, " + label, outs[0], cpu))
+    out = torch.empty((L, 3), dtype=torch.float64, device=order.device)
+    ms = device_ms(lambda: leaf_sums(order, g, h, seg, out),
+                   sleep_cycles=20_000_000)
+    plain_ms = device_ms(lambda: leaf_sums_plain(order, g, h, seg, out),
+                         reps=3, warmup=1)
+    leaf = cap["leaf"].long()
+    rows = torch.stack([g, h, torch.ones_like(g)], 1).double()
+    acc = torch.zeros((L, 3), dtype=torch.float64, device=order.device)
+    lib_ms = device_ms(lambda: acc.index_add_(0, leaf, rows),
+                       sleep_cycles=20_000_000)
+    b_ms, b_by = bound_ms(12.0 * n + 24.0 * L, 2.0 * n, f64=True)
+    counts = seg[:, 1].cpu().numpy()
+    log("leaf_sums: %d held-out rows in %d leaves (largest %d rows, %d "
+        "empty) and in one leaf: two launches and the plain version on the "
+        "CPU bit-identical; median time per call: kernel %.4f ms, plain (a "
+        "loop over the leaves on the card) %.3f ms, index_add_ %.4f ms; "
+        "bound %.6f ms (%s) (%s)" % (n, L, int(counts.max()),
+                                     int((counts == 0).sum()), ms, plain_ms,
+                                     lib_ms, b_ms, b_by, card))
+    return {"name": "leaf_sums", "route": "cuda",
+            "source": "lightgbm_torch/csrc/leaf_sums.cu",
+            "replaces": "lightgbm_tpu/boosting/gbdt.py:802 (refit: the JAX "
+                        "package's host np.bincount per leaf; no Pallas "
+                        "kernel)",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "rows": n, "leaves": L}
+
+
+def phase_api(lgb, bst, X, Xv, yv, card):
+    """The Booster API between iterations on the persist path's Booster
+    (10.5M HIGGS rows, 255 leaves; its graph replayed):
+      rollback  rollback_one_iter(): the model text equal to its first
+                n - 1 iterations' text, the payload's f32 scores equal to
+                predict() on the first WALK_ROWS rows within 2 (n + 2) f32
+                ulps of the largest score (each add and the subtraction
+                rounding once), then one update() that grows a tree;
+      reset     reset_parameter(API_RESET) and two update()s: the grower
+                rebuilt for the new leaf budget, its first iteration run
+                checked and its second captured as a new CUDA graph, at
+                most 63 leaves a tree, the launch counts of the two equal
+                to expected_launches;
+      refit     refit() on the held-out rows: every tree's structure kept
+                and its leaf counts summing to the rows, leaf_sums once
+                per tree (its record: leaf_sums_record on the last tree's
+                inputs);
+      copies    pickle and deepcopy round trips predict bit-equal on the
+                card.
+    Returns (the launch counts of the refit, leaf_sums's record)."""
+    import copy
+    import pickle
+    import torch
+    from lightgbm_torch.ops import refit as refit_mod
+    t_all = time.time()
+    g = bst._booster
+    sub = X[:WALK_ROWS]
+    n_it = bst.current_iteration()
+    t = time.time()
+    short = bst.model_to_string(num_iteration=n_it - 1)
+    bst.rollback_one_iter()
+    torch.cuda.synchronize()
+    roll_ms = (time.time() - t) * 1e3
+    if bst.model_to_string() != short or bst.current_iteration() != n_it - 1:
+        raise AssertionError("api: the rolled-back model text differs from "
+                             "its first %d iterations' text" % (n_it - 1))
+    raw = bst.predict(sub, raw_score=True)
+    gap = float(np.abs(g.train_score.score[:len(sub)].cpu().numpy()
+                       - raw).max())
+    tol = 2 * (n_it + 2) * 1.1920929e-07 * max(1.0, np.abs(raw).max())
+    if not gap <= tol:
+        raise AssertionError("api: payload scores after the rollback differ "
+                             "from predict by %.3g (limit %.3g)" % (gap, tol))
+    t = time.time()
+    bst.update()
+    torch.cuda.synchronize()
+    upd_ms = (time.time() - t) * 1e3
+    if bst.current_iteration() != n_it or g.models[-1].num_leaves < 2:
+        raise AssertionError("api: the update after the rollback grew no "
+                             "tree")
+    log("api rollback: %d -> %d iterations in %.1f ms, model text equal to "
+        "the first %d iterations', payload scores vs predict on %d rows max "
+        "abs diff %.3g (limit %.3g); one more update() %.1f ms grew a "
+        "%d-leaf tree" % (n_it, n_it - 1, roll_ms, n_it - 1, len(sub), gap,
+                          tol, upd_ms, g.models[-1].num_leaves))
+    # split keys: the grower rebuilt, its graph captured anew
+    old = g.tree_learner._persist_gr
+    old_graph = old._graph
+    reset_counts()
+    t = time.time()
+    bst.reset_parameter(dict(API_RESET))
+    walls = []
+    for _ in range(2):
+        t1 = time.time()
+        bst.update()
+        torch.cuda.synchronize()
+        walls.append((time.time() - t1) * 1e3)
+    counts = read_counts()
+    reset_ms = (time.time() - t) * 1e3
+    gr = g.tree_learner._persist_gr
+    trees = g.models[-2:]
+    if gr is old or old_graph is None or gr._graph is None \
+            or gr._graph[0] is old_graph[0] or not g.use_persist:
+        raise AssertionError("api reset: the grower was not rebuilt with a "
+                             "new graph (use_persist %s)" % g.use_persist)
+    if gr.gc.num_leaves != 63 or any(t_.num_leaves > 63 for t_ in trees):
+        raise AssertionError("api reset: trees of %s leaves after "
+                             "num_leaves=63" % [t_.num_leaves
+                                                for t_ in trees])
+    want, _ = expected_launches(bst, trees)
+    bad = {k: (counts[k], want.get(k, 0)) for k in counts
+           if counts[k] != want.get(k, 0)}
+    if bad:
+        raise AssertionError("api reset: launch counts (got, expected) %s"
+                             % bad)
+    log("api reset: reset_parameter(%s) and two update()s in %.1f ms (%s "
+        "ms): the grower rebuilt (%d leaves), the first iteration checked, "
+        "the second captured as a new graph (%s nodes, capture %.1f ms), "
+        "trees of %s leaves; launches %s equal to the trees' (%s)"
+        % (API_RESET, reset_ms, ["%.1f" % w for w in walls],
+           gr.gc.num_leaves, gr.graph_stats.get("nodes"),
+           gr.graph_stats.get("capture_ms", 0.0),
+           [t_.num_leaves for t_ in trees],
+           {k: v for k, v in counts.items() if v}, card))
+    # refit on the held-out rows, the per-leaf sums' inputs of its last
+    # tree kept
+    cap = {}
+    sums = refit_mod.per_leaf_sums
+
+    def keep(leaf, grad, hess, num_leaves):
+        cap.update(leaf=leaf, grad=grad, hess=hess, num_leaves=num_leaves)
+        return sums(leaf, grad, hess, num_leaves)
+    refit_mod.per_leaf_sums = keep
+    reset_counts()
+    try:
+        t = time.time()
+        r = bst.refit(Xv, yv, decay_rate=0.9)
+        torch.cuda.synchronize()
+        refit_s = time.time() - t
+        refit_counts = read_counts()
+    finally:
+        refit_mod.per_leaf_sums = sums
+    T = len(g.models)
+    if refit_counts["leaf_sums"] != T or len(r._booster.models) != T:
+        raise AssertionError("api refit: leaf_sums ran %d times for %d "
+                             "trees" % (refit_counts["leaf_sums"], T))
+    for i, (a, b) in enumerate(zip(g.models, r._booster.models)):
+        k = a.num_leaves - 1
+        if b.num_leaves != a.num_leaves or not all(
+                np.array_equal(getattr(a, f)[:k], getattr(b, f)[:k])
+                for f in ("split_feature", "threshold", "decision_type",
+                          "left_child", "right_child")) \
+                or int(b.leaf_count[:k + 1].sum()) != len(yv):
+            raise AssertionError("api refit: tree %d changed its structure "
+                                 "or lost rows" % i)
+    moved = float(np.abs(r.predict(Xv[:WALK_ROWS], raw_score=True)
+                         - bst.predict(Xv[:WALK_ROWS], raw_score=True)).max())
+    log("api refit: %d trees fit again to %d held-out rows (decay_rate 0.9) "
+        "in %.2f s: structures equal, leaf counts sum to the rows, "
+        "leaf_sums launched %d times, raw scores moved by up to %.4g"
+        % (T, len(yv), refit_s, refit_counts["leaf_sums"], moved))
+    rec = leaf_sums_record(cap, card)
+    rec["refit_s"] = refit_s
+    # pickling and copying go through model text
+    t = time.time()
+    want = bst.predict(X[:200_000], raw_score=True)
+    for how, other in (("pickle", pickle.loads(pickle.dumps(bst))),
+                       ("deepcopy", copy.deepcopy(bst))):
+        if not np.array_equal(other.predict(X[:200_000], raw_score=True),
+                              want):
+            raise AssertionError("api: the %s round trip predicts other "
+                                 "raw scores" % how)
+    log("api copies: pickle and deepcopy round trips predict raw scores "
+        "bit-equal on the card on 200000 rows (%.2f s)" % (time.time() - t))
+    api_s = time.time() - t_all
+    rec.update(api_s=api_s, rollback_ms=roll_ms, update_after_rollback_ms=
+               upd_ms, reset_updates_ms=walls)
+    log("api: %.1f s in all (%s)" % (api_s, card))
+    return refit_counts, rec
+
+
+API_PARITY_RESET = {"num_leaves": 15, "lambda_l2": 1.0,
+                    "min_data_in_leaf": 50}
+
+
+API_PARITY = ("rollback persist", "reset persist", "reset v1", "refit")
+
+
+def parity_api_side(lgb, X, y, dev):
+    """The Booster API on `dev` on the parity rows (31 leaves): rollback
+    then update on the persistent grower; a split key reset
+    (API_PARITY_RESET) after one iteration on the persistent and the v1
+    grower; refit of the v1 run's model on the second half of the rows.
+    {path: model digest}."""
+    half = len(y) // 2
+    texts, out = {}, {}
+    for path in API_PARITY:
+        t = time.time()
+        if path == "refit":
+            src = lgb.Booster(params=dict(COMMON, num_leaves=31,
+                                          device_type=dev),
+                              model_str=texts["reset v1"])
+            bst = src.refit(X[half:], y[half:], decay_rate=0.5)
+        else:
+            p = dict(COMMON, num_leaves=31, device_type=dev,
+                     tpu_persist_scan="false" if path.endswith("v1")
+                     else "force")
+            bst = lgb.Booster(p, lgb.Dataset(X, y, params=p))
+            bst.update()
+            if path == "rollback persist":
+                bst.update()
+                bst.rollback_one_iter()
+            else:
+                bst.reset_parameter(dict(API_PARITY_RESET))
+            bst.update()
+            if bst._booster.use_persist != path.endswith("persist") \
+                    or bst.current_iteration() != 2:
+                raise AssertionError("parity %s: wrong grower or "
+                                     "iterations on %s" % (path, dev))
+            texts[path] = bst.model_to_string()
+        out[path] = model_digest(bst)
+        log("parity %s: %s in %.1f s" % (path, dev, time.time() - t))
+    return out
+
+
+def phase_parity_api(cuda, cpu):
+    """The Booster API paths' model digests (parity_api_side's results)
+    equal on cuda and on the CPU."""
+    for path in API_PARITY:
+        if cuda[path] != cpu[path]:
+            raise AssertionError("parity %s: model text differs (sha256 %s "
+                                 "on cuda, %s on cpu)"
+                                 % (path, cuda[path], cpu[path]))
+        log("parity %s: model text (sha256 %s) equal on cuda and cpu"
+            % (path, cuda[path][:16]))
+
+
+def parity_data(args):
+    """The parity phase's data, from seeds: (data by PARITY name, the
+    early-stopping data)."""
+    from lightgbm_torch.data.synth import make_airline_like, make_expo_like
+    Xp, yp, lat = higgs_latent(args.parity_rows, seed=11)
+    counts = np.random.default_rng(17).poisson(np.exp(lat / 2))
+    y_l2 = l2_target(lat, seed=19)
+    wp = np.random.default_rng(23).uniform(0.5, 2.0, len(yp))
+    y01 = 1.0 / (1.0 + np.exp(-lat.astype(np.float64)))
+    data = {"higgs": (Xp, yp), "higgs-3": (Xp, quantile_classes(lat, 3)),
+            "higgs-counts": (Xp, counts.astype(np.float64)),
+            "expo": make_expo_like(args.expo_parity_rows, seed=11),
+            "higgs-l2": (Xp, y_l2), "higgs-l2-w": (Xp, y_l2, wp),
+            "higgs-mape": (Xp, 3.0 * y_l2),
+            "higgs-abs": (Xp, np.abs(y_l2)),
+            "higgs-01": (Xp, y01), "higgs-01-w": (Xp, y01, wp)}
+    Xr, yr, _ = ltr_data(args.rank_parity_rows, 7)
+    gr = rank_sizes(len(yr), 8, longest=400)
+    wr = np.random.default_rng(9).uniform(0.5, 2.0, len(yr))
+    data["ltr-w"] = (Xr, yr, wr, gr)
+    data["airline"] = make_airline_like(args.cat_parity_rows, seed=5)
+    data["higgs-bag"] = (Xp[:args.bag_parity_rows],
+                         yp[:args.bag_parity_rows])
+    log("data: make_ltr_like(%d, seed=7) in %d queries of 1 to %d rows"
+        % (args.rank_parity_rows, len(gr), gr.max()))
+    return data, es_data(args.es_rows)
+
+
+def parity_sides(lgb, args, dev):
+    """The parity phase's training on `dev`: ((parity_side's,
+    parity_es_side's and parity_api_side's results), the rows of each
+    data name)."""
+    data, es = parity_data(args)
+    t = time.time()
+    out = (parity_side(lgb, data, dev, args.parity_iters,
+                       args.mc_parity_iters, args.deep_parity_iters),
+           parity_es_side(lgb, es, dev, args.es_rounds),
+           parity_api_side(lgb, *data["higgs"], dev))
+    log("parity: every path trained on %s in %.1f s" % (dev, time.time() - t))
+    return out, {name: len(v[1]) for name, v in data.items()}
+
+
+# the CPU sides of the parity phase run in a process of their own, started
+# with the script, while the card's phases run; its results and its log
+# land here (under the checkout's .cache/, which git ignores)
+PARITY_CPU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              ".cache", "chip_smoke")
+
+
+def start_parity_cpu():
+    """Start the parity phase's CPU sides in a child process: this script
+    with --parity-cpu-worker and the same sizes, no card visible to it."""
+    os.makedirs(PARITY_CPU_DIR, exist_ok=True)
+    out = os.path.join(PARITY_CPU_DIR, "parity_cpu.pkl")
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(os.path.join(PARITY_CPU_DIR, "parity_cpu.log"), "w") as log_f:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--parity-cpu-worker"] + sys.argv[1:],
+            stdout=log_f, stderr=subprocess.STDOUT, env=env)
+
+
+def parity_cpu_worker(args) -> int:
+    """The child's work: every parity path's CPU side, pickled for the
+    parent. Its torch leaves two cores to the parent's host loops."""
+    import pickle
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_torch as lgb
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+    res = parity_sides(lgb, args, "cpu")
+    os.makedirs(PARITY_CPU_DIR, exist_ok=True)
+    tmp = os.path.join(PARITY_CPU_DIR, "parity_cpu.pkl.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(res, f)
+    os.replace(tmp, os.path.join(PARITY_CPU_DIR, "parity_cpu.pkl"))
+    return 0
+
+
+def collect_parity_cpu(child):
+    """Wait for the child, echo its log, return its results."""
+    import pickle
+    t = time.time()
+    rc = child.wait()
+    with open(os.path.join(PARITY_CPU_DIR, "parity_cpu.log")) as f:
+        for line in f:
+            print("cpu worker | " + line.rstrip("\n"), flush=True)
+    if rc != 0:
+        raise AssertionError("the parity phase's CPU worker exited with %d"
+                             % rc)
+    with open(os.path.join(PARITY_CPU_DIR, "parity_cpu.pkl"), "rb") as f:
+        res = pickle.load(f)
+    log("parity: waited %.1f s for the CPU sides" % (time.time() - t))
+    return res
 
 
 # ---- learning to rank (MSLR-WEB30K's shape) --------------------------------
@@ -5266,7 +5671,11 @@ def main() -> int:
     ap.add_argument("--skip-parity", action="store_true")
     ap.add_argument("--profile", action="store_true",
                     help="after each train path, profile one more iteration")
+    ap.add_argument("--parity-cpu-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.parity_cpu_worker:
+        return parity_cpu_worker(args)
     # the recorded digests hold at the default sizes
     FULL_SIZE["on"] = all(getattr(args, k) == ap.get_default(k) for k in (
         "rows", "iters", "v1_iters", "level_iters", "mc_iters", "reg_iters",
@@ -5279,11 +5688,23 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_torch as lgb
+
+    card = phase_card()
+    parity_cpu = None if args.skip_parity else start_parity_cpu()
+    try:
+        return run(args, lgb, torch, card, parity_cpu)
+    finally:
+        if parity_cpu is not None and parity_cpu.poll() is None:
+            parity_cpu.kill()
+            parity_cpu.wait()
+
+
+def run(args, lgb, torch, card, parity_cpu) -> int:
+    """Every phase after the card's name (the module docstring), the
+    parity phase's CPU sides running meanwhile in `parity_cpu`."""
     from lightgbm_torch.data.synth import make_airline_like, make_expo_like
     from lightgbm_torch.treelearner.serial import feature_meta, grow_config
     from lightgbm_torch.ops.split import SplitParams
-
-    card = phase_card()
     phase_build()
 
     X, y, latent = higgs_latent(args.rows)
@@ -5318,7 +5739,12 @@ def main() -> int:
         vinner = lgb.Dataset(Xv, yv, reference=ds).construct()._inner
     kernels.append(phase_valid_walk("HIGGS", tree, inner, vinner, 1))
     kernels += phase_dart_rf_kernels(tree, inner)
-    del Xv, yv, tree, vinner
+    # rollback, a split key reset and refit on the persist path's Booster
+    api_bst = persist_keep.pop("bst", None) or lgb.train(
+        dict(COMMON, **PATHS["persist"][0]), ds, 3)
+    runs["api"], rec = phase_api(lgb, api_bst, X, Xv, yv, card)
+    kernels.append(rec)
+    del Xv, yv, tree, vinner, api_bst
     if not args.skip_train:
         runs["v1"] = phase_train(lgb, X, y, ds, args.v1_iters, card,
                                  args.profile, "v1")
@@ -5529,7 +5955,8 @@ def main() -> int:
                   "lambdarank_grad": "ltr", "xendcg_grad": "xendcg",
                   "cat_scan": "airline", "bag_apply": "bagging",
                   "goss_select": "goss", "valid_walk_payload": "dart",
-                  "bag_rows": "rf", "apply_scores_avg": "rf"}
+                  "bag_rows": "rf", "apply_scores_avg": "rf",
+                  "leaf_sums": "api"}
         for rec in kernels:
             if rec["name"] == "predict_walk":
                 continue            # counted over the serve phase
@@ -5564,30 +5991,15 @@ def main() -> int:
             if rec["name"] == "bag_apply":
                 rec["goss_launches"] = runs["goss"]["bag_apply"]
     if not args.skip_parity:
-        Xp, yp, lat = higgs_latent(args.parity_rows, seed=11)
-        counts = np.random.default_rng(17).poisson(np.exp(lat / 2))
-        y_l2 = l2_target(lat, seed=19)
-        wp = np.random.default_rng(23).uniform(0.5, 2.0, len(yp))
-        y01 = 1.0 / (1.0 + np.exp(-lat.astype(np.float64)))
-        data = {"higgs": (Xp, yp), "higgs-3": (Xp, quantile_classes(lat, 3)),
-                "higgs-counts": (Xp, counts.astype(np.float64)),
-                "expo": make_expo_like(args.expo_parity_rows, seed=11),
-                "higgs-l2": (Xp, y_l2), "higgs-l2-w": (Xp, y_l2, wp),
-                "higgs-mape": (Xp, 3.0 * y_l2),
-                "higgs-abs": (Xp, np.abs(y_l2)),
-                "higgs-01": (Xp, y01), "higgs-01-w": (Xp, y01, wp)}
-        Xr, yr, _ = ltr_data(args.rank_parity_rows, 7)
-        gr = rank_sizes(len(yr), 8, longest=400)
-        wr = np.random.default_rng(9).uniform(0.5, 2.0, len(yr))
-        data["ltr-w"] = (Xr, yr, wr, gr)
-        data["airline"] = make_airline_like(args.cat_parity_rows, seed=5)
-        data["higgs-bag"] = (Xp[:args.bag_parity_rows],
-                             yp[:args.bag_parity_rows])
-        log("data: make_ltr_like(%d, seed=7) in %d queries of 1 to %d rows"
-            % (args.rank_parity_rows, len(gr), gr.max()))
-        phase_parity(lgb, data, args.parity_iters, args.mc_parity_iters,
-                     args.deep_parity_iters)
-        phase_parity_es(lgb, es_data(args.es_rows), args.es_rounds)
+        t = time.time()
+        (cuda, cuda_es, cuda_api), rows = parity_sides(lgb, args, "cuda")
+        (cpu, cpu_es, cpu_api), _ = collect_parity_cpu(parity_cpu)
+        phase_parity(cuda, cpu, rows)
+        phase_parity_es(cuda_es, cpu_es, args.es_rounds)
+        phase_parity_api(cuda_api, cpu_api)
+        log("parity: %d paths in %.1f s after the card's other phases"
+            % (len(PARITY) + len(ES_ROUTES) + len(API_PARITY),
+               time.time() - t))
     print(json.dumps({"kernels": kernels}), flush=True)
     print("kernels: " + ", ".join(k["name"] for k in kernels), flush=True)
     print(card, flush=True)

@@ -1,14 +1,17 @@
 """User-facing Dataset and Booster of the port.
 
-The port of the slice of lightgbm_tpu/basic.py that training needs: a
-``Dataset`` from an in-memory numpy matrix, with categorical columns
-(``categorical_feature=`` by index or by name, or the
-``categorical_feature`` parameter) and query groups for ranking
-(``group=``, ``set_group``/``get_group``; a validation set bins with its
-``reference``'s mappers and keeps its own groups), and a ``Booster`` that
-trains (``update``), evaluates its training and validation sets
-(``add_valid``, ``eval*``), predicts, and writes and reads LightGBM model
-text.
+The port of lightgbm_tpu/basic.py for in-memory numpy matrices: a
+``Dataset`` with categorical columns (``categorical_feature=`` by index or
+by name, or the ``categorical_feature`` parameter), query groups for
+ranking (``group=``, ``set_group``/``get_group``; a validation set bins
+with its ``reference``'s mappers and keeps its own groups), the field
+setters and getters, ``subset`` (rows of its bins, lazily) and
+``add_features_from``; and a ``Booster`` that trains (``update``), changes
+its parameters between iterations (``reset_parameter``), rolls back an
+iteration, refits its leaves to new rows (``refit``), evaluates its
+training and validation sets (``add_valid``, ``eval*``), predicts, reports
+feature importances, dumps its model as JSON, writes and reads LightGBM
+model text, and pickles and copies through that text.
 
 Evaluation: the metrics run on the scores' device and return 0-d tensors;
 one evaluation call reads all its values back with one copy.
@@ -32,7 +35,7 @@ from .config import _METRIC_ALIASES, Config
 from .data.dataset import BinnedDataset
 from .metrics import create_metric
 from .objectives import create_objective
-from .utils.log import LightGBMError
+from .utils.log import LightGBMError, Log
 
 
 def resolve_device(config: Config) -> torch.device:
@@ -103,11 +106,16 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self._inner: Optional[BinnedDataset] = None
+        # the parent's rows of a subset (None: built from `data`)
+        self.used_indices = None
 
     def construct(self) -> "Dataset":
-        """Bin the matrix on the host and upload the bins to the device."""
+        """Bin the matrix on the host and upload the bins to the device (a
+        :meth:`subset`: take its rows of the parent's bins)."""
         if self._inner is not None:
             return self
+        if self.used_indices is not None:
+            return self._construct_subset()
         cfg = Config(self.params)
         if self.data is None:
             raise LightGBMError("Cannot construct Dataset since the raw data "
@@ -135,12 +143,119 @@ class Dataset:
             self.data = None
         return self
 
+    def _construct_subset(self) -> "Dataset":
+        """The parent's bins at used_indices, with this Dataset's fields."""
+        inner = self._parent.construct()._inner.subset(self.used_indices)
+        md = inner.metadata
+        if self.label is not None:
+            md.set_label(self.label)
+        md.set_weight(self.weight)
+        md.set_query(self.group)
+        md.set_init_score(self.init_score)
+        self._inner = inner
+        return self
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """A Dataset of the rows `used_indices` with this one's mappers
+        (reference Dataset.subset; the JAX package's basic.py:344-391),
+        built lazily from this one's bins: the labels and weights of those
+        rows, the query sizes recomputed from the rows' queries (a query
+        cut by the selection counts once per run of its rows), and the init
+        scores of those rows in their layout ([n], [n * K] class-major or
+        [n, K]). Its feature names are this one's, as in the reference."""
+        self.construct()
+        idx = np.asarray(used_indices)
+        n = self.num_data()
+        group_sub = None
+        parent_group = self.get_group()
+        if parent_group is not None and len(parent_group):
+            qid = np.repeat(np.arange(len(parent_group)),
+                            np.asarray(parent_group, dtype=np.int64))[idx]
+            if len(qid):
+                change = np.flatnonzero(np.diff(qid) != 0)
+                group_sub = np.diff(np.concatenate(
+                    [[0], change + 1, [len(qid)]]))
+        init_sub = None
+        isc = self.get_init_score()
+        if isc is not None:
+            isc = np.asarray(isc)
+            if isc.ndim == 2 or isc.size == n:
+                init_sub = isc[idx]
+            elif isc.size % n == 0:
+                init_sub = isc.reshape(-1, n)[:, idx].reshape(-1)
+            else:
+                raise LightGBMError(
+                    "init_score size %d is not compatible with num_data %d"
+                    % (isc.size, n))
+        label, weight = self.get_label(), self.get_weight()
+        sub = Dataset(None, label=None if label is None
+                      else np.asarray(label)[idx],
+                      reference=self,
+                      weight=None if weight is None
+                      else np.asarray(weight)[idx],
+                      group=group_sub, init_score=init_sub,
+                      params=params or self.params,
+                      free_raw_data=self.free_raw_data)
+        sub.used_indices, sub._parent = idx, self
+        return sub
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append `other`'s features (the same rows) to this Dataset
+        (reference Dataset.add_features_from; the JAX package's
+        basic.py:393-404): both are built, and this one's groups, mappers,
+        names, bin ranges and bins, on the host and on the device, grow by
+        the other's."""
+        self.construct()
+        other.construct()
+        self._inner.add_features_from(other._inner)
+        if self.data is not None and other.data is not None:
+            self.data = np.concatenate([np.asarray(self.data, np.float64),
+                                        np.asarray(other.data, np.float64)],
+                                       axis=1)
+        else:
+            self.data = None
+        return self
+
     def set_label(self, label) -> "Dataset":
         """Replace the labels (of the binned dataset too, once built): a
         later Booster trains on them over the same bins."""
         self.label = label
         if self._inner is not None:
             self._inner.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        """Replace the sample weights (of the binned dataset too, once
+        built)."""
+        self.weight = weight
+        if self._inner is not None:
+            self._inner.metadata.set_weight(weight)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        """Replace the init scores ([n], [n * K] class-major or [n, K]; of
+        the binned dataset too, once built)."""
+        self.init_score = init_score
+        if self._inner is not None:
+            self._inner.metadata.set_init_score(init_score)
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """The feature names to build with ("auto" or None: keep them)."""
+        if feature_name not in (None, "auto"):
+            self.feature_name = feature_name
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """The categorical columns to build with; after the build the
+        bins are fixed, so a new set is ignored with a warning (as the JAX
+        package does)."""
+        if categorical_feature not in (None, "auto"):
+            if self._inner is not None:
+                Log.warning("categorical_feature set after construction is "
+                            "ignored")
+            else:
+                self.categorical_feature = categorical_feature
         return self
 
     def get_label(self):
@@ -152,6 +267,22 @@ class Dataset:
         if self._inner is not None:
             return self._inner.metadata.weight
         return self.weight
+
+    def get_init_score(self):
+        if self._inner is not None:
+            return self._inner.metadata.init_score
+        return self.init_score
+
+    def get_field(self, field_name):
+        """label, weight, group or init_score, by name."""
+        return {"label": self.get_label, "weight": self.get_weight,
+                "group": self.get_group,
+                "init_score": self.get_init_score}[field_name]()
+
+    def set_field(self, field_name, data) -> "Dataset":
+        return {"label": self.set_label, "weight": self.set_weight,
+                "group": self.set_group,
+                "init_score": self.set_init_score}[field_name](data)
 
     def set_group(self, group) -> "Dataset":
         """Replace the query groups (per-query sizes or boundaries; of the
@@ -186,6 +317,9 @@ class Dataset:
 
     def num_feature(self) -> int:
         return self.construct()._inner.num_total_features
+
+    def get_feature_name(self) -> List[str]:
+        return list(self.construct()._inner.feature_names)
 
 
 class Booster:
@@ -226,11 +360,17 @@ class Booster:
             if model_file is not None:
                 with open(model_file) as f:
                     model_str = f.read()
-            self._booster.config = Config(self.params)
-            self._booster.load_model_from_string(model_str)
+            self._init_from_string(model_str)
         else:
             raise TypeError("Need at least one training dataset or model "
                             "file or model string to create Booster instance")
+
+    def _init_from_string(self, model_str: str) -> None:
+        """A GBDT read from model text, with this Booster's parameters."""
+        self._booster = GBDT()
+        self._booster.config = Config(self.params)
+        self._booster.load_model_from_string(model_str)
+        self._metrics = []
 
     @staticmethod
     def _make_metrics(cfg: Config) -> list:
@@ -243,6 +383,100 @@ class Booster:
                 names = [default]
         return [m for m in (create_metric(n, cfg) for n in names
                             if n != "none") if m is not None]
+
+    def reset_parameter(self, params: dict) -> "Booster":
+        """Change parameters between iterations (reference
+        Booster.reset_parameter): the learning rate, the split keys and the
+        bagging keys, through GBDT.reset_config, which raises for any
+        other key."""
+        if params:
+            self._booster.reset_config(params)
+            self.params.update(params)
+        return self
+
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A new Booster over the rows `data` with labels `label` whose
+        trees are this one's structures with their leaf outputs fit again
+        to those rows and blended with the old ones by `decay_rate`
+        (reference Booster.refit / GBDT::RefitTree; the JAX package's
+        basic.py:501-521): built from this Booster's parameters, on their
+        device (GBDT.refit)."""
+        import copy
+        if not self._booster.models:
+            raise LightGBMError("Cannot refit an empty model")
+        X = np.asarray(data, dtype=np.float64)
+        params = dict(self.params)
+        params.pop("input_model", None)
+        new = Booster(params=params, train_set=Dataset(X, label,
+                                                       params=params))
+        new._booster.models = [copy.deepcopy(t)
+                               for t in self._booster.models]
+        new._booster.refit(X, decay_rate=float(decay_rate))
+        return new
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and their scores
+        (GBDT.rollback_one_iter)."""
+        self._booster.rollback_one_iter()
+        return self
+
+    def num_model_per_iteration(self) -> int:
+        return self._booster.num_tree_per_iteration
+
+    def num_feature(self) -> int:
+        return self._booster.max_feature_idx + 1
+
+    def feature_name(self) -> List[str]:
+        return list(self._booster.feature_names)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Per feature, its splits' count ("split", int32) or their gains'
+        sum ("gain"), over the first `iteration` iterations (None or 0:
+        all)."""
+        imp = self._booster.feature_importance(importance_type,
+                                               iteration if iteration else 0)
+        if importance_type == "split":
+            return imp.astype(np.int32)
+        return imp
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> dict:
+        """The model as the reference's JSON dict (GBDT.dump_model)."""
+        return self._booster.dump_model(
+            start_iteration, self._default_iterations(num_iteration))
+
+    def model_from_string(self, model_str: str, verbose=True) -> "Booster":
+        """Replace the model by the one in `model_str`."""
+        self._init_from_string(model_str)
+        return self
+
+    # -- pickling and copying go through model text ---------------------
+    def __getstate__(self):
+        return {"params": self.params,
+                "model_str": self.model_to_string(num_iteration=-1),
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score}
+
+    def __setstate__(self, state):
+        self.params = state["params"]
+        self.best_iteration = state["best_iteration"]
+        self.best_score = state["best_score"]
+        self.train_set = None
+        self._train_data_name = "training"
+        self._valid_sets = []
+        self.name_valid_sets = []
+        self._init_from_string(state["model_str"])
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _):
+        """A Booster read from this one's model text, with its parameters
+        (so it predicts on the same device)."""
+        return Booster(params=dict(self.params),
+                       model_str=self.model_to_string(num_iteration=-1))
 
     def set_train_data_name(self, name: str) -> "Booster":
         self._train_data_name = name
@@ -413,12 +647,22 @@ class Booster:
 
     def _predict_config(self, kwargs: dict) -> Config:
         """The Booster's parameters with `kwargs`' prediction keys on top
-        (unknown keywords raise)."""
+        (unknown keywords raise). ``pred_early_stop`` in the parameters of
+        a binary, multiclass or multiclassova model raises: the JAX package
+        honours it there (basic.py:688-713), and its margin exit is not
+        ported."""
         bad = [k for k in kwargs if k not in self._PREDICT_KEYS]
         if bad:
             raise TypeError("predict() got unexpected keyword arguments %s"
                             % bad)
-        return Config(dict(self.params, **kwargs))
+        cfg = Config(dict(self.params, **kwargs))
+        obj = self._booster.objective
+        if cfg.pred_early_stop and obj is not None and obj.name in (
+                "binary", "multiclass", "multiclassova"):
+            raise LightGBMError(
+                "pred_early_stop (the margin exit of prediction) is not "
+                "ported: ROADMAP queue A, item 8, step 2")
+        return cfg
 
     def _default_iterations(self, num_iteration: Optional[int]) -> int:
         """num_iteration, by default the best iteration when early stopping

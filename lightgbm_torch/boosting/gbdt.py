@@ -68,6 +68,13 @@ persistent grower holds the scores, the f64 ScoreUpdater otherwise) and
 ``average_output`` (RF's model text and prediction divide by the number of
 iterations). ``sub_model_name`` is the model text's first line.
 
+Between iterations (the JAX package's gbdt.py:230-280, 775-831):
+:meth:`GBDT.reset_config` takes the learning rate, the split keys and the
+bagging keys and decides the route again; :meth:`GBDT.rollback_one_iter`
+walks the last iteration's trees, negated, onto the scores where they live
+and drops them; :meth:`GBDT.refit` fits every leaf output again to new rows
+with the per-leaf sums on the device (ops/refit.py).
+
 Not in this slice (ROADMAP.md queue A): the K-iteration fused scan, which
 the JAX package runs in batches of 16 iterations on its persistent path (a
 CUDA graph per iteration in the port, item 15).
@@ -85,7 +92,8 @@ from ..models.tree import Tree
 from ..objectives import parse_objective_string
 from ..ops.bag import bag_iteration
 from ..ops.valid_walk import pack
-from ..treelearner.serial import SerialTreeLearner, check_v1_layout
+from ..treelearner.serial import (SerialTreeLearner, bag_configured,
+                                  check_v1_layout)
 from ..utils.log import Log
 from .score_updater import ScoreUpdater, ValidScoreUpdater
 
@@ -118,6 +126,7 @@ class GBDT:
         self.feature_infos: List[str] = []
         self.monotone_constraints: List[int] = []
         self.train_score: Optional[ScoreUpdater] = None
+        self.use_persist = False
         self.valid_score: List[ValidScoreUpdater] = []
         self.valid_metrics: List[list] = []
         self.valid_names: List[str] = []
@@ -221,6 +230,14 @@ class GBDT:
                             "the slow convergence" % self.objective.name)
         return 0.0
 
+    # the split keys GBDT::ResetConfig hands to the learner (the JAX
+    # package's _RESET_SPLIT, gbdt.py:220-225)
+    _RESET_SPLIT = frozenset({
+        "lambda_l1", "lambda_l2", "min_data_in_leaf",
+        "min_sum_hessian_in_leaf", "min_gain_to_split", "max_delta_step",
+        "num_leaves", "max_depth", "extra_trees", "feature_fraction",
+        "feature_fraction_bynode", "cat_smooth", "cat_l2",
+        "max_cat_threshold", "min_data_per_group", "max_cat_to_onehot"})
     # the bagging keys GBDT::ResetConfig re-applies (the JAX package's
     # _RESET_BAG, gbdt.py:226-229)
     _RESET_BAG = frozenset({
@@ -229,34 +246,94 @@ class GBDT:
 
     def reset_config(self, updates: dict) -> None:
         """GBDT::ResetConfig (gbdt.cpp:704) between iterations, for the
-        learning rate and the bagging keys (the JAX package's reset_config,
-        gbdt.py:230-280): a bagging key re-plans the bag as
-        _refresh_bagging_config does, with a new draw at the next
-        iteration. On the persistent grower the bag's fractions, seed and
-        window are device scalars written before every iteration, so the
-        captured graph stays; turning the bag on or off changes the
-        iteration's steps, and the grower captures a new graph. Any other
-        key raises: changing it during training is not ported."""
+        learning rate, the split keys and the bagging keys (the JAX
+        package's reset_config, gbdt.py:230-280).
+
+        A split key re-derives the learner's split parameters and grow
+        configuration (SerialTreeLearner.refresh_config), then the route is
+        decided again, as the JAX package decides it at every batch
+        (gbdt.py:417-434): under ``tpu_persist_scan=auto`` a reset that
+        turns on a knob the persistent grower does not take (``lambda_l1``,
+        ``max_delta_step``, ``extra_trees``, ``feature_fraction_bynode``)
+        moves the remaining iterations to the v1 grower, the payload's
+        scores synced to row order first (_sync_persist_scores,
+        gbdt.py:468); under ``force`` it raises (ROADMAP.md queue A, item
+        4, step 1c). On the persistent grower a scalar key rebuilds the
+        step constants and a new leaf budget or depth rebuilds the grower
+        on the same payload; either way the next iteration captures a new
+        CUDA graph.
+
+        A bagging key re-plans the bag as _refresh_bagging_config does,
+        with a new draw at the next iteration. On the persistent grower the
+        bag's fractions, seed and window are device scalars written before
+        every iteration, so the captured graph stays; turning the bag on or
+        off changes the iteration's steps, and the grower captures a new
+        graph. Any other key raises: it shapes state built once (the
+        objective, the binning), and the JAX package ignores it with a
+        warning. A refused reset leaves the booster as it was."""
         updates = alias_transform(dict(updates))
         other = sorted(k for k in updates if k != "learning_rate"
-                       and k not in self._RESET_BAG)
+                       and k not in self._RESET_BAG
+                       and k not in self._RESET_SPLIT)
         if other:
-            Log.fatal("reset_config: changing %s during training is not "
-                      "ported yet (ROADMAP.md queue A, item 19: callbacks)"
+            Log.fatal("reset_config: %s cannot change during training (the "
+                      "JAX package ignores it with a warning)"
                       % ", ".join(other))
         cfg = self.config
-        for k, v in updates.items():
-            setattr(cfg, k, cfg._coerce(_BY_NAME[k], v))
-        if "learning_rate" in updates:
+        new = {k: cfg._coerce(_BY_NAME[k], v) for k, v in updates.items()}
+        old = {k: getattr(cfg, k) for k in new}
+        shrink, was = self.shrinkage_rate, self.use_persist
+        for k, v in new.items():
+            setattr(cfg, k, v)
+        if "learning_rate" in new:
             self.shrinkage_rate = float(cfg.learning_rate)
-        if self.train_data is not None and self._RESET_BAG & set(updates):
-            self._refresh_bagging_config()
-            if (self.use_persist and self.bag_spec()[0] != "none"
+        if self.train_data is None:
+            # a model read from text: no learner or bag to refresh
+            return
+        split = bool(self._RESET_SPLIT & set(new))
+        bag = bool(self._RESET_BAG & set(new))
+        try:
+            if split:
+                self._invalidate_predictors()
+                self.tree_learner.refresh_config(cfg)
+                self._reroute()
+            if (bag and self.use_persist and bag_configured(cfg)
                     and self.objective.is_renew_tree_output):
                 Log.fatal("reset_config: bagging with leaf renewal on the "
                           "persistent grower is not ported yet (ROADMAP.md "
                           "queue A, item 24); train with "
                           "tpu_persist_scan=false")
+        except Exception:
+            # a refused reset leaves the booster as it was
+            for k, v in old.items():
+                setattr(cfg, k, v)
+            self.shrinkage_rate = shrink
+            if split:
+                self.tree_learner.refresh_config(cfg)
+            self.use_persist = was
+            raise
+        if bag:
+            self._refresh_bagging_config()
+
+    def _reroute(self) -> None:
+        """The grower after a split key reset, as the learner's gate
+        decides it now (``force`` raises where the persistent grower cannot
+        take the configuration, before anything changes). Leaving the
+        persistent grower brings the payload's scores back to row order and
+        drops the payload; coming back seeds a fresh payload from the
+        row-ordered scores at the next iteration."""
+        learner = self.tree_learner
+        use = (self.objective is not None
+               and learner.can_persist_scan(self.objective))
+        if not use:
+            check_v1_layout(self.train_data)
+        if self.use_persist and not use:
+            self.train_score.score              # the payload's scores, synced
+            learner.drop_persist()
+            Log.info("reset_config: %s move training to the v1 grower (the "
+                     "persistent grower does not take them)"
+                     % ", ".join(learner.knobs))
+        self.use_persist = use
 
     # ---- bagging (the v1 grower's host draws) -----------------------------
     def _refresh_bagging_config(self) -> None:
@@ -651,14 +728,145 @@ class GBDT:
             out[:, i] = tree.predict_leaf(X)
         return out
 
-    def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
-        """Split counts per feature (GBDT::FeatureImportance, "split")."""
+    def feature_importance(self, importance_type: str = "split",
+                           num_iteration: int = -1) -> np.ndarray:
+        """GBDT::FeatureImportance (gbdt_model_text.cpp:363-400; the JAX
+        package's gbdt.py:1207-1221): per feature, the number of splits
+        with a positive gain ("split") or the sum of their gains ("gain"),
+        over the first `num_iteration` iterations (<= 0: all)."""
+        if importance_type not in ("split", "gain"):
+            Log.fatal("Unknown importance type: only support split=0 and "
+                      "gain=1")
         imp = np.zeros(self.max_feature_idx + 1)
         for tree in self._used_models(0, num_iteration):
             for k in range(tree.num_leaves - 1):
                 if tree.split_gain[k] > 0:
-                    imp[tree.split_feature[k]] += 1.0
+                    imp[tree.split_feature[k]] += (
+                        1.0 if importance_type == "split"
+                        else tree.split_gain[k])
         return imp
+
+    def dump_model(self, start_iteration=0, num_iteration=-1) -> dict:
+        """GBDT::DumpModel's JSON (gbdt_model_text.cpp:21-92; the JAX
+        package's gbdt.py:1407-1428)."""
+        return {
+            "name": "tree",
+            "version": K_MODEL_VERSION,
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": self.label_idx,
+            "max_feature_idx": self.max_feature_idx,
+            "objective": (self.objective.to_string()
+                          if self.objective else ""),
+            "average_output": self.average_output,
+            "feature_names": self.feature_names,
+            "monotone_constraints": self.monotone_constraints,
+            "tree_info": [t.to_json() for t in self._used_models(
+                start_iteration, num_iteration)],
+            "feature_importances": {
+                self.feature_names[i]: float(v)
+                for i, v in enumerate(self.feature_importance("split"))
+                if v > 0},
+        }
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter (gbdt.cpp:422-438; the JAX package's
+        gbdt.py:815-831): the last iteration's trees, negated, are walked
+        onto the training scores where they live (the payload's f32 scores
+        on the persistent grower, the f64 row-ordered ones on v1:
+        :meth:`_add_score_delta`, DART's path) and onto every validation
+        set, then dropped, and the persistent grower's statistics of them
+        with them. Nothing happens at iteration 0. A model read from text
+        has no scores: its trees are dropped."""
+        self._invalidate_predictors()
+        K = self.num_tree_per_iteration
+        if self.current_iteration <= 0:
+            return
+        if self.average_output:
+            Log.fatal("rollback_one_iter of an averaged (RF) model is not "
+                      "supported: its scores are a running mean")
+        trees = self.models[-K:]
+        if self.train_data is not None:
+            packed = pack(trees, [-t.leaf_value[:max(t.num_leaves, 1)]
+                                  for t in trees], self.train_data,
+                          self.device)
+            for k, pt in enumerate(packed):
+                self._add_score_delta(pt, k)
+                for su in self.valid_score:
+                    su.add_tree(pt, k)
+        del self.models[-K:]
+        gr = self.tree_learner._persist_gr if self.use_persist else None
+        if gr is not None:
+            del gr.grow_stats[-K:]
+        self.iter = max(self.iter - 1, 0)
+        self._finished = False
+
+    def refit(self, X: np.ndarray, decay_rate: float = 0.9) -> None:
+        """GBDT::RefitTree (gbdt.cpp:267 with FitByExistingTree and
+        CalculateSplittedLeafOutput; the JAX package's gbdt.py:775-813):
+        every tree keeps its structure, and its leaf outputs are fit
+        again to the rows of `X` (this GBDT's training rows, whose labels
+        the objective holds), iteration after iteration from zero scores.
+        For each tree: the objective's gradients at the staged f64 scores
+        (on the device), rounded to f32, the precision the growers take
+        them in (torch's f64 ``exp`` differs between the card and the CPU
+        in the last bit, and the rounding keeps the two refits equal; the
+        JAX package sums its f64 gradients, so the packages differ by that
+        rounding, ROADMAP.md C4), each row's leaf (predict_walk's leaf
+        mode, all trees in one launch), per-leaf f64 sums of grad, hess
+        and rows (the leaf_sums kernel, ops/refit.py), then on the host the
+        L1 threshold, the max_delta_step clamp, the shrinkage and the
+        ``decay_rate`` blend with the old output, as the JAX package does
+        them; the tree's new outputs are added to the staged scores."""
+        from ..ops.refit import per_leaf_sums
+        if self.objective is None:
+            Log.fatal("Cannot refit a booster without an objective")
+        self._invalidate_predictors()
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        n, K = X.shape[0], self.num_tree_per_iteration
+        cfg = self.config
+        lam1, lam2 = float(cfg.lambda_l1), float(cfg.lambda_l2)
+        mds = float(cfg.max_delta_step)
+        leaves = self._walk_leaves(X)                      # [T, n] int32
+        dev = leaves.device
+        score = torch.zeros((K, n), dtype=torch.float64, device=dev)
+        for it in range(len(self.models) // K):
+            g, h = self.objective.get_gradients(score[0] if K == 1
+                                                else score)
+            g = g.reshape(K, n).to(torch.float32)
+            h = h.reshape(K, n).to(torch.float32)
+            for k in range(K):
+                j = it * K + k
+                tree = self.models[j]
+                nl = max(tree.num_leaves, 1)
+                sums = per_leaf_sums(leaves[j], g[k], h[k], nl) \
+                    .cpu().numpy()
+                sg, sh = sums[:, 0], sums[:, 1]
+                thr = np.sign(sg) * np.maximum(0.0, np.abs(sg) - lam1)
+                out = -thr / (sh + lam2 + 1e-15)
+                if mds > 0:
+                    out = np.sign(out) * np.minimum(np.abs(out), mds)
+                out *= self.shrinkage_rate
+                old = tree.leaf_value[:nl]
+                tree.leaf_value[:nl] = (decay_rate * old
+                                        + (1 - decay_rate) * out)
+                tree.leaf_count[:nl] = sums[:, 2].astype(np.int32)
+                value = torch.as_tensor(tree.leaf_value[:nl], device=dev)
+                score[k] += value[leaves[j].long()]
+        self.iter = len(self.models) // K
+
+    def _walk_leaves(self, X: np.ndarray) -> torch.Tensor:
+        """[T, n] int32 leaf of every row of `X` under each tree, by
+        predict_walk's leaf mode over f64 rows on this GBDT's device (the
+        plain walk on the CPU), kept there."""
+        from ..ops.predict import predict_walk
+        from ..predict import CudaPredictor, compile_ensemble
+        ens = compile_ensemble(self.models, self.num_tree_per_iteration,
+                               self.average_output, self.max_feature_idx)
+        pred = CudaPredictor(ens, None, dtype="f64", device=self.device)
+        X_dev = torch.from_numpy(X).to(pred.device)
+        return predict_walk(X_dev, pred.walk, pred.num_class,
+                            leaf=True).t().contiguous()
 
     # ------------------------------------------------------------------
     def save_model_to_string(self, start_iteration=0, num_iteration=-1) -> str:
@@ -683,7 +891,7 @@ class GBDT:
         buf.append("tree_sizes=%s" % " ".join(str(len(s)) for s in tree_strs))
         buf.append("")
         text = "\n".join(buf) + "\n" + "".join(tree_strs) + "end of trees\n"
-        imp = self.feature_importance(num_iteration)
+        imp = self.feature_importance("split", num_iteration)
         pairs = sorted(((int(imp[i]), self.feature_names[i])
                         for i in range(len(imp)) if imp[i] > 0),
                        key=lambda p: -p[0])

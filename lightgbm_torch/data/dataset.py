@@ -450,6 +450,70 @@ class BinnedDataset:
             for done in [pool.submit(one, g) for g in range(len(self.groups))]:
                 done.result()
 
+    def subset(self, rows) -> "BinnedDataset":
+        """The rows `rows` (indices into this dataset) with this dataset's
+        mappers and layout: the bin matrix's rows, and empty metadata (the
+        caller sets the fields of those rows). Binning those rows of the
+        raw matrix with this dataset as the reference gives the same bins
+        (the JAX package's Dataset.subset, basic.py:344-391, re-bins
+        them)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        ds = BinnedDataset()
+        ds.num_data = len(rows)
+        ds.num_total_features = self.num_total_features
+        ds.feature_names = list(self.feature_names)
+        ds.bin_mappers = self.bin_mappers
+        ds.used_features = self.used_features
+        ds.inner_of = self.inner_of
+        ds.groups = self.groups
+        ds._finish_layout_like(self)
+        ds.binned = np.ascontiguousarray(self.binned[rows])
+        ds.metadata = Metadata(ds.num_data)
+        return ds
+
+    def add_features_from(self, other: "BinnedDataset") -> None:
+        """Append the features of `other` (the same rows) to this dataset
+        (reference Dataset::AddFeaturesFrom, src/io/dataset.cpp:1465; the
+        JAX package's data/dataset.py:731): its mappers, names, used
+        features and groups after this one's, its bin ranges shifted past
+        this one's bins, its bin columns after this one's, on the host and
+        in every device copy."""
+        if self.num_data != other.num_data:
+            Log.fatal("Cannot add features from a dataset with a different "
+                      "number of rows (%d vs %d)"
+                      % (other.num_data, self.num_data))
+        if self.binned is None or other.binned is None:
+            Log.fatal("Both datasets must be constructed before "
+                      "add_features_from")
+        nf0, ni0 = self.num_total_features, len(self.used_features)
+        G0, tb0 = len(self.groups), self.total_bins
+        self.bin_mappers = list(self.bin_mappers) + list(other.bin_mappers)
+        self.feature_names = (list(self.feature_names)
+                              + list(other.feature_names))
+        self.used_features = (list(self.used_features)
+                              + [nf0 + f for f in other.used_features])
+        self.inner_of = {f: i for i, f in enumerate(self.used_features)}
+        self.groups = (list(self.groups)
+                       + [[ni0 + i for i in g] for g in other.groups])
+        self.num_total_features += other.num_total_features
+        self.group_of = np.concatenate([self.group_of, other.group_of + G0])
+        self.bin_start = np.concatenate([self.bin_start,
+                                         other.bin_start + tb0])
+        self.bin_end = np.concatenate([self.bin_end, other.bin_end + tb0])
+        self.group_offset = np.concatenate([self.group_offset,
+                                            other.group_offset + tb0])
+        self.total_bins += other.total_bins
+        for attr in ("needs_fix", "most_freq_bin", "default_bin",
+                     "missing_type_arr", "is_categorical", "monotone",
+                     "penalty"):
+            setattr(self, attr, np.concatenate([getattr(self, attr),
+                                                getattr(other, attr)]))
+        self.binned = np.concatenate([self.binned, other.binned], axis=1)
+        copies, self._device_cache = self._device_cache, {}
+        for key, old in copies.items():
+            self.to_device(key, torch.cat(
+                [old.bins, other.to_device(key).bins], dim=1))
+
     # ------------------------------------------------------------------
     @property
     def num_features(self) -> int:
@@ -475,9 +539,10 @@ class BinnedDataset:
                 self.bin_start[idx].astype(np.int32),
                 self.bin_end[idx].astype(np.int32))
 
-    def to_device(self, device) -> DeviceData:
+    def to_device(self, device, bins=None) -> DeviceData:
         """The bin matrix and per-feature metadata as tensors on `device`
-        (cached per device: one resident copy of the [N, G] matrix)."""
+        (cached per device: one resident copy of the [N, G] matrix);
+        `bins`, the matrix already on the device, is used as it is."""
         key = str(torch.device(device))
         hit = self._device_cache.get(key)
         if hit is not None:
@@ -486,9 +551,11 @@ class BinnedDataset:
         def t(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                    device=device)
+        if bins is None:
+            bins = torch.as_tensor(np.ascontiguousarray(self.binned),
+                                   device=device)
         data = DeviceData(
-            bins=torch.as_tensor(np.ascontiguousarray(self.binned),
-                                 device=device),
+            bins=bins,
             group_offset=t(self.group_offset), group_of=t(self.group_of),
             bin_start=t(self.bin_start), bin_end=t(self.bin_end),
             missing_type=t(self.missing_type_arr),

@@ -164,9 +164,21 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                             early_stopping_rounds)
     if num_boost_round <= 0:
         raise ValueError("num_boost_round should be greater than zero.")
-    if int(Config(params).num_machines) > 1:
+    cfg = Config(params)
+    if int(cfg.num_machines) > 1:
         raise LightGBMError("num_machines > 1 is not ported yet (ROADMAP.md "
                             "queue A, item 11: distributed training)")
+    # the JAX package checkpoints, resumes and traces under these keys
+    # (engine.py:502, 622-659, 738); the port would ignore them
+    asked = [k for k, on in (
+        ("checkpoint_dir", bool(str(cfg.checkpoint_dir))),
+        ("snapshot_freq > 0", int(cfg.snapshot_freq) > 0),
+        ("tpu_telemetry=%s" % cfg.tpu_telemetry,
+         str(cfg.tpu_telemetry).lower() != "off")) if on]
+    if asked:
+        raise LightGBMError("%s: checkpoints, resumption and telemetry are "
+                            "not ported yet (ROADMAP.md queue A, item 10: "
+                            "resilience)" % ", ".join(asked))
     if fobj is not None:
         params["objective"] = "none"
 

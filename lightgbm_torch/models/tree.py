@@ -216,6 +216,31 @@ class Tree:
         self.leaf_value[:self.num_leaves] += val
         self.internal_value[:max(self.num_leaves - 1, 0)] += val
 
+    def set_leaf_output(self, leaf: int, value: float) -> None:
+        """Tree::SetLeafOutput (tree.h:118): a NaN output is stored as 0."""
+        self.leaf_value[leaf] = 0.0 if np.isnan(value) else value
+
+    def leaf_depths(self) -> np.ndarray:
+        """[num_leaves] int32 depth of each leaf (the root's children at 1;
+        a one-leaf tree's leaf at 0): node k's children have index > k, so
+        one pass in node order sets every depth."""
+        n = self.num_leaves
+        out = np.zeros(max(n, 1), dtype=np.int32)
+        if n <= 1:
+            return out
+        depth = np.zeros(n - 1, dtype=np.int32)
+        for k in range(n - 1):
+            for child in (self.left_child[k], self.right_child[k]):
+                if child >= 0:
+                    depth[child] = depth[k] + 1
+                else:
+                    out[~child] = depth[k] + 1
+        return out
+
+    def max_depth(self) -> int:
+        """The depth of the deepest leaf (0 for a one-leaf tree)."""
+        return int(self.leaf_depths().max())
+
     # ------------------------------------------------------------------
     def predict_leaf(self, X: np.ndarray) -> np.ndarray:
         """Vectorized GetLeaf over raw feature rows [N, F] -> leaf idx [N]."""
@@ -388,6 +413,45 @@ class Tree:
             buf.append("cat_threshold=" + _fmt_arr(self.cat_threshold))
         buf += ["shrinkage=%s" % _fmt_g(self.shrinkage), ""]
         return "\n".join(buf) + "\n"
+
+    def to_json(self) -> dict:
+        """Tree::ToJSON (src/io/tree.cpp): the nested node dict, key for
+        key the JAX package's (tree.py:626-679)."""
+        out = {"num_leaves": self.num_leaves, "num_cat": self.num_cat,
+               "shrinkage": self.shrinkage}
+        if self.num_leaves == 1:
+            out["tree_structure"] = {"leaf_value": float(self.leaf_value[0])}
+        else:
+            out["tree_structure"] = self._node_json(0)
+        return out
+
+    def _node_json(self, index: int) -> dict:
+        if index < 0:
+            leaf = ~index
+            return {"leaf_index": leaf,
+                    "leaf_value": float(self.leaf_value[leaf]),
+                    "leaf_weight": float(self.leaf_weight[leaf]),
+                    "leaf_count": int(self.leaf_count[leaf])}
+        dt = int(self.decision_type[index])
+        node = {"split_index": index,
+                "split_feature": int(self.split_feature[index]),
+                "split_gain": float(self.split_gain[index]),
+                "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+                "internal_value": float(self.internal_value[index]),
+                "internal_weight": float(self.internal_weight[index]),
+                "internal_count": int(self.internal_count[index])}
+        if dt & kCategoricalMask:
+            cats = words_to_bins(self._real_bits(index))
+            node["decision_type"] = "=="
+            node["threshold"] = "||".join(str(int(c)) for c in cats)
+            node["default_left"] = False
+        else:
+            node["decision_type"] = "<="
+            node["threshold"] = float(self.threshold[index])
+            node["default_left"] = bool(dt & kDefaultLeftMask)
+        node["left_child"] = self._node_json(int(self.left_child[index]))
+        node["right_child"] = self._node_json(int(self.right_child[index]))
+        return node
 
     @classmethod
     def from_string(cls, text: str) -> "Tree":

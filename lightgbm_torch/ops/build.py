@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("hist_window", "scan_pair", "root_hist", "split_pass", "seg_hist",
            "scan_blocks", "level_pass", "level_seg_hist", "grow_step",
            "valid_walk", "renew_leaf", "rank_grad", "cat_scan", "bag",
-           "predict")
+           "predict", "leaf_sums")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

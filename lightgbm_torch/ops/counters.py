@@ -24,7 +24,8 @@ SLOTS = ("root_hist", "split_pass", "seg_hist", "scan_pair", "scan_blocks",
          "consolidate", "grow_root", "grow_pick", "grow_commit",
          "grow_planes", "grow_assemble", "apply_scores", "renew_leaf",
          "lambdarank_grad", "xendcg_grad", "scan_pair_knob", "cat_scan",
-         "bag_apply", "goss_select", "bag_rows", "apply_scores_avg")
+         "bag_apply", "goss_select", "bag_rows", "apply_scores_avg",
+         "leaf_sums")
 _INDEX = {name: i for i, name in enumerate(SLOTS)}
 _COUNTS: Dict[str, torch.Tensor] = {}
 

@@ -202,7 +202,9 @@ class PersistGrower:
     configuration, on one device. ``level_mode`` "auto" runs the level
     phase where :func:`can_level_grow` holds, "off" never. ``grow_stats``
     holds (level programs, splits of the per-split loop after them) of
-    every tree grown, as the JAX stats vector does (:77-89).
+    every tree this grower grew and the model still holds (the model's
+    last ``len(grow_stats)`` trees; a rollback pops them), as the JAX stats
+    vector does (:77-89).
 
     Everything a tree's per-split loop touches is allocated here, once, at
     fixed addresses (the planes, the leaf table, the scan's layout and
@@ -233,6 +235,7 @@ class PersistGrower:
         self.win_end = self.win_start + nb
         self.blocks = (BlockScanLayout(assets.efb, meta.penalty, G, dev)
                        if assets.efb[5] else None)
+        self._level_mode = level_mode
         self.use_level = level_mode != "off" and can_level_grow(gc)
         # the widest frontier a depth-bounded tree presents (:789-791)
         self.s_maxl = min(1 << max(int(gc.max_depth) - 1, 0),
@@ -309,6 +312,33 @@ class PersistGrower:
         # an RF iteration), allocated with the first one
         self._rf_bias = None
         self._const = None
+
+    def set_params(self, params) -> None:
+        """New split parameters between iterations (a reset): the level
+        phase reads them on the host; the step constants, which the
+        per-split loop's launches carry as arguments, are rebuilt, and
+        when they change the captured graph is dropped, so the next
+        iteration runs checked and captures anew."""
+        self.params = params
+        k = gs.StepConst.of(params, self.gc.max_depth, self.C,
+                            bool(self.k.bagged))
+        if k != self.k:
+            self.k = k
+            self._graph = None
+            self._checked = None
+
+    def rebuilt(self, gc, params) -> "PersistGrower":
+        """A grower for a new grow configuration (``num_leaves`` or
+        ``max_depth``) over the same payload assets, device and level mode,
+        with statistics of its own trees. This grower's own buffers are
+        released first (it is not used again)."""
+        for name in ("second", "gh", "hh", "root_buf", "small", "stash",
+                     "_rows", "_graph"):
+            setattr(self, name, None)
+        gr = PersistGrower(self.assets, self.meta, gc, params, self.device,
+                           "auto" if self._level_mode != "off" else "off")
+        gr.capture = self.capture
+        return gr
 
     # ---- payload <-> row order ---------------------------------------------
     def _f32_row(self, pay, r):

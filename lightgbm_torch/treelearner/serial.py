@@ -296,12 +296,16 @@ class SerialTreeLearner:
             Log.fatal("tpu_persist_scan=force: objective '%s' has no device "
                       "gradient" % getattr(objective, "name",
                                            type(objective).__name__))
-        if opt != "force" and (self.device.type != "cuda" or
-                               self.dataset.num_data < PARTITION_MIN_ROWS):
+        if opt != "force" and not self._auto_takes_persist():
             return False
         return (persist_pack_ok(self.dataset)[0]
                 and self.dataset.num_features > 0
                 and dg is not None)
+
+    def _auto_takes_persist(self) -> bool:
+        """``auto``'s device and size gate: the card, from 65536 rows."""
+        return (self.device.type == "cuda"
+                and self.dataset.num_data >= PARTITION_MIN_ROWS)
 
     def _rf_beyond_gate(self, objective):
         """Why RF leaves the JAX package's fused RF gate (rf.py:225-242:
@@ -339,6 +343,41 @@ class SerialTreeLearner:
                 level_mode="off" if level in ("off", "false", "0")
                 else "auto")
         return self._persist_gr
+
+    def refresh_config(self, config: Config) -> bool:
+        """SerialTreeLearner::ResetConfig (serial_tree_learner.cpp:124-160;
+        the JAX package's serial.py:386-404) between iterations: the split
+        parameters, the grow configuration, the scan's knobs, the
+        categorical scan's parameters and the by-tree feature fraction (its
+        numpy stream goes on) from an updated Config. A persistent grower
+        already built takes them too: new scalars rebuild its step
+        constants (PersistGrower.set_params), a new ``num_leaves`` or
+        ``max_depth`` rebuilds the grower over the same payload assets (its
+        leaf table, planes and level slots are sized by them); either way
+        its next iteration captures a new CUDA graph. Returns True when the
+        grow configuration changed."""
+        self.config = config
+        self.params = SplitParams.from_config(config)
+        self.col_sampler.fraction = float(config.feature_fraction)
+        gc = grow_config(config, self.dataset)
+        changed = gc != self.grow_config
+        self.grow_config = gc
+        self.knobs = scan_knobs(config, self.dataset)
+        self.cat = cat_scan_setup(config, self.dataset, self.params,
+                                  self.device,
+                                  bool(np.any(self.dataset.monotone)))
+        gr = self._persist_gr
+        if gr is not None and changed:
+            self._persist_gr = gr.rebuilt(gc, self.params)
+        elif gr is not None:
+            gr.set_params(self.params)
+        return changed
+
+    def drop_persist(self) -> None:
+        """Forget the payload and the persistent grower (the route left
+        them; the caller has read the payload's scores back)."""
+        self._persist_carry = None
+        self._persist_gr = None
 
     def train_persist(self, objective, score0, shrink: float,
                       classes=(0,), bag=None, rf=None):

@@ -310,7 +310,7 @@ def test_reset_bagging_on_the_persistent_grower():
     scalars: after a reset the next iterations bag with the new fraction
     (the root counts the rows whose hash at the window key is below it),
     the earlier ones are unchanged; turning the bag off drops the bag step;
-    a split key still raises."""
+    a binning key still raises."""
     X, y = class_data(n=3000, K=2, seed=9)
     base = dict(BASE, device_type="cpu", tpu_persist_scan="force",
                 bagging_fraction=0.8, bagging_freq=1, bagging_seed=3)
@@ -332,5 +332,6 @@ def test_reset_bagging_on_the_persistent_grower():
         assert b.models[it].internal_count[0] == want
     assert b.models[4].internal_count[0] == len(y)
     assert b.tree_learner._persist_gr.k.bagged == 0
-    with pytest.raises(LightGBMError, match="item 19"):
-        bst._booster.reset_config({"num_leaves": 5})
+    with pytest.raises(LightGBMError, match="cannot change during "
+                                            "training"):
+        bst._booster.reset_config({"max_bin": 31})

@@ -27,7 +27,8 @@ def test_every_kernel_has_a_source():
                                   "split_pass", "seg_hist", "scan_blocks",
                                   "level_pass", "level_seg_hist",
                                   "grow_step", "valid_walk", "renew_leaf",
-                                  "rank_grad", "cat_scan", "bag", "predict"}
+                                  "rank_grad", "cat_scan", "bag", "predict",
+                                  "leaf_sums"}
 
 
 @pytest.mark.parametrize("name", build.KERNELS)

@@ -4,12 +4,21 @@
     package's DART on its host (per-class) path: ``drop_rate`` 0.3, with
     ``uniform_drop``, with ``xgboost_dart_mode``, with ``max_drop`` 1; K = 3
     softmax; a validation set, whose f64 scores are held after every
-    iteration's normalize. The JAX per-class path is not deterministic on
-    the CPU (ROADMAP.md section C; a run after other tests in one worker
-    grew another tree 5), so every v1 comparison takes
-    tests/test_torch_objectives_renew.py's retry rule: JAX's caches
-    cleared, a failed comparison held against two agreeing reruns, here
-    of up to five (:func:`against_jax`);
+    iteration's normalize. Each JAX reference run takes the retry rule of
+    tests/test_torch_objectives_renew.py (:func:`against_jax`: JAX's
+    caches cleared, a failed comparison held against two agreeing reruns,
+    here of up to five) and runs without a race of the JAX package's host
+    path (:func:`copy_leaf_values`): its ``ScoreUpdater.add_score_leaf``
+    hands ``tree.leaf_value`` to an asynchronous device gather through
+    ``jnp.asarray``, which on the CPU aliases the numpy array, and DART's
+    next iteration negates a dropped tree's ``leaf_value`` in place
+    (``_subtract_tree``). When it drops the previous iteration and that
+    gather has not run yet, as on a loaded machine, the scores take the
+    negated values and the later trees differ (with eight to twelve such
+    processes on the machine, 7 of 78 repeats of this file's validation
+    run differed from the other repeats in their process, none of 42
+    with the values copied; the port's repeats were bit-identical in
+    all);
   * persistent grower (``force``, 8 rounds) against the JAX package's DART
     on its fused driver with its Pallas kernels in interpret mode
     (``_persist_kernel_mode`` patched; that route engages at every
@@ -34,6 +43,7 @@ import torch
 import jax
 import lightgbm_tpu as lt
 from lightgbm_tpu.boosting import dart as jdart
+from lightgbm_tpu.boosting import score_updater as jsu
 from lightgbm_tpu.treelearner.serial import SerialTreeLearner as JaxLearner
 import lightgbm_torch as lp
 from lightgbm_torch.boosting import dart as pdart
@@ -117,11 +127,26 @@ V1 = {"drop_rate": {}, "uniform_drop": {"uniform_drop": True},
       "max_drop 1": {"max_drop": 1}}
 
 
+def copy_leaf_values(mp):
+    """The JAX package's ScoreUpdater.add_score_leaf given a copy of the
+    leaf values (the module docstring: the asynchronous gather then reads
+    the values the call was made with, whatever DART does to the tree
+    afterwards)."""
+    add = jsu.ScoreUpdater.add_score_leaf
+
+    def copied(self, leaf_values, row_leaf, tree_id):
+        return add(self, np.array(leaf_values, copy=True), row_leaf,
+                   tree_id)
+    mp.setattr(jsu.ScoreUpdater, "add_score_leaf", copied)
+
+
 def jax_v1_run(params, X, y):
     """A fresh JAX host-path run (caches cleared, the module docstring's
-    retry rule) with its dropped iterations in ``bj.drops``."""
+    retry rule, the leaf values copied) with its dropped iterations in
+    ``bj.drops``."""
     jax.clear_caches()
     with pytest.MonkeyPatch.context() as mp:
+        copy_leaf_values(mp)
         drops = record_drops(mp)
         bj = train_jax(params, X, y)
         bj.drops = list(drops["jax"])
@@ -163,30 +188,33 @@ def _valid_run(lib, params, Xt, yt, Xv, yv):
     ``b.steps`` holds each iteration's (dropped iterations, validation
     scores, and for the JAX package the leaf-bound slack of its trees as
     they stand after that iteration's normalize)."""
-    if lib is lt:
-        jax.clear_caches()
-        ds = lt.Dataset(Xt, yt)
-        b = lt.Booster(dict(params), ds)
-        b.add_valid(lt.Dataset(Xv, yv, reference=ds), "v")
-    else:
-        p = dict(params, device_type="cpu")
-        ds = lp.Dataset(Xt, yt, params=p)
-        b = lp.Booster(p, ds)
-        b.add_valid(lp.Dataset(Xv, yv, reference=ds), "v")
-    b.steps = []
-    for _ in range(ROUNDS):
-        b.update()
-        g = b._booster
+    with pytest.MonkeyPatch.context() as mp:
         if lib is lt:
-            sc = np.array(g.valid_score[0].score_host()).reshape(-1)
-            slack = np.zeros(len(yv))
-            for a in g._used_models():
-                if a.num_leaves > 1:
-                    slack += leaf_bounds(a, len(yt), params["learning_rate"],
-                                         False)[a.predict_leaf(Xv)]
+            jax.clear_caches()
+            copy_leaf_values(mp)
+            ds = lt.Dataset(Xt, yt)
+            b = lt.Booster(dict(params), ds)
+            b.add_valid(lt.Dataset(Xv, yv, reference=ds), "v")
         else:
-            sc, slack = g.valid_score[0].score.numpy().copy(), None
-        b.steps.append((list(g.drop_index), sc, slack))
+            p = dict(params, device_type="cpu")
+            ds = lp.Dataset(Xt, yt, params=p)
+            b = lp.Booster(p, ds)
+            b.add_valid(lp.Dataset(Xv, yv, reference=ds), "v")
+        b.steps = []
+        for _ in range(ROUNDS):
+            b.update()
+            g = b._booster
+            if lib is lt:
+                sc = np.array(g.valid_score[0].score_host()).reshape(-1)
+                slack = np.zeros(len(yv))
+                for a in g._used_models():
+                    if a.num_leaves > 1:
+                        slack += leaf_bounds(a, len(yt),
+                                             params["learning_rate"],
+                                             False)[a.predict_leaf(Xv)]
+            else:
+                sc, slack = g.valid_score[0].score.numpy().copy(), None
+            b.steps.append((list(g.drop_index), sc, slack))
     return b
 
 

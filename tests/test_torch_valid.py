@@ -413,9 +413,10 @@ def test_reset_parameter_learning_rates_match_jax():
     _assert_same_trees(bj, bp, X)
     assert [t.shrinkage for t in bp._booster.models] == rates
     assert bp._booster.shrinkage_rate == 0.2
-    with pytest.raises(LightGBMError, match="item 19"):
+    with pytest.raises(LightGBMError, match="cannot change during "
+                                            "training"):
         lp.train(pp, lp.Dataset(X, y, params=pp), 2,
-                 callbacks=[pcb.reset_parameter(num_leaves=[7, 9])])
+                 callbacks=[pcb.reset_parameter(max_bin=[63, 31])])
 
 
 def test_persist_learning_rates_match_v1():
